@@ -1,0 +1,177 @@
+"""Inference: the MV3D detector on tensors (mv3d_tf_tpu/eval.py) — both
+trunks, RPN, proposal layer, dual-view ROI pooling, fusion head and
+corner decode, eagerly, on the device that holds the parameters.
+
+Parity notes, as in the JAX package:
+  * the image mean is subtracted in float32 before any cast;
+  * boxes for BEV NMS come from the UNREGRESSED corners; the regressed
+    corners are returned alongside.
+In bfloat16 the trunks run the fused conv1 stem (ops/vgg_stem_cuda.py),
+and on a card the ROI pooling runs the CUDA kernel (ops/roi_pool.py).
+"""
+
+import numpy as np
+import torch
+
+from mv3d_tf_tpu.config import cfg
+from mv3d_tf_tpu_torch import geometry as G
+from mv3d_tf_tpu_torch.models import mv3d
+from mv3d_tf_tpu_torch.ops.nms import nms_np
+from mv3d_tf_tpu_torch.ops.roi_pool import roi_pool_fast
+from mv3d_tf_tpu_torch.proposals import proposal_layer_3d
+
+PIXEL_MEANS = np.array([95.8814, 98.7743, 93.8549], np.float32)
+_NMS_IMPLS = ("auto", "blocked_fixed")
+
+
+def detect_from_features(params, c5, c5_2, calib, feat_h=75, feat_w=75,
+                         pre_nms_top_n=6000, post_nms_top_n=300,
+                         rpn_nms_thresh=0.7, compute_dtype=None,
+                         pool=roi_pool_fast):
+    """The detector after the trunks, for B frames.
+
+    c5 (B,h,w,512) BEV and c5_2 (B,h',w',512) image features; calib
+    (B,4,12). ``pool`` is the ROI pool (the kernel dispatch by default).
+    Returns the single-frame detector's keys with leading dims (B, P).
+    """
+    B, P = c5.shape[0], post_nms_top_n
+    rpn_cls, rpn_box = mv3d.rpn_head(params, c5, dtype=compute_dtype)
+    rois = proposal_layer_3d(mv3d.rpn_probs(rpn_cls), rpn_box.float(), calib,
+                             feat_h, feat_w, pre_nms_top_n=pre_nms_top_n,
+                             post_nms_top_n=P, nms_thresh=rpn_nms_thresh)
+
+    # frame-index column of the flattened rois (eval.py:217-220)
+    frame = torch.arange(B, dtype=torch.float32,
+                         device=c5.device).repeat_interleave(P)[:, None]
+    flat_bv = torch.cat([frame, rois["rois_bv"].reshape(B * P, 5)[:, 1:]], 1)
+    flat_img = torch.cat([frame, rois["rois_img"].reshape(B * P, 5)[:, 1:]], 1)
+    pooled_bv = pool(c5, flat_bv, spatial_scale=1.0 / 8)
+    pooled_img = pool(c5_2, flat_img, spatial_scale=1.0 / 8)
+    _, cls_prob, bbox_pred = mv3d.fusion_head(params, pooled_bv, pooled_img,
+                                              dtype=compute_dtype)
+
+    boxes_cnr = G.lidar_3d_to_corners(rois["rois_3d"].reshape(B * P, 7)[:, 1:])
+    # unregressed corners duplicated per class (test_mv.py:255)
+    pred_cnr = torch.cat([boxes_cnr, boxes_cnr], dim=1)
+    pred_cnr_r = G.bbox_transform_inv_cnr(boxes_cnr, bbox_pred.float())
+    pred_bv = G.corners_to_bv(pred_cnr)
+
+    mask = rois["valid"].reshape(B * P, 1).float()
+    return {
+        "scores": (cls_prob * mask).reshape(B, P, -1),
+        "boxes_bv": (pred_bv * mask).reshape(B, P, -1),
+        "boxes_cnr": (pred_cnr * mask).reshape(B, P, -1),
+        "boxes_cnr_r": (pred_cnr_r * mask).reshape(B, P, -1),
+        "rois_3d": rois["rois_3d"],
+        "rois_img": rois["rois_img"],
+        "valid": rois["valid"],
+    }
+
+
+@torch.inference_mode()
+def _detect(params, bev, image, calib, compute_dtype, **kw):
+    """Batched detector from raw inputs (B,...) on the params' device."""
+    dev = next(params.parameters()).device
+    bev = torch.as_tensor(bev, dtype=torch.float32, device=dev)
+    image = (torch.as_tensor(image, device=dev).float()
+             - torch.from_numpy(PIXEL_MEANS).to(dev))
+    calib = torch.as_tensor(calib, dtype=torch.float32, device=dev)
+    stem_impl = "fused" if compute_dtype == torch.bfloat16 else None
+    c5, c5_2 = mv3d.extract_features(params, bev, image, dtype=compute_dtype,
+                                     stem_impl=stem_impl)
+    return detect_from_features(params, c5, c5_2, calib,
+                                compute_dtype=compute_dtype, **kw)
+
+
+def build_detect_fn(feat_h=75, feat_w=75, pre_nms_top_n=6000,
+                    post_nms_top_n=300, rpn_nms_thresh=0.7,
+                    compute_dtype=None):
+    """The single-frame detector (eval.py:41-96).
+
+    Returns detect(params, bev (H,W,9), image (H',W',3), calib (4,12)) ->
+    dict with scores (P,2), boxes_bv (P,4K) [from unregressed corners],
+    boxes_cnr (P,24K), boxes_cnr_r (P,24K), rois_3d (P,7), rois_img (P,5),
+    valid (P,); P = post_nms_top_n, K = 2 classes. Inputs may be numpy
+    arrays or tensors; outputs are tensors on the params' device.
+    """
+    kw = dict(feat_h=feat_h, feat_w=feat_w, pre_nms_top_n=pre_nms_top_n,
+              post_nms_top_n=post_nms_top_n, rpn_nms_thresh=rpn_nms_thresh)
+
+    def detect(params, bev, image, calib):
+        out = _detect(params, torch.as_tensor(bev)[None],
+                      torch.as_tensor(image)[None],
+                      torch.as_tensor(calib)[None], compute_dtype, **kw)
+        return {name: v[0] for name, v in out.items()}
+
+    return detect
+
+
+def build_detect_batch_fn(feat_h=75, feat_w=75, pre_nms_top_n=6000,
+                          post_nms_top_n=300, rpn_nms_thresh=0.7,
+                          compute_dtype=None, quant=None, nms_impl="auto"):
+    """The batched detector (eval.py:99-305), with quant=None.
+
+    Returns detect_batch(params, bev (B,...), image (B,...), calib (B,4,12))
+    -> dict with leading dims (B, P) and the keys of the JAX batch detector.
+    Both nms_impl values run the one exact greedy NMS; with "blocked_fixed"
+    the output carries "nms_converged" (B,), all True, as the JAX key
+    promises.
+    """
+    if quant is not None:
+        raise NotImplementedError(
+            "int8 detection is not ported yet: ROADMAP.md, Queue 1 item 10 "
+            "(quant.py)")
+    if nms_impl not in _NMS_IMPLS:
+        raise ValueError("unknown nms_impl {!r}".format(nms_impl))
+    kw = dict(feat_h=feat_h, feat_w=feat_w, pre_nms_top_n=pre_nms_top_n,
+              post_nms_top_n=post_nms_top_n, rpn_nms_thresh=rpn_nms_thresh)
+
+    def detect_batch(params, bev, image, calib):
+        out = _detect(params, bev, image, calib, compute_dtype, **kw)
+        del out["rois_img"]
+        if nms_impl == "blocked_fixed":
+            out["nms_converged"] = torch.ones(
+                out["valid"].shape[0], dtype=torch.bool,
+                device=out["valid"].device)
+        return out
+
+    return detect_batch
+
+
+def frame_detections(det, num_classes=2, score_thresh=0.05,
+                     nms_thresh=None, max_per_image=300):
+    """Host-side assembly of one frame's detections per class
+    (eval.py:308-346): threshold, BEV NMS, global top-N cap.
+
+    Returns {cls: (dets_bv (M,5), dets_cnr (M,25), dets_cnr_r (M,25))}.
+    """
+    if nms_thresh is None:
+        nms_thresh = cfg.TEST.NMS
+    det = {k: (v.detach().cpu().numpy() if torch.is_tensor(v)
+               else np.asarray(v)) for k, v in det.items()}
+    scores, valid = det["scores"], det["valid"]
+
+    out = {}
+    all_scores = []
+    for j in range(1, num_classes):
+        inds = np.where(valid & (scores[:, j] > score_thresh))[0]
+        cls_scores = scores[inds, j]
+        cls_bv = det["boxes_bv"][inds, j * 4:(j + 1) * 4]
+        cls_cnr = det["boxes_cnr"][inds, j * 24:(j + 1) * 24]
+        cls_cnr_r = det["boxes_cnr_r"][inds, j * 24:(j + 1) * 24]
+        dets = np.hstack([cls_bv, cls_scores[:, None]]).astype(np.float32)
+        keep = nms_np(dets, nms_thresh)
+        out[j] = (dets[keep],
+                  np.hstack([cls_cnr[keep], cls_scores[keep, None]]),
+                  np.hstack([cls_cnr_r[keep], cls_scores[keep, None]]))
+        all_scores.append(out[j][0][:, -1])
+
+    # global top-N cap across classes (test_mv.py:492-501)
+    if max_per_image > 0 and all_scores:
+        flat = np.concatenate(all_scores)
+        if len(flat) > max_per_image:
+            thresh = np.sort(flat)[-max_per_image]
+            for j in list(out):
+                keep = np.where(out[j][0][:, -1] >= thresh)[0]
+                out[j] = tuple(a[keep] for a in out[j])
+    return out

@@ -1,0 +1,93 @@
+"""Build and load the hand-written CUDA kernels of ``csrc/``.
+
+On first use, nvcc compiles every ``csrc/*.cu`` into one shared library
+with a plain C interface for Hopper (``sm_90a``), which is then loaded
+with ctypes. The library lands in ``mv3d_tf_tpu_torch/_build/`` under a
+name derived from the sources and flags, so an edited source is rebuilt
+and an unchanged one is reused. A missing nvcc or a failed build raises.
+
+Each C entry point launches on the stream it is given and returns
+``cudaGetLastError()``; ``check`` turns a non-zero code into an error.
+"""
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "--ptxas-options=-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C entry points: name -> argument types (all return a cudaError_t as int)
+_SIGNATURES = {
+    "mv3d_roi_pool_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "mv3d_roi_pool_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "mv3d_vgg_stem_bf16": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+}
+
+_lock = threading.Lock()
+_lib = None
+build_info = {}   # seconds, library path and compiler log of the last load
+
+
+def nvcc_path():
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return path
+
+
+def _build():
+    sources = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        with open(src, "rb") as fh:
+            digest.update(fh.read())
+    lib_path = os.path.join(BUILD_DIR,
+                            "libmv3d_kernels_%s.so" % digest.hexdigest()[:16])
+    if os.path.exists(lib_path):
+        return lib_path, 0.0, ""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = "%s.%d.tmp" % (lib_path, os.getpid())
+    t0 = time.perf_counter()
+    proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", tmp, *sources],
+                          capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError("nvcc failed (exit %d):\n%s"
+                           % (proc.returncode, log))
+    os.replace(tmp, lib_path)
+    return lib_path, seconds, log
+
+
+def library():
+    """The loaded kernel library, built first if needed."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            path, seconds, log = _build()
+            lib = ctypes.CDLL(path)
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            build_info.update(seconds=seconds, path=path, log=log)
+            _lib = lib
+        return _lib
+
+
+def check(err, name):
+    """Raise if a launch returned a CUDA error code."""
+    if err != 0:
+        raise RuntimeError("%s: CUDA launch failed with cudaError %d"
+                           % (name, err))

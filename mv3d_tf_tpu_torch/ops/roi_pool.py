@@ -1,0 +1,106 @@
+"""ROI max-pooling: the plain PyTorch version and the dispatch to the CUDA
+kernel (mv3d_tf_tpu/ops/roi_pool.py).
+
+Forward semantics of the reference's ROIPoolForward, as the JAX package
+defines them:
+  * roi corners scaled by spatial_scale, then C round() (half away from
+    zero); malformed rois are forced to 1x1;
+  * bin [start, end) bounds in exact integer arithmetic, clipped to the
+    feature extent (``bin_bounds``, shared with the kernel's wrapper, so
+    kernel and plain version agree by construction);
+  * empty bins give 0.
+A batched feature map (B,H,W,C) is indexed by each roi's frame column.
+"""
+
+import torch
+
+_NEG = float("-inf")
+_CHUNK = 128   # rois per block of the plain version: bounds its memory
+
+
+def _c_round(x):
+    """C round(): half away from zero. ``torch.round`` rounds half to even."""
+    return torch.sign(x) * torch.floor(torch.abs(x) + 0.5)
+
+
+def bin_bounds(rois, pooled, spatial_scale, H, W):
+    """Integer-exact bin bounds (ops/roi_pool.py:79-100).
+
+    rois (R,5) float32 [frame, x1, y1, x2, y2] in input pixels. Returns
+    (R, 4, pooled) int32 rows hstart, hend, wstart, wend, clipped to
+    [0,H] / [0,W]: floor(p*n/P) == (p*n)//P, ceil((p+1)*n/P) ==
+    ((p+1)*n+P-1)//P.
+    """
+    xs, ys, xe, ye = _c_round(rois[:, 1:5] * spatial_scale).to(
+        torch.int32).unbind(1)
+    roi_w = (xe - xs + 1).clamp(min=1)[:, None]
+    roi_h = (ye - ys + 1).clamp(min=1)[:, None]
+    p = torch.arange(pooled, dtype=torch.int32, device=rois.device)
+    return torch.stack([
+        ((p * roi_h) // pooled + ys[:, None]).clamp(0, H),
+        (((p + 1) * roi_h + pooled - 1) // pooled + ys[:, None]).clamp(0, H),
+        ((p * roi_w) // pooled + xs[:, None]).clamp(0, W),
+        (((p + 1) * roi_w + pooled - 1) // pooled + xs[:, None]).clamp(0, W),
+    ], dim=1)
+
+
+def _as_batch(feat, rois):
+    """(feat (B,H,W,C), frame (R,) int32) for a single or batched map; a
+    roi's frame is its column 0, truncated and clamped to the batch."""
+    if feat.dim() == 3:
+        return feat[None], torch.zeros(rois.shape[0], dtype=torch.int32,
+                                       device=rois.device)
+    return feat, rois[:, 0].to(torch.int32).clamp(0, feat.shape[0] - 1)
+
+
+def roi_pool(feat, rois, pooled=7, spatial_scale=1.0 / 8):
+    """Plain PyTorch ROI max-pool, the reference for the CUDA kernel.
+
+    feat (H,W,C) or (B,H,W,C) float; rois (R,5) float32. Returns
+    (R, pooled, pooled, C) in feat's dtype. A separable masked max: rows of
+    each bin first, then columns, over _CHUNK rois at a time to bound the
+    (_CHUNK, pooled, W, C) intermediate.
+    """
+    f, frame = _as_batch(feat, rois)
+    B, H, W, C = f.shape
+    bounds = bin_bounds(rois, pooled, spatial_scale, H, W).long()
+    frame = frame.long()
+    outs = [_pool_block(f, bounds[i:i + _CHUNK], frame[i:i + _CHUNK], pooled)
+            for i in range(0, rois.shape[0], _CHUNK)]
+    if not outs:
+        return f.new_zeros((0, pooled, pooled, C))
+    return torch.cat(outs)
+
+
+def _pool_block(f, bounds, frame, P):
+    B, H, W, C = f.shape
+    r = bounds.shape[0]
+    hs, he, ws, we = bounds.unbind(1)                   # (r, P) each
+    m1 = f.new_full((r, P, W, C), _NEG)
+    hlen = he - hs
+    for k in range(int(hlen.max().clamp(min=0))):
+        rows = f[frame[:, None], (hs + k).clamp(max=H - 1)]      # (r,P,W,C)
+        ok = (k < hlen)[:, :, None, None]
+        m1 = torch.where(ok, torch.maximum(m1, rows), m1)
+    out = f.new_full((r, P, P, C), _NEG)
+    wlen = we - ws
+    for k in range(int(wlen.max().clamp(min=0))):
+        idx = (ws + k).clamp(max=W - 1)[:, None, :, None].expand(r, P, P, C)
+        cols = torch.gather(m1, 2, idx)                 # (r, ph, pw, C)
+        ok = (k < wlen)[:, None, :, None]
+        out = torch.where(ok, torch.maximum(out, cols), out)
+    empty = (he <= hs)[:, :, None] | (we <= ws)[:, None, :]
+    return out.masked_fill(empty[..., None], 0)
+
+
+def roi_pool_fast(feat, rois, pooled=7, spatial_scale=1.0 / 8):
+    """Inference dispatch: a CUDA tensor goes to the hand-written kernel,
+    a CPU tensor to the plain version; any other device raises."""
+    if feat.is_cuda:
+        from mv3d_tf_tpu_torch.ops.roi_pool_cuda import roi_pool_cuda
+        return roi_pool_cuda(feat.contiguous(), rois.contiguous(), pooled,
+                             spatial_scale)
+    if feat.device.type == "cpu":
+        return roi_pool(feat, rois, pooled, spatial_scale)
+    raise ValueError("roi_pool_fast: no ROI pool for device "
+                     + str(feat.device))

@@ -1,0 +1,91 @@
+"""Conversion between the JAX package's parameter dict and the port's.
+
+The JAX package keeps a flat dict ``{name: {"weights", "biases"}}`` of
+numpy-convertible arrays with the reference layer names (conv1_1 ...
+conv5_3, the ``_2`` image trunk, rpn_conv/3x3, fc6_1 ... bbox_pred); conv
+weights are HWIO and fc weights (in, out). The port keeps an
+``nn.ModuleDict`` of Conv2d (OIHW) and Linear ((out, in)) layers. The
+layout change happens here and nowhere else. Both packages flatten pooled
+maps in (h, w, c) order, so fc rows need no permutation.
+"""
+
+import numpy as np
+import torch
+
+from mv3d_tf_tpu_torch.models import vgg
+from mv3d_tf_tpu_torch.models.mv3d import N_CLASSES, NUM_ANCHORS
+
+
+def params_from_jax(np_params, device=None):
+    """JAX flat param dict -> the port's ModuleDict, float32 on ``device``."""
+    layers = {}
+    for name, p in np_params.items():
+        w = np.array(p["weights"], np.float32)
+        b = np.array(p["biases"], np.float32)
+        if w.ndim == 4:                                  # HWIO -> OIHW
+            kh, _, cin, cout = w.shape
+            m = vgg.empty_layer(torch.nn.Conv2d, (cin, cout, kh), device)
+            w = w.transpose(3, 2, 0, 1)
+        else:                                            # (in, out) -> (out, in)
+            m = vgg.empty_layer(torch.nn.Linear, w.shape, device)
+            w = w.T
+        with torch.no_grad():
+            m.weight.copy_(torch.from_numpy(np.ascontiguousarray(w)))
+            m.bias.copy_(torch.from_numpy(b))
+        layers[vgg.module_key(name)] = m
+    return torch.nn.ModuleDict(layers)
+
+
+def params_to_jax(params):
+    """The port's ModuleDict -> JAX flat param dict of float32 numpy arrays."""
+    out = {}
+    for key, m in params.items():
+        w = m.weight.detach().float().cpu().numpy()
+        w = w.transpose(2, 3, 1, 0) if w.ndim == 4 else w.T
+        out[key.replace("__", "/")] = {
+            "weights": np.ascontiguousarray(w),
+            "biases": m.bias.detach().float().cpu().numpy()}
+    return out
+
+
+def jax_param_shapes(bev_channels=9, fc_dim=2048, pooled=7):
+    """{name: weight shape} of the JAX layout (mv3d.py:33-65)."""
+    shapes = {}
+    for suffix, cin in (("", bev_channels), ("_2", 3)):
+        for name, cout, _ in vgg.VGG_LAYERS:
+            shapes[name + suffix] = (3, 3, cin, cout)
+            cin = cout
+    roi_dim = 512 * pooled * pooled
+    shapes.update({
+        "rpn_conv/3x3": (3, 3, 512, 512),
+        "rpn_cls_score": (1, 1, 512, NUM_ANCHORS * 2),
+        "rpn_bbox_pred": (1, 1, 512, NUM_ANCHORS * 6),
+        "fc6_1": (roi_dim, fc_dim), "fc7_1": (fc_dim, fc_dim),
+        "fc6_2": (roi_dim, fc_dim), "fc7_2": (fc_dim, fc_dim),
+        "cls_score": (2 * fc_dim, N_CLASSES),
+        "bbox_pred": (2 * fc_dim, N_CLASSES * 24),
+    })
+    return shapes
+
+
+def he_normal_params(seed, bev_channels=9, fc_dim=2048, pooled=7):
+    """JAX-layout params with He-scaled normal weights (std sqrt(2/fan_in))
+    and zero biases, from a numpy seed.
+
+    The JAX package's own init (std 0.01) shrinks activations ~10x per
+    layer: at small shapes every RPN score comes out exactly 0.5, and the
+    detector's outputs then test tie rules rather than the network. At He
+    scale features stay O(1) and scores are distinct. Two layers differ
+    from plain He: the image trunk's conv1_1 is divided by 64, about the
+    std of 8-bit pixels after mean subtraction, so that trunk also sees
+    unit-scale inputs; bbox_pred keeps the JAX init's 10x smaller scale.
+    """
+    rng = np.random.default_rng(seed)
+    gain = {"conv1_1_2": 1.0 / 64, "bbox_pred": 0.1}
+    out = {}
+    for name, shape in jax_param_shapes(bev_channels, fc_dim, pooled).items():
+        std = np.sqrt(2.0 / np.prod(shape[:-1])) * gain.get(name, 1.0)
+        w = rng.standard_normal(shape, dtype=np.float32)
+        out[name] = {"weights": w * np.float32(std),
+                     "biases": np.zeros(shape[-1], np.float32)}
+    return out
