@@ -6,8 +6,11 @@ Builds the CUDA kernels from csrc/ (nvcc, sm_90a), checks each against its
 plain PyTorch version on the card, then drives the full-shape detector
 (601x601x9 BEV, 384x1248x3 image, pre-NMS 6000, post-NMS 300) with random
 He-scaled weights: single-frame in float32 and bfloat16, and batched in
-bfloat16 with B=4. Every failed check raises, so the exit code is non-zero;
-without a CUDA device it exits non-zero before printing any result.
+bfloat16 with B=4. Then it checks the ROI-pool backward kernel against its
+plain version and takes full-width train steps (pre-NMS 12000, post-NMS
+2000, 128 rois, Adam) in float32 and bfloat16 through both ROI kernels.
+Every failed check raises, so the exit code is non-zero; without a CUDA
+device it exits non-zero before printing any result.
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit, and before that a JSON line per kernel.
 """
@@ -21,22 +24,40 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from mv3d_tf_tpu_torch import geometry as G
 from mv3d_tf_tpu_torch import kernels
+from mv3d_tf_tpu_torch import train as train_mod
 from mv3d_tf_tpu_torch.eval import (PIXEL_MEANS, build_detect_batch_fn,
                                     build_detect_fn, detect_from_features,
                                     frame_detections)
 from mv3d_tf_tpu_torch.models import mv3d
-from mv3d_tf_tpu_torch.models.vgg import conv2d, layer, max_pool_2x2_valid
-from mv3d_tf_tpu_torch.ops.roi_pool import roi_pool, roi_pool_fast
-from mv3d_tf_tpu_torch.ops.roi_pool_cuda import roi_pool_cuda
+from mv3d_tf_tpu_torch.models.vgg import (conv2d, layer, max_pool_2x2_valid,
+                                          module_key)
+from mv3d_tf_tpu_torch.ops.roi_pool import (bin_bounds, bin_cells, roi_pool,
+                                            roi_pool_bwd, roi_pool_fast,
+                                            roi_pool_train)
+from mv3d_tf_tpu_torch.ops.roi_pool_cuda import roi_pool_bwd_cuda, roi_pool_cuda
 from mv3d_tf_tpu_torch.ops.vgg_stem_cuda import vgg_stem_cuda, vgg_stem_plain
+from mv3d_tf_tpu_torch.train import (build_forward_losses, build_train_step,
+                                     make_draws)
 from mv3d_tf_tpu_torch.utils.weights import he_normal_params, params_from_jax
 
 SEED = 0
 PRE_NMS, POST_NMS = 6000, 300
 STEM_TOL = 2 ** -7    # one bf16 ulp of the max magnitude (+1e-6)
+# the backward kernel sums with f32 atomics in another order than the plain
+# version's index_add_; tie counts are exact, so only the sums' rounding
+BWD_RTOL, BWD_ATOL = 1e-5, 1e-7
 ROI_SOURCE = "mv3d_tf_tpu_torch/csrc/roi_pool.cu"
 STEM_SOURCE = "mv3d_tf_tpu_torch/csrc/vgg_stem.cu"
+BWD_SOURCE = "mv3d_tf_tpu_torch/csrc/roi_pool_bwd.cu"
+TRAIN_STEPS = 3
+TRAIN_PRE_NMS, TRAIN_POST_NMS, TRAIN_ROIS, FC_DIM = 12000, 2000, 128, 2048
+MAX_GT = 32           # the config's TPU.MAX_GT: gt rows per frame
+TRAIN_BEV, TRAIN_IMAGE, FEAT = (601, 601, 9), (384, 1248, 3), 75
+# the train pools' maps (stride-8 conv5_3 of each view) and input extents
+BWD_VIEWS = {"bev": ((75, 75, 512), 600, 600),
+             "image": ((48, 156, 512), 384, 1248)}
 
 
 def example_calib():
@@ -321,6 +342,244 @@ def phase_detector(params, smi):
     return launches
 
 
+def replay_trap(feat, rois, out, dy, rule):
+    """The plain replay under a tie rule the contract rejects: "all" gives
+    the whole dy to every tying cell, "first" only to the first tying cell
+    in row-major order (the reference CUDA kernel's argmax)."""
+    H, W, C = feat.shape
+    dfeat = torch.zeros((H * W, C), device=feat.device)
+    o = out.float()
+    taken = torch.zeros_like(o, dtype=torch.bool)
+    for cell, cells, inside in bin_cells(feat,
+                                         bin_bounds(rois, 7, 1.0 / 8, H, W)):
+        hit = inside[..., None] & (cells.float() == o)
+        if rule == "first":
+            hit &= ~taken
+            taken |= hit
+        dfeat.index_add_(0, cell.reshape(-1),
+                         torch.where(hit, dy, 0.0).reshape(-1, C))
+    return dfeat.reshape(H, W, C)
+
+
+def phase_roi_bwd(gen):
+    """Backward kernel vs plain on the card, within BWD_RTOL * max|ref| +
+    BWD_ATOL, at the train pools' shapes (BEV 75x75x512, image 48x156x512,
+    128 rois with a duplicate and the edge rois), float32 and bf16, on
+    distinct, post-ReLU sparse and few-level maps. dfeat's total equals the
+    dy of the non-empty bins; on maps with ties, a replay that gives every
+    tying cell the whole dy, and one that gives it to the first tying cell,
+    both miss the tolerance. Then the kernel and plain times."""
+    worst = 0.0
+    timing = {}
+    for name, (shape, in_h, in_w) in BWD_VIEWS.items():
+        x = torch.randn(shape, generator=gen).cuda()
+        maps = {"distinct": x, "sparse": F.relu(x),
+                "levels": (x * 2).round().clamp(0, 4) / 2}
+        rois = make_rois(gen, 121, in_h, in_w, 1)
+        rois = torch.cat([rois, rois[:1]])           # a duplicated roi
+        hs, he, ws, we = bin_bounds(rois, 7, 1.0 / 8, *shape[:2]).unbind(1)
+        nonempty = ((he > hs)[:, :, None] & (we > ws)[:, None, :])[..., None]
+        for dtype in (torch.float32, torch.bfloat16):
+            for kind, m in maps.items():
+                feat = m.to(dtype)
+                out = roi_pool_cuda(feat, rois)
+                dy = torch.rand(out.shape, generator=gen).cuda()
+                got = roi_pool_bwd_cuda(feat, rois, out, dy)
+                ref = roi_pool_bwd(feat, rois, out, dy)
+                torch.cuda.synchronize()
+                err = (got - ref).abs().max().item()
+                tol = BWD_RTOL * ref.abs().max().item() + BWD_ATOL
+                what = "roi_pool_bwd %s %s %s" % (name, dtype, kind)
+                if not err <= tol:
+                    raise AssertionError("%s: max |diff| %g > %g"
+                                         % (what, err, tol))
+                mass = got.double().sum().item()
+                want = (dy.double() * nonempty).sum().item()
+                if not abs(mass - want) <= 1e-5 * abs(want):
+                    raise AssertionError("%s: dfeat sums to %r, the non-empty "
+                                         "bins' dy to %r" % (what, mass, want))
+                line = "%s: max |diff| %g <= %g, mass %.6f of %.6f" % (
+                    what, err, tol, mass, want)
+                if kind != "distinct" or dtype == torch.bfloat16:
+                    traps = {rule: (replay_trap(feat, rois, out, dy, rule)
+                                    - ref).abs().max().item()
+                             for rule in ("all", "first")}
+                    if not min(traps.values()) > tol:
+                        raise AssertionError("%s: a wrong tie rule would pass "
+                                             "the check: %s" % (what, traps))
+                    line += "; whole-dy replay off by %g, first-argmax by %g" % (
+                        traps["all"], traps["first"])
+                worst = max(worst, err)
+                print(line)
+                if kind == "sparse":
+                    timing[(name, dtype)] = (
+                        cuda_ms(lambda: roi_pool_bwd_cuda(feat, rois, out, dy)),
+                        cuda_ms(lambda: roi_pool_bwd(feat, rois, out, dy),
+                                iters=3, warmup=1))
+    for (name, dtype), (k, p) in timing.items():
+        print("roi_pool_bwd time %s %s rois=128: kernel %.4f ms, plain %.4f ms"
+              % (name, dtype, k, p))
+    f32 = [timing[(name, torch.float32)] for name in BWD_VIEWS]
+    return {"max_abs_err": worst, "ms": sum(k for k, _ in f32),
+            "plain_ms": sum(p for _, p in f32)}
+
+
+def train_batch(rng):
+    """One full-width training frame on the card: random BEV and image,
+    the example calib, and MAX_GT gt rows of which 3-6 are cars, lidar boxes
+    in BEV range with their BEV boxes and corners (class 1); padded rows as
+    data/loader.py:pad_gt leaves them."""
+    n = rng.randint(3, 7)
+    box = torch.from_numpy(np.stack([
+        rng.uniform(8, 52, n), rng.uniform(-25, 25, n), np.full(n, -0.95),
+        rng.uniform(3.5, 4.5, n), rng.uniform(1.5, 1.9, n),
+        rng.uniform(1.4, 1.7, n)], 1).astype(np.float32))
+    bv = torch.zeros(MAX_GT, 5)
+    b3 = torch.zeros(MAX_GT, 7)
+    b3[:, 3:6] = 1.0
+    cnr = torch.zeros(MAX_GT, 25)
+    bv[:n, :4] = G.lidar_3d_to_bv(box)
+    b3[:n, :6] = box
+    cnr[:n, :24] = G.lidar_3d_to_corners(box)
+    bv[:n, 4] = b3[:n, 6] = cnr[:n, 24] = 1.0
+    batch = {"bev": torch.from_numpy(rng.rand(*TRAIN_BEV).astype(np.float32)),
+             "image": torch.from_numpy(
+                 (rng.rand(*TRAIN_IMAGE) * 255).astype(np.float32)),
+             "calib": torch.from_numpy(example_calib()),
+             "gt_boxes_bv": bv, "gt_boxes_3d": b3, "gt_boxes_corners": cnr,
+             "gt_valid": torch.arange(MAX_GT) < n}
+    return {k: v.cuda() for k, v in batch.items()}, n
+
+
+class PlainPool(torch.autograd.Function):
+    """The train pool through both plain versions, on any device."""
+
+    @staticmethod
+    def forward(ctx, feat, rois, pooled, spatial_scale):
+        out = roi_pool(feat, rois, pooled, spatial_scale)
+        ctx.save_for_backward(feat, rois, out)
+        ctx.args = (pooled, spatial_scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, dy):
+        feat, rois, out = ctx.saved_tensors
+        return (roi_pool_bwd(feat, rois, out, dy.float(), *ctx.args)
+                .to(feat.dtype), None, None, None)
+
+
+def plain_pool(feat, rois, pooled=7, spatial_scale=1.0 / 8):
+    return PlainPool.apply(feat, rois, pooled, spatial_scale)
+
+
+def phase_train(np_params, smi):
+    """The train path at full width, in float32 and in bf16, each from fresh
+    He-scaled params with draws from a seeded generator: one warm-up step,
+    TRAIN_STEPS timed steps, then one step with the proposal layer timed
+    between synchronizes (kept out of the timed steps, whose clock the
+    probe would perturb). Checks finite metrics and a positive loss on
+    every step, moved rpn_conv/3x3 and fc6_1 weights, and the ROI launch
+    counts (zeroed just before, read just after: 2 forward and 2 backward
+    per step, no stem). Then, in float32, one step's loss and gradients
+    through the kernel pair equal those through the plain pair. Returns
+    the launch counts."""
+    batch, n_gt = train_batch(np.random.RandomState(SEED + 2))
+    n_anchors = FEAT * FEAT * 4
+    draw_args = (n_anchors, TRAIN_POST_NMS + MAX_GT, TRAIN_ROIS, FC_DIM, 0.5,
+                 "cuda")
+    kw = dict(feat_h=FEAT, feat_w=FEAT, pre_nms_top_n=TRAIN_PRE_NMS,
+              post_nms_top_n=TRAIN_POST_NMS, rois_per_image=TRAIN_ROIS)
+    proposal_layer = train_mod.proposal_layer_3d
+    proposal_ms = []
+
+    def timed_proposals(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = proposal_layer(*args, **kwargs)
+        torch.cuda.synchronize()
+        proposal_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def checked_step(name, step, params, opt, gen):
+        m, ms = timed(step, params, opt, batch, make_draws(gen, *draw_args))
+        bad = [k for k, v in m.items() if not torch.isfinite(v)]
+        if bad or not m["loss"].item() > 0:
+            raise AssertionError("train %s: metrics %s" % (
+                name, {k: v.item() for k, v in m.items()}))
+        return m["loss"].item(), ms
+
+    roi_pool_cuda.launches = roi_pool_bwd_cuda.launches = 0
+    vgg_stem_cuda.launches = 0
+    for name, dtype in (("f32", None), ("bf16", torch.bfloat16)):
+        step, make_opt = build_train_step(compute_dtype=dtype, **kw)
+        params = params_from_jax(np_params, device="cuda")
+        watch = {k: params[module_key(k)].weight.detach().clone()
+                 for k in ("rpn_conv/3x3", "fc6_1")}
+        opt = make_opt(params)
+        gen = torch.Generator().manual_seed(SEED + 3)
+        warm_loss, warm_ms = checked_step(name, step, params, opt, gen)
+        losses, times = zip(*[checked_step(name, step, params, opt, gen)
+                              for _ in range(TRAIN_STEPS)])
+        del proposal_ms[:]
+        train_mod.proposal_layer_3d = timed_proposals
+        try:
+            _, probed_ms = checked_step(name, step, params, opt, gen)
+        finally:
+            train_mod.proposal_layer_3d = proposal_layer
+        still = [k for k, w in watch.items()
+                 if torch.equal(params[module_key(k)].weight, w)]
+        if still:
+            raise AssertionError("train %s: %s did not move" % (name, still))
+        p50 = float(np.median(times))
+        print("train step %s: p50 %.3f ms/step over %d steps (%s) after a "
+              "%.3f ms warm-up, loss %.5f then %s, %d gt cars; probed step "
+              "%.3f ms, its proposal layer %.3f ms = %.3f of that step; "
+              "on [%s]" % (name, p50, TRAIN_STEPS,
+                           ", ".join("%.3f" % t for t in times), warm_ms,
+                           warm_loss, ", ".join("%.5f" % v for v in losses),
+                           n_gt, probed_ms, proposal_ms[0],
+                           proposal_ms[0] / probed_ms, smi))
+        del params, opt, step
+    launches = {"roi_pool": roi_pool_cuda.launches,
+                "roi_pool_bwd": roi_pool_bwd_cuda.launches,
+                "vgg_stem": vgg_stem_cuda.launches}
+    steps = 2 * (TRAIN_STEPS + 2)   # both dtypes; warm-up and probed steps
+    expected = {"roi_pool": 2 * steps, "roi_pool_bwd": 2 * steps,
+                "vgg_stem": 0}
+    print("train-path launches: %s (expected %s)" % (launches, expected))
+    if launches != expected:
+        raise AssertionError("train launch counts %s != %s"
+                             % (launches, expected))
+
+    # f32: the kernel pair against the plain pair, same params and draws
+    draws = make_draws(torch.Generator().manual_seed(SEED + 4), *draw_args)
+    results = {}
+    for name, pool in (("kernel", roi_pool_train), ("plain", plain_pool)):
+        fwd = build_forward_losses(pool=pool, **kw)
+        params = params_from_jax(np_params, device="cuda")
+        m = fwd(params, batch, draws)
+        m["loss"].backward()
+        results[name] = (m["loss"].item(),
+                         {k: p.grad for k, p in params.named_parameters()})
+        del params
+    (loss_k, g_k), (loss_p, g_p) = results["kernel"], results["plain"]
+    if not abs(loss_k - loss_p) <= 1e-6 * abs(loss_p):
+        raise AssertionError("f32 train loss: kernel pair %r, plain pair %r"
+                             % (loss_k, loss_p))
+    worst = 0.0
+    for k, g in g_p.items():
+        err = (g_k[k] - g).abs().max().item()
+        scale = g.abs().max().item()
+        if not err <= 1e-4 * scale:
+            raise AssertionError("f32 train gradient of %s: max |diff| %g > "
+                                 "1e-4 * %g" % (k, err, scale))
+        worst = max(worst, err / scale if scale else 0.0)
+    print("f32 train step through the kernel pair vs the plain pair: loss "
+          "%.7f vs %.7f; worst gradient max |diff| / max |g| %.3g over %d "
+          "tensors" % (loss_k, loss_p, worst, len(g_p)))
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; "
@@ -328,18 +587,27 @@ def main():
     smi = phase_environment()
     gen = torch.Generator().manual_seed(SEED)
     roi = phase_roi_pool(gen)
-    params = params_from_jax(he_normal_params(SEED), device="cuda")
+    np_params = he_normal_params(SEED)
+    params = params_from_jax(np_params, device="cuda")
     stem = phase_stem(params)
     launches = phase_detector(params, smi)
+    del params
+    bwd = phase_roi_bwd(gen)
+    train_launches = phase_train(np_params, smi)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
+    # launches on the main paths: the detector's run plus the train run
     print(json.dumps({"kernels": [
         {"name": "roi_pool", "route": "cuda", "source": ROI_SOURCE,
          "replaces": "mv3d_tf_tpu/ops/roi_pool_pallas.py:71",
-         "launches": launches["roi_pool"], **roi},
+         "launches": launches["roi_pool"] + train_launches["roi_pool"],
+         **roi},
         {"name": "vgg_stem", "route": "cuda", "source": STEM_SOURCE,
          "replaces": "mv3d_tf_tpu/ops/vgg_stem_pallas.py:106",
          "launches": launches["vgg_stem"], **stem},
+        {"name": "roi_pool_bwd", "route": "cuda", "source": BWD_SOURCE,
+         "replaces": "mv3d_tf_tpu/ops/roi_pool_pallas.py:333",
+         "launches": train_launches["roi_pool_bwd"], **bwd},
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,5 @@
-"""mv3d_tf_tpu_torch — the MV3D inference detector in PyTorch, with
-hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
+"""mv3d_tf_tpu_torch — the MV3D inference detector and single-frame train
+step in PyTorch, with hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
 
 The package mirrors the module names of the JAX package ``mv3d_tf_tpu``,
 which stays the reference it is tested against: ``mv3d_tf_tpu/X.py`` has

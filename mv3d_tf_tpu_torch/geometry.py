@@ -1,5 +1,5 @@
 """Geometry and box math on tensors: the subset of mv3d_tf_tpu/geometry.py
-that the inference detector runs.
+that the detector and the train step run.
 
 Same constants, formulas and reference quirks as the JAX module (each
 function cites it). Every function takes and returns float32 tensors and
@@ -39,6 +39,20 @@ def lidar_to_bv_coord(x, y):
     xx = Yn - torch.floor((y - TOP_Y_MIN) / RES)
     yy = Xn - torch.floor((x - TOP_X_MIN) / RES)
     return xx, yy
+
+
+def bv_anchor_to_lidar(anchors):
+    """(N, 4) BEV px boxes -> (N, 6) lidar [x,y,z,l,w,h] in float32.
+    geometry.py:77-88 (anchors.bv_anchor_to_lidar_np is the float64 twin)."""
+    lengths = (anchors[:, 3] - anchors[:, 1]) * RES
+    widths = (anchors[:, 2] - anchors[:, 0]) * RES
+    xx = (anchors[:, 0] + anchors[:, 2]) / 2.0
+    yy = (anchors[:, 1] + anchors[:, 3]) / 2.0
+    y = Xn * RES - (xx + 0.5) * RES + TOP_Y_MIN
+    x = Yn * RES - (yy + 0.5) * RES + TOP_X_MIN
+    z = torch.full_like(x, -(LIDAR_HEIGHT - CAR_HEIGHT / 2.0))
+    h = torch.full_like(x, CAR_HEIGHT)
+    return torch.stack([x, y, z, lengths, widths, h], dim=1)
 
 
 def lidar_3d_to_bv(rois_3d):
@@ -121,6 +135,20 @@ def bbox_transform_inv_3d(boxes, deltas):
         torch.exp(deltas[..., 5::6]) * h,
     ], dim=-1)
     return out.reshape(deltas.shape)
+
+
+def bbox_transform_3d(ex, gt):
+    """6-dof regression targets of (N, 6) boxes ``ex`` toward ``gt``,
+    keeping the reference's dx/width and dy/length mixing.
+    geometry.py:299-310."""
+    return torch.stack([
+        (gt[:, 0] - ex[:, 0]) / ex[:, 4],
+        (gt[:, 1] - ex[:, 1]) / ex[:, 3],
+        (gt[:, 2] - ex[:, 2]) / ex[:, 5],
+        torch.log(gt[:, 3] / ex[:, 3]),
+        torch.log(gt[:, 4] / ex[:, 4]),
+        torch.log(gt[:, 5] / ex[:, 5]),
+    ], dim=1)
 
 
 def corner_diag(boxes_cnr):

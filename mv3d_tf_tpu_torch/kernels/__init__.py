@@ -1,15 +1,17 @@
 """Build and load the hand-written CUDA kernels of ``csrc/``.
 
-On first use, nvcc compiles every ``csrc/*.cu`` into one shared library
-with a plain C interface for Hopper (``sm_90a``), which is then loaded
-with ctypes. The library lands in ``mv3d_tf_tpu_torch/_build/`` under a
-name derived from the sources and flags, so an edited source is rebuilt
-and an unchanged one is reused. A missing nvcc or a failed build raises.
+On first use, nvcc compiles each ``csrc/*.cu`` for Hopper (``sm_90a``),
+one process per source, all started together, and links the objects into
+one shared library with a plain C interface, which is then loaded with
+ctypes. The library lands in ``mv3d_tf_tpu_torch/_build/`` under a name
+derived from the sources and flags, so an edited source is rebuilt and an
+unchanged one is reused. A missing nvcc or a failed build raises.
 
 Each C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; ``check`` turns a non-zero code into an error.
 """
 
+import concurrent.futures
 import ctypes
 import glob
 import hashlib
@@ -23,7 +25,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "--ptxas-options=-v")
+              "-Xcompiler", "-fPIC", "--ptxas-options=-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -31,6 +33,8 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "mv3d_roi_pool_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "mv3d_roi_pool_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "mv3d_roi_pool_bwd_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "mv3d_roi_pool_bwd_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "mv3d_vgg_stem_bf16": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
@@ -46,6 +50,16 @@ def nvcc_path():
     return path
 
 
+def _run(cmd):
+    """Run one compiler command; raise with its output if it fails."""
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError("nvcc failed (exit %d): %s\n%s"
+                           % (proc.returncode, " ".join(cmd), log))
+    return log
+
+
 def _build():
     sources = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
@@ -58,16 +72,22 @@ def _build():
         return lib_path, 0.0, ""
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = "%s.%d.tmp" % (lib_path, os.getpid())
+    objs = ["%s.%d.o" % (tmp, i) for i in range(len(sources))]
+    nvcc = nvcc_path()
     t0 = time.perf_counter()
-    proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", tmp, *sources],
-                          capture_output=True, text=True)
+    try:
+        with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
+            logs = list(pool.map(
+                lambda so: _run([nvcc, *NVCC_FLAGS, "-c", "-o", so[1], so[0]]),
+                zip(sources, objs)))
+        logs.append(_run([nvcc, "-shared", "-o", tmp, *objs]))
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError("nvcc failed (exit %d):\n%s"
-                           % (proc.returncode, log))
     os.replace(tmp, lib_path)
-    return lib_path, seconds, log
+    return lib_path, seconds, "".join(logs)
 
 
 def library():

@@ -1,5 +1,5 @@
-"""MV3D detector for inference: dual VGG16 trunks, BEV RPN, multi-view
-fusion head (mv3d_tf_tpu/models/mv3d.py).
+"""MV3D detector: dual VGG16 trunks, BEV RPN, multi-view fusion head with
+train-mode dropout (mv3d_tf_tpu/models/mv3d.py).
 
 Parameters are one ``nn.ModuleDict`` of ``nn.Conv2d`` / ``nn.Linear``
 layers keyed by the reference layer names, with '/' mapped to '__'
@@ -84,14 +84,35 @@ def rpn_fg_scores(rpn_cls_prob):
     return rpn_cls_prob.reshape(b, h, w, c // 2, 2)[..., 1].reshape(b, -1)
 
 
-def fusion_head(params, pooled_bv, pooled_img, dtype=None):
-    """Inference fusion head (the test graph: no dropout), mv3d.py:143-177.
-    Returns cls_score, cls_prob (float32 softmax), bbox_pred."""
+def dropout(mask, x, keep_prob):
+    """TF-style dropout with the keep mask given: kept units scaled by
+    1/keep_prob (mv3d.py:87-92, where the mask is drawn from a key)."""
+    return torch.where(mask, x / keep_prob, 0.0)
+
+
+def fusion_head(params, pooled_bv, pooled_img, dtype=None, train=False,
+                masks=None, keep_prob=1.0):
+    """Fusion head, mv3d.py:143-177. Returns cls_score, cls_prob (float32
+    softmax), bbox_pred.
+
+    The test graph has no dropout. With train=True, masks holds the five
+    boolean keep masks, in the order of the JAX keys k1..k5: after fc6_1,
+    fc7_1, fc6_2, fc7_2 ((N, fc) each) and on the (N, 2fc) concat, which
+    both heads read. keep_prob >= 1 or masks=None drops nothing, as in JAX.
+    """
+    if not (train and masks is not None and keep_prob < 1.0):
+        masks = None
     if dtype is not None:
         pooled_bv, pooled_img = pooled_bv.to(dtype), pooled_img.to(dtype)
-    f1 = fc_apply(params, "fc7_1", fc_apply(params, "fc6_1", pooled_bv))
-    f2 = fc_apply(params, "fc7_2", fc_apply(params, "fc6_2", pooled_img))
-    fused = torch.cat([f1, f2], dim=1)
+
+    def drop(i, x):
+        return x if masks is None else dropout(masks[i], x, keep_prob)
+
+    f1 = drop(1, fc_apply(params, "fc7_1",
+                          drop(0, fc_apply(params, "fc6_1", pooled_bv))))
+    f2 = drop(3, fc_apply(params, "fc7_2",
+                          drop(2, fc_apply(params, "fc6_2", pooled_img))))
+    fused = drop(4, torch.cat([f1, f2], dim=1))
     cls_score = fc_apply(params, "cls_score", fused, relu=False)
     cls_prob = torch.softmax(cls_score.float(), dim=-1)
     bbox_pred = fc_apply(params, "bbox_pred", fused, relu=False)

@@ -10,6 +10,9 @@ defines them:
     kernel and plain version agree by construction);
   * empty bins give 0.
 A batched feature map (B,H,W,C) is indexed by each roi's frame column.
+
+The train path's pool (``roi_pool_train``) is single-frame, and its
+gradient is the TPU kernel's even-split equality replay (``roi_pool_bwd``).
 """
 
 import torch
@@ -104,3 +107,94 @@ def roi_pool_fast(feat, rois, pooled=7, spatial_scale=1.0 / 8):
         return roi_pool(feat, rois, pooled, spatial_scale)
     raise ValueError("roi_pool_fast: no ROI pool for device "
                      + str(feat.device))
+
+
+def bin_cells(feat, bounds):
+    """Every cell of every bin of a block of rois, one (kh, kw) offset into
+    the bins at a time. feat (H,W,C); bounds (r, 4, P) from bin_bounds.
+    Yields (cell (r,P,P) flat index into the (H*W) cells, values (r,P,P,C),
+    inside (r,P,P): whether the offset lies inside that bin), offsets in
+    row-major order."""
+    if bounds.shape[0] == 0:
+        return
+    H, W, C = feat.shape
+    hs, he, ws, we = bounds.long().unbind(1)              # (r, P) each
+    hlen, wlen = he - hs, we - ws
+    flat = feat.reshape(H * W, C)
+    for kh in range(int(hlen.max().clamp(min=0))):
+        rows = (hs + kh).clamp(max=H - 1)[:, :, None] * W
+        for kw in range(int(wlen.max().clamp(min=0))):
+            cell = rows + (ws + kw).clamp(max=W - 1)[:, None, :]
+            inside = (kh < hlen)[:, :, None] & (kw < wlen)[:, None, :]
+            yield cell, flat[cell], inside
+
+
+def roi_pool_bwd(feat, rois, out, dy, pooled=7, spatial_scale=1.0 / 8):
+    """Gradient of the ROI max-pool w.r.t. a single-frame map, the plain
+    version of kernel csrc/roi_pool_bwd.cu (roi_pool_pallas.py:333-467).
+
+    Equality replay with an even split: the cells of bin (r,ph,pw) whose
+    value equals out[r,ph,pw,c] (compared in float32) share
+    dy[r,ph,pw,c] * (1 / count) each; overlapping bins and rois add; empty
+    bins, and a NaN max (equal to no cell), give nothing. feat (H,W,C)
+    float32/bfloat16, rois (R,5), out (R,P,P,C) the forward's output, dy
+    (R,P,P,C). Returns dfeat (H,W,C) float32. Rois go in blocks of _CHUNK.
+    """
+    H, W, C = feat.shape
+    bounds = bin_bounds(rois, pooled, spatial_scale, H, W)
+    dfeat = torch.zeros((H * W, C), dtype=torch.float32, device=feat.device)
+    for i in range(0, rois.shape[0], _CHUNK):
+        b = bounds[i:i + _CHUNK]
+        o = out[i:i + _CHUNK].float()
+        cnt = torch.zeros_like(o)
+        for _, cells, inside in bin_cells(feat, b):
+            cnt += (inside[..., None] & (cells.float() == o)).float()
+        share = dy[i:i + _CHUNK].float() * (1.0 / cnt.clamp(min=1.0))
+        for cell, cells, inside in bin_cells(feat, b):
+            hit = inside[..., None] & (cells.float() == o)
+            dfeat.index_add_(0, cell.reshape(-1),
+                             torch.where(hit, share, 0.0).reshape(-1, C))
+    return dfeat.reshape(H, W, C)
+
+
+class RoIPoolTrain(torch.autograd.Function):
+    """Differentiable single-frame ROI pool. On a CUDA tensor the forward
+    is the ROI kernel and the backward the backward kernel; on a CPU tensor
+    both are the plain versions. rois get no gradient."""
+
+    @staticmethod
+    def forward(ctx, feat, rois, pooled, spatial_scale):
+        if feat.is_cuda:
+            from mv3d_tf_tpu_torch.ops.roi_pool_cuda import roi_pool_cuda
+            out = roi_pool_cuda(feat, rois, pooled, spatial_scale)
+        else:
+            out = roi_pool(feat, rois, pooled, spatial_scale)
+        ctx.save_for_backward(feat, rois, out)
+        ctx.pooled, ctx.spatial_scale = pooled, spatial_scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dy):
+        feat, rois, out = ctx.saved_tensors
+        dy = dy.float().contiguous()
+        if feat.is_cuda:
+            from mv3d_tf_tpu_torch.ops.roi_pool_cuda import roi_pool_bwd_cuda
+            dfeat = roi_pool_bwd_cuda(feat, rois, out, dy, ctx.pooled,
+                                      ctx.spatial_scale)
+        else:
+            dfeat = roi_pool_bwd(feat, rois, out, dy, ctx.pooled,
+                                 ctx.spatial_scale)
+        return dfeat.to(feat.dtype), None, None, None
+
+
+def roi_pool_train(feat, rois, pooled=7, spatial_scale=1.0 / 8):
+    """The train path's ROI pool (roi_pool.py:207-223): feat (H,W,C) on a
+    CUDA device (both kernels) or the CPU (both plain versions); any other
+    device raises."""
+    if feat.dim() != 3:
+        raise ValueError("roi_pool_train: feat must be one frame (H,W,C)")
+    if not (feat.is_cuda or feat.device.type == "cpu"):
+        raise ValueError("roi_pool_train: no ROI pool for device "
+                         + str(feat.device))
+    return RoIPoolTrain.apply(feat.contiguous(), rois.contiguous(), pooled,
+                              spatial_scale)

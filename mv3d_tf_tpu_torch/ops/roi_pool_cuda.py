@@ -1,8 +1,11 @@
-"""Wrapper of the CUDA ROI-pool kernel (csrc/roi_pool.cu), the Hopper
-replacement of mv3d_tf_tpu/ops/roi_pool_pallas.py:roi_pool_pallas.
+"""Wrappers of the CUDA ROI-pool kernels, the Hopper replacements of
+mv3d_tf_tpu/ops/roi_pool_pallas.py: the forward (csrc/roi_pool.cu,
+roi_pool_pallas) and its gradient (csrc/roi_pool_bwd.cu,
+roi_pool_pallas_bwd).
 
-The plain PyTorch version of the same function is ops/roi_pool.py:roi_pool;
-both take their bin bounds from ops/roi_pool.py:bin_bounds.
+The plain PyTorch versions are ops/roi_pool.py:roi_pool and roi_pool_bwd;
+kernels and plain versions take their bin bounds from
+ops/roi_pool.py:bin_bounds.
 """
 
 import torch
@@ -48,3 +51,54 @@ def roi_pool_cuda(feat, rois, pooled=7, spatial_scale=1.0 / 8):
 
 
 roi_pool_cuda.launches = 0
+
+_BWD_ENTRY = {torch.float32: "mv3d_roi_pool_bwd_f32",
+              torch.bfloat16: "mv3d_roi_pool_bwd_bf16"}
+
+
+def roi_pool_bwd_cuda(feat, rois, out, dy, pooled=7, spatial_scale=1.0 / 8):
+    """Gradient of the ROI max-pool on the card (csrc/roi_pool_bwd.cu), the
+    Hopper replacement of roi_pool_pallas.py:roi_pool_pallas_bwd.
+
+    feat (H,W,C) float32/bfloat16, rois (R,5) float32, out (R,P,P,C) the
+    forward's output in feat's dtype, dy (R,P,P,C) float32, all contiguous
+    on one CUDA device. Returns dfeat (H,W,C) float32. The plain version is
+    ops/roi_pool.py:roi_pool_bwd."""
+    tensors = (feat, rois, out, dy)
+    if not all(t.is_cuda and t.device == feat.device for t in tensors):
+        raise ValueError("roi_pool_bwd_cuda: inputs must be on one CUDA "
+                         "device")
+    if feat.dtype not in _BWD_ENTRY or out.dtype != feat.dtype:
+        raise TypeError("roi_pool_bwd_cuda: feat and out must share a dtype "
+                        "in %s, got %s and %s" % (list(_BWD_ENTRY),
+                                                  feat.dtype, out.dtype))
+    if rois.dtype != torch.float32 or dy.dtype != torch.float32:
+        raise TypeError("roi_pool_bwd_cuda: rois and dy must be float32")
+    if feat.dim() != 3 or rois.dim() != 2 or rois.shape[1] != 5:
+        raise ValueError("roi_pool_bwd_cuda: feat must be (H,W,C) and rois "
+                         "(R,5)")
+    H, W, C = feat.shape
+    R = rois.shape[0]
+    shape = (R, pooled, pooled, C)
+    if tuple(out.shape) != shape or tuple(dy.shape) != shape:
+        raise ValueError("roi_pool_bwd_cuda: out and dy must be %s, got %s "
+                         "and %s" % (shape, tuple(out.shape),
+                                     tuple(dy.shape)))
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("roi_pool_bwd_cuda: inputs must be contiguous")
+    bounds = bin_bounds(rois, pooled, spatial_scale, H, W).contiguous()
+    dfeat = torch.zeros((H, W, C), dtype=torch.float32, device=feat.device)
+    if R == 0 or C == 0:
+        return dfeat
+    lib = kernels.library()
+    with torch.cuda.device(feat.device):
+        roi_pool_bwd_cuda.launches += 1
+        err = getattr(lib, _BWD_ENTRY[feat.dtype])(
+            feat.data_ptr(), bounds.data_ptr(), out.data_ptr(), dy.data_ptr(),
+            dfeat.data_ptr(), W, C, R, pooled,
+            torch.cuda.current_stream().cuda_stream)
+    kernels.check(err, "roi_pool_bwd_cuda")
+    return dfeat
+
+
+roi_pool_bwd_cuda.launches = 0
