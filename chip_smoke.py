@@ -9,6 +9,11 @@ He-scaled weights: single-frame in float32 and bfloat16, and batched in
 bfloat16 with B=4. Then it checks the ROI-pool backward kernel against its
 plain version and takes full-width train steps (pre-NMS 12000, post-NMS
 2000, 128 rois, Adam) in float32 and bfloat16 through both ROI kernels.
+Last, the LiDAR front end on KITTI-scale scans (8 x 131072 points, the
+traffic of bench.py): the BEV placement kernel against its plain version
+and the whole rasterizer against the numpy twin, bit for bit; the
+read_lidar CLI over 16 scans on disk; and scan -> raster -> detections in
+float32, bfloat16 and batched bfloat16.
 Every failed check raises, so the exit code is non-zero; without a CUDA
 device it exits non-zero before printing any result.
 The last line is {"ok": true, "device": {...}}; the line before it is the
@@ -16,8 +21,10 @@ card's name and power limit, and before that a JSON line per kernel.
 """
 
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -31,13 +38,18 @@ from mv3d_tf_tpu_torch.eval import (PIXEL_MEANS, build_detect_batch_fn,
                                     build_detect_fn, detect_from_features,
                                     frame_detections)
 from mv3d_tf_tpu_torch.models import mv3d
+from mv3d_tf_tpu_torch.data.blob import make_bird_view
 from mv3d_tf_tpu_torch.models.vgg import (conv2d, layer, max_pool_2x2_valid,
                                           module_key)
+from mv3d_tf_tpu_torch.ops import bev
+from mv3d_tf_tpu_torch.ops.bev_cuda import (N_FLAT, bev_place_cuda,
+                                            bev_place_plain)
 from mv3d_tf_tpu_torch.ops.roi_pool import (bin_bounds, bin_cells, roi_pool,
                                             roi_pool_bwd, roi_pool_fast,
                                             roi_pool_train)
 from mv3d_tf_tpu_torch.ops.roi_pool_cuda import roi_pool_bwd_cuda, roi_pool_cuda
 from mv3d_tf_tpu_torch.ops.vgg_stem_cuda import vgg_stem_cuda, vgg_stem_plain
+from mv3d_tf_tpu_torch.tools import read_lidar
 from mv3d_tf_tpu_torch.train import (build_forward_losses, build_train_step,
                                      make_draws)
 from mv3d_tf_tpu_torch.utils.weights import he_normal_params, params_from_jax
@@ -51,6 +63,7 @@ BWD_RTOL, BWD_ATOL = 1e-5, 1e-7
 ROI_SOURCE = "mv3d_tf_tpu_torch/csrc/roi_pool.cu"
 STEM_SOURCE = "mv3d_tf_tpu_torch/csrc/vgg_stem.cu"
 BWD_SOURCE = "mv3d_tf_tpu_torch/csrc/roi_pool_bwd.cu"
+BEV_SOURCE = "mv3d_tf_tpu_torch/csrc/bev_place.cu"
 TRAIN_STEPS = 3
 TRAIN_PRE_NMS, TRAIN_POST_NMS, TRAIN_ROIS, FC_DIM = 12000, 2000, 128, 2048
 MAX_GT = 32           # the config's TPU.MAX_GT: gt rows per frame
@@ -58,6 +71,34 @@ TRAIN_BEV, TRAIN_IMAGE, FEAT = (601, 601, 9), (384, 1248, 3), 75
 # the train pools' maps (stride-8 conv5_3 of each view) and input extents
 BWD_VIEWS = {"bev": ((75, 75, 512), 600, 600),
              "image": ((48, 156, 512), 384, 1248)}
+SCANS, SCAN_POINTS = 8, 131072   # bench.py:164-176: B=8 scans of 131072
+CLI_SCANS = 16
+# one H100 SXM's published peaks (NVIDIA's data sheet): HBM bytes/s,
+# float32 outside the tensor cores and dense bf16 tensor-core FLOP/s
+HBM_BYTES_PER_S, F32_PER_S, BF16_PER_S = 3.35e12, 67e12, 989e12
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(parts, peak):
+    """The least time the card could take for launches given as (bytes
+    read and written once, operations) pairs: per launch the larger of
+    bytes / HBM rate and operations / peak, summed; bound_by names the
+    larger of the two sums."""
+    by_bytes = [b / HBM_BYTES_PER_S * 1e3 for b, _ in parts]
+    by_ops = [o / peak * 1e3 for _, o in parts]
+    return {"bound_ms": sum(max(b, o) for b, o in zip(by_bytes, by_ops)),
+            "bound_by": ("bytes" if sum(by_bytes) >= sum(by_ops)
+                         else "operations")}
+
+
+def bin_cells_total(rois, H, W):
+    """The feature cells that the rois' 7x7 bins cover, summed over bins."""
+    hs, he, ws, we = bin_bounds(rois, 7, 1.0 / 8, H, W).unbind(1)
+    return ((he - hs).clamp(min=0)[:, :, None]
+            * (we - ws).clamp(min=0)[:, None, :]).sum().item()
 
 
 def example_calib():
@@ -164,16 +205,22 @@ def phase_roi_pool(gen):
             print("roi_pool %s %s with NaN cells: equal to plain, NaN in the "
                   "same %d outputs" % (name, dtype, int(nan.sum())))
     ms = plain_ms = 0.0
+    parts = []
     for name, shape, in_h, in_w in (("bev", (4, 75, 75, 512), 600, 600),
                                     ("image", (4, 48, 156, 512), 384, 1248)):
         feat = torch.randn(shape, generator=gen).cuda().to(torch.bfloat16)
         rois = make_rois(gen, 1194, in_h, in_w, 4)
         k = cuda_ms(lambda: roi_pool_cuda(feat, rois))
         p = cuda_ms(lambda: roi_pool(feat, rois), iters=5)
+        # one max per covered cell and channel
+        parts.append((nbytes(feat, rois, roi_pool_cuda(feat, rois)),
+                      bin_cells_total(rois, *shape[1:3]) * shape[3]))
         print("roi_pool time %s bf16 %s rois=%d: kernel %.4f ms, plain %.4f ms"
               % (name, shape, rois.shape[0], k, p))
         ms, plain_ms = ms + k, plain_ms + p
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+    # no single PyTorch call pools rois with these integer bins
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            **bound(parts, F32_PER_S), "library_ms": None}
 
 
 def stem_halo_leak(x, w1, b1, w2, b2):
@@ -204,6 +251,7 @@ def phase_stem(params):
     }
     worst = 0.0
     ms = plain_ms = 0.0
+    parts = []
     for name, (x, suffix) in inputs.items():
         x = x.cuda()
         b1 = (0.5 + 0.5 * torch.rand(64, generator=gen)).cuda()
@@ -238,9 +286,14 @@ def phase_stem(params):
                 k = cuda_ms(lambda: vgg_stem_cuda(x1, *w), iters=10)
                 p = cuda_ms(lambda: vgg_stem_plain(x1, *w), iters=10)
             ms, plain_ms = ms + k, plain_ms + p
+            _, H, W, cin = x1.shape
+            parts.append((nbytes(x1, *w) + (H // 2) * (W // 2) * 64 * 2,
+                          2 * H * W * 64 * 9 * (cin + 64)))
             line += "; one frame: kernel %.4f ms, plain %.4f ms" % (k, p)
         print(line)
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+    # the plain version is the library path: two cuDNN convs and the pool
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            **bound(parts, BF16_PER_S), "library_ms": plain_ms}
 
 
 def check_outputs(out, lead, what):
@@ -370,7 +423,7 @@ def phase_roi_bwd(gen):
     tying cell the whole dy, and one that gives it to the first tying cell,
     both miss the tolerance. Then the kernel and plain times."""
     worst = 0.0
-    timing = {}
+    timing, parts = {}, {}
     for name, (shape, in_h, in_w) in BWD_VIEWS.items():
         x = torch.randn(shape, generator=gen).cuda()
         maps = {"distinct": x, "sparse": F.relu(x),
@@ -416,12 +469,19 @@ def phase_roi_bwd(gen):
                         cuda_ms(lambda: roi_pool_bwd_cuda(feat, rois, out, dy)),
                         cuda_ms(lambda: roi_pool_bwd(feat, rois, out, dy),
                                 iters=3, warmup=1))
+                    # a compare and, for a tie, an add per covered cell
+                    parts[(name, dtype)] = (
+                        nbytes(feat, rois, out, dy, got),
+                        2 * bin_cells_total(rois, *shape[:2]) * shape[2])
     for (name, dtype), (k, p) in timing.items():
         print("roi_pool_bwd time %s %s rois=128: kernel %.4f ms, plain %.4f ms"
               % (name, dtype, k, p))
     f32 = [timing[(name, torch.float32)] for name in BWD_VIEWS]
+    # no single PyTorch call replays the max and splits dy among ties
     return {"max_abs_err": worst, "ms": sum(k for k, _ in f32),
-            "plain_ms": sum(p for _, p in f32)}
+            "plain_ms": sum(p for _, p in f32),
+            **bound([parts[(name, torch.float32)] for name in BWD_VIEWS],
+                    F32_PER_S), "library_ms": None}
 
 
 def train_batch(rng):
@@ -580,6 +640,232 @@ def phase_train(np_params, smi):
     return launches
 
 
+def scan_traffic(rng, scans, n=SCAN_POINTS):
+    """KITTI-scale scans (bench.py:164-176): x in [-10,70), y in [-40,40),
+    z in [-3,1), reflectance in [0,1); about a third land in the crop."""
+    pts = np.empty((scans, n, 4), np.float32)
+    pts[..., 0] = rng.rand(scans, n) * 80 - 10
+    pts[..., 1] = rng.rand(scans, n) * 80 - 40
+    pts[..., 2] = rng.rand(scans, n) * 4 - 3
+    pts[..., 3] = rng.rand(scans, n)
+    return pts
+
+
+def boundary_scan():
+    """16 points at float32(h) and float32(h + 0.3) for the 8 slice starts
+    h, each alone in its cell; two at y = +0.0 and y = -0.0."""
+    pts = np.zeros((1, 16, 4), np.float32)
+    for i, h in enumerate(bev.SLICE_STARTS):
+        for j, z in enumerate((np.float32(h), np.float32(h + 0.3))):
+            pts[0, 2 * i + j] = [10.05 + 2.0 * i + j, -5.05 + 10.0 * j, z,
+                                 0.05 + 0.05 * (2 * i + j)]
+    pts[0, 0, 1], pts[0, 1, 1] = 0.0, -0.0
+    return pts, np.ones((1, 16), bool)
+
+
+def check_twin(tops, pts, val, what):
+    """Every raster equals the numpy twin of its scan bit for bit."""
+    for b in range(pts.shape[0]):
+        want = bev.point_cloud_2_top_np(pts[b][val[b]])
+        if not np.array_equal(tops[b], want):
+            raise AssertionError(
+                "%s scan %d: %d raster entries differ from the numpy twin"
+                % (what, b, np.count_nonzero(tops[b] != want)))
+
+
+def division_rules():
+    """Over every float32 v in (0, 60], the range of |x| and |y| in the
+    crop: how many pixel coordinates trunc(v / RES) change when the
+    division by a tensor (the front end's rule) is replaced by a division
+    by a Python scalar or by a multiply by 10. Where they change, the
+    tensor rule must give numpy's coordinate."""
+    res = torch.tensor(0.1, device="cuda")
+    last = int(np.array(60.0, np.float32).view(np.int32))
+    moved = {"v / 0.1": [], "v * 10": []}
+    for start in range(1, last + 1, 1 << 27):
+        v = torch.arange(start, min(start + (1 << 27), last + 1),
+                         dtype=torch.int32, device="cuda").view(torch.float32)
+        ref = (v / res).to(torch.int32)
+        moved["v / 0.1"].append(v[(v / 0.1).to(torch.int32) != ref])
+        moved["v * 10"].append(v[(v * 10.0).to(torch.int32) != ref])
+    moved = {k: torch.cat(vs) for k, vs in moved.items()}
+    for vs in moved.values():
+        want = (vs.cpu().numpy() / 0.1).astype(np.int32)
+        if not np.array_equal((vs / res).to(torch.int32).cpu().numpy(), want):
+            raise AssertionError("v / RES on the card differs from numpy")
+    print("pixel coordinates moved against v / RES (a tensor, equal to "
+          "numpy's there) over all %d float32 v in (0, 60]: %s; e.g. v = %s"
+          % (last, {k: len(vs) for k, vs in moved.items()},
+             moved["v / 0.1"][:3].tolist()))
+
+
+def phase_bev_kernel(smi):
+    """The placement kernel against its plain version (torch.equal) on the
+    sorted KITTI-scale traffic, a heavy-duplicate batch, the 16 boundary
+    points, an all-invalid scan and a scan with NaN rows; the whole
+    point_cloud_2_top_batch on the card against the numpy twin on every
+    scan. Then the kernel's and the plain placement's CUDA-event means at
+    B=8, and the whole front end per scan."""
+    rng = np.random.RandomState(SEED + 5)
+    kitti = scan_traffic(rng, SCANS)
+    dup = scan_traffic(rng, 2)
+    half = SCAN_POINTS // 2
+    dup[:, :half, 0] = 10.0 + rng.rand(2, half) * 0.5
+    dup[:, :half, 1] = 5.0 + rng.rand(2, half) * 0.5
+    nan = scan_traffic(rng, 1)
+    nan[0, ::3, 0] = np.nan
+    nan[0, 1::7, 1:3] = np.nan
+    ones = lambda p: np.ones(p.shape[:2], bool)   # noqa: E731
+    cases = {"kitti B=8": (kitti, ones(kitti)),
+             "heavy duplicates": (dup, rng.rand(2, SCAN_POINTS) > 0.05),
+             "slice boundaries": boundary_scan(),
+             "all invalid": (kitti[:1], np.zeros((1, SCAN_POINTS), bool)),
+             "NaN rows": (nan, ones(nan))}
+    for what, (pts, val) in cases.items():
+        p, v = torch.from_numpy(pts).cuda(), torch.from_numpy(val).cuda()
+        sorted_ = bev.sort_slots(p, v)
+        got = bev_place_cuda(*sorted_)
+        ref = bev_place_plain(*sorted_)
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            raise AssertionError("bev_place_cuda != plain on %s: %d entries "
+                                 "differ" % (what, int((got != ref).sum())))
+        tops = bev.point_cloud_2_top_batch(p, v).cpu().numpy()
+        check_twin(tops, pts, val, what)
+        live = int((sorted_[0] < N_FLAT).sum())
+        print("bev_place %s %s: bit-identical to plain; the front end equals "
+              "the numpy twin on every scan (%d points placed, %d nonzero)"
+              % (what, tuple(pts.shape[:2]), live, np.count_nonzero(tops)))
+
+    p = torch.from_numpy(kitti).cuda()
+    v = torch.from_numpy(ones(kitti)).cuda()
+    division_rules()
+    seg_s, zs, rs = bev.sort_slots(p, v)
+    ms = cuda_ms(lambda: bev_place_cuda(seg_s, zs, rs))
+    plain_ms = cuda_ms(lambda: bev_place_plain(seg_s, zs, rs), iters=10)
+    sort_ms = cuda_ms(lambda: bev.sort_slots(p, v), iters=10)
+    front_ms = cuda_ms(lambda: bev.point_cloud_2_top_batch(p, v), iters=10)
+    t0 = time.perf_counter()
+    bev.point_cloud_2_top_batch(kitti, ones(kitti))
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    stats = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+             **bound([(nbytes(seg_s, zs, rs) + SCANS * N_FLAT * 4, 0)],
+                     F32_PER_S),
+             # no single PyTorch call finds the run ends and places them
+             "library_ms": None}
+    print("bev_place time B=%d N=%d: kernel %.4f ms (bound %.4f ms, %s), "
+          "plain %.4f ms; prep + stable sort %.4f ms; whole front end %.4f "
+          "ms = %.4f ms/scan, %.1f scans/s on device-resident points; from "
+          "numpy with the copy to the card %.3f ms; on [%s]" % (
+              SCANS, SCAN_POINTS, ms, stats["bound_ms"], stats["bound_by"],
+              plain_ms, sort_ms, front_ms, front_ms / SCANS,
+              SCANS * 1e3 / front_ms, host_ms, smi))
+    return stats
+
+
+def phase_read_lidar(root, smi):
+    """The read_lidar CLI on the card (no --device: the default) over
+    CLI_SCANS scans of the traffic written as velodyne .bin files; every
+    lidar_bv/*.npy equals the numpy twin. Returns the placement launches,
+    zeroed just before and read just after the CLI runs."""
+    pts = scan_traffic(np.random.RandomState(SEED + 6), CLI_SCANS)
+    vel = os.path.join(root, "velodyne")
+    os.makedirs(vel)
+    for i in range(CLI_SCANS):
+        pts[i].tofile(os.path.join(vel, "%06d.bin" % i))
+    bev_place_cuda.launches = 0
+    read_lidar.main(["--root", root, "--batch", "8"])
+    launches = bev_place_cuda.launches
+    expected = -(-CLI_SCANS // 8)
+    print("read_lidar launches: %d (expected %d) on [%s]"
+          % (launches, expected, smi))
+    if launches != expected:
+        raise AssertionError("read_lidar launched bev_place %d times, not %d"
+                             % (launches, expected))
+    tops = np.stack([np.load(os.path.join(root, "lidar_bv", "%06d.npy" % i))
+                     for i in range(CLI_SCANS)])
+    check_twin(tops, pts, np.ones(pts.shape[:2], bool), "read_lidar")
+    print("read_lidar: %d rasters equal the numpy twin" % CLI_SCANS)
+    return launches
+
+
+def phase_scan_detector(params, root, smi):
+    """Scan -> raster -> detections, the composition of
+    tools/demo_mv.py:81-98 without its drawings: four of the CLI's scans,
+    rasterized on the card (make_bird_view; point_cloud_2_top_batch for
+    the batch), through the single-frame detector in float32 and bf16 and
+    the batched bf16 detector (B=4), then frame_detections. Checks the
+    outputs and that make_bird_view gives the CLI's rasters. Returns the
+    launch counts, zeroed just before and read just after."""
+    frames = 4
+    paths = [os.path.join(root, "velodyne", "%06d.bin" % i)
+             for i in range(frames)]
+    rng = np.random.RandomState(SEED + 7)
+    image = torch.from_numpy(
+        (rng.rand(frames, 384, 1248, 3) * 255).astype(np.float32)).cuda()
+    calib = torch.from_numpy(np.stack([example_calib()] * frames)).cuda()
+    kw = dict(pre_nms_top_n=PRE_NMS, post_nms_top_n=POST_NMS)
+    runs = {"f32": build_detect_fn(**kw),
+            "bf16": build_detect_fn(compute_dtype=torch.bfloat16, **kw)}
+    detect_b = build_detect_batch_fn(compute_dtype=torch.bfloat16, **kw)
+    roi_pool_cuda.launches = vgg_stem_cuda.launches = 0
+    bev_place_cuda.launches = 0
+
+    def single(detect, i):
+        raster = make_bird_view(paths[i])
+        out = detect(params, raster, image[i], calib[i])
+        return raster, out, frame_detections(out)
+
+    def batch():
+        pts, val = zip(*[bev.pad_points(bev.load_velodyne(p)) for p in paths])
+        rasters = bev.point_cloud_2_top_batch(np.stack(pts), np.stack(val))
+        out = detect_b(params, rasters, image, calib)
+        return out, [frame_detections({k: v[i] for k, v in out.items()})
+                     for i in range(frames)]
+
+    for name, detect in runs.items():
+        timed(single, detect, 0)                                # warm-up
+        times, n_det = [], []
+        for i in range(frames):
+            (raster, out, dets), ms = timed(single, detect, i)
+            check_outputs(out, (POST_NMS,), "scan -> %s detector" % name)
+            cli = np.load(os.path.join(root, "lidar_bv", "%06d.npy" % i))
+            if not np.array_equal(raster.cpu().numpy(), cli):
+                raise AssertionError("make_bird_view differs from the CLI's "
+                                     "raster of scan %d" % i)
+            times.append(ms)
+            n_det.append(sum(len(d[0]) for d in dets.values()))
+        print("scan -> detections %s single-frame: p50 %.3f ms/frame over %d "
+              "frames (%s), detections %s, on [%s]" % (
+                  name, float(np.median(times)), frames,
+                  ", ".join("%.3f" % t for t in times), n_det, smi))
+    batch_calls = 3
+    timed(batch)                                                # warm-up
+    times = []
+    for _ in range(batch_calls):
+        (out, dets), ms = timed(batch)
+        check_outputs(out, (frames, POST_NMS), "scan -> bf16 batch")
+        times.append(ms / frames)
+    print("scan -> detections bf16 batch B=%d: p50 %.3f ms/frame over %d "
+          "calls (%s), detections %s, on [%s]" % (
+              frames, float(np.median(times)), batch_calls,
+              ", ".join("%.3f" % t for t in times),
+              [sum(len(d[0]) for d in f.values()) for f in dets], smi))
+    launches = {"roi_pool": roi_pool_cuda.launches,
+                "vgg_stem": vgg_stem_cuda.launches,
+                "bev_place": bev_place_cuda.launches}
+    singles, batches = frames + 1, batch_calls + 1
+    expected = {"roi_pool": 2 * (2 * singles + batches),
+                "vgg_stem": 2 * (singles + batches),
+                "bev_place": 2 * singles + batches}
+    print("scan-path launches: %s (expected %s)" % (launches, expected))
+    if launches != expected:
+        raise AssertionError("scan-path launch counts %s != %s"
+                             % (launches, expected))
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; "
@@ -594,20 +880,34 @@ def main():
     del params
     bwd = phase_roi_bwd(gen)
     train_launches = phase_train(np_params, smi)
-    if "jax" in sys.modules:
-        raise AssertionError("jax was imported")
-    # launches on the main paths: the detector's run plus the train run
+    bev_stats = phase_bev_kernel(smi)
+    with tempfile.TemporaryDirectory() as root:
+        cli_launches = phase_read_lidar(root, smi)
+        params = params_from_jax(np_params, device="cuda")
+        scan_launches = phase_scan_detector(params, root, smi)
+        del params
+    loaded = [m for m in sys.modules
+              if m.split(".")[0] in ("jax", "jaxlib", "mv3d_tf_tpu")]
+    if loaded:
+        raise AssertionError("modules of jax or the JAX package were "
+                             "imported: %s" % loaded)
+    # launches on the main paths: the detector's run, the train run, the
+    # read_lidar run and the scan-to-detections run
     print(json.dumps({"kernels": [
         {"name": "roi_pool", "route": "cuda", "source": ROI_SOURCE,
          "replaces": "mv3d_tf_tpu/ops/roi_pool_pallas.py:71",
-         "launches": launches["roi_pool"] + train_launches["roi_pool"],
-         **roi},
+         "launches": launches["roi_pool"] + train_launches["roi_pool"]
+         + scan_launches["roi_pool"], **roi},
         {"name": "vgg_stem", "route": "cuda", "source": STEM_SOURCE,
          "replaces": "mv3d_tf_tpu/ops/vgg_stem_pallas.py:106",
-         "launches": launches["vgg_stem"], **stem},
+         "launches": launches["vgg_stem"] + scan_launches["vgg_stem"],
+         **stem},
         {"name": "roi_pool_bwd", "route": "cuda", "source": BWD_SOURCE,
          "replaces": "mv3d_tf_tpu/ops/roi_pool_pallas.py:333",
          "launches": train_launches["roi_pool_bwd"], **bwd},
+        {"name": "bev_place", "route": "cuda", "source": BEV_SOURCE,
+         "replaces": "mv3d_tf_tpu/ops/bev_pallas.py:58",
+         "launches": cli_launches + scan_launches["bev_place"], **bev_stats},
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

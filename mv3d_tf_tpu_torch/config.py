@@ -1,0 +1,231 @@
+"""The port's config: its own copy of mv3d_tf_tpu/config.py, so that the
+port imports nothing of the JAX package.
+
+Same defaults, key names and merge rules (``cfg``, ``get_cfg``,
+``cfg_from_file``, ``cfg_from_list``) as the JAX package's config, which
+mirrors the reference's lib/fast_rcnn/config.py; numpy only.
+``tests/test_torch_read_lidar.py`` holds the two trees equal key by key.
+The ``cfg.TPU`` keys keep their names, so one YAML file serves both
+packages.
+"""
+
+import os
+import os.path as osp
+from ast import literal_eval
+
+import numpy as np
+
+
+class AttrDict(dict):
+    """dict with attribute access (replacement for easydict)."""
+
+    def __getattr__(self, name):
+        try:
+            return self[name]
+        except KeyError:
+            raise AttributeError(name)
+
+    def __setattr__(self, name, value):
+        self[name] = value
+
+
+__C = AttrDict()
+cfg = __C
+
+# ---------------------------------------------------------------------------
+# Training options (reference config.py:35-151)
+# ---------------------------------------------------------------------------
+__C.TRAIN = AttrDict()
+__C.TRAIN.WEIGHT_DECAY = 0.0005
+__C.TRAIN.LEARNING_RATE = 0.001
+__C.TRAIN.MOMENTUM = 0.9
+__C.TRAIN.GAMMA = 0.1
+__C.TRAIN.STEPSIZE = 50000
+# Quality-mode opt-in: staircase-decay the MV3D Adam lr by GAMMA every
+# STEPSIZE iters (lr = 1e-5 * GAMMA^(it // STEPSIZE)). Parity mode keeps
+# the reference's constant hardcoded 1e-5 (train_mv.py:144); the decay
+# keys above exist in the reference but only its legacy 2D SGD path ever
+# read them (train.py:103-199).
+__C.TRAIN.LR_DECAY = False
+__C.TRAIN.DISPLAY = 10
+__C.IS_MULTISCALE = False
+# SubCNN-lineage multiscale keys: the reference's kitti_rcnn.yml sets
+# these, but its own config.py dropped them during the MV3D fork (they
+# are commented out at reference config.py:47-52), so that YAML no
+# longer loads there. Restored here so the shipped kitti_rcnn.yml works.
+__C.IS_RPN = True
+__C.IS_EXTRAPOLATING = True
+__C.REGION_PROPOSAL = 'RPN'
+__C.TRAIN.SCALES_BASE = (1.0,)
+__C.TRAIN.NUM_PER_OCTAVE = 4
+__C.TRAIN.ROI_THRESHOLD = 0.01
+__C.TRAIN.SCALES = (600,)
+__C.TRAIN.MAX_SIZE = 2000
+__C.TRAIN.IMS_PER_BATCH = 2
+__C.TRAIN.BATCH_SIZE = 128          # rois per image fed to the RCNN head
+__C.TRAIN.FG_FRACTION = 0.25
+__C.TRAIN.FG_THRESH = 0.5
+__C.TRAIN.BG_THRESH_HI = 0.5
+__C.TRAIN.BG_THRESH_LO = 0.1
+__C.TRAIN.USE_FLIPPED = False       # reference disables flipping (config.py:84)
+__C.TRAIN.BBOX_REG = True
+__C.TRAIN.BBOX_THRESH = 0.5
+__C.TRAIN.SNAPSHOT_ITERS = 5000
+__C.TRAIN.SNAPSHOT_PREFIX = 'VGGnet_fast_rcnn'
+__C.TRAIN.SNAPSHOT_INFIX = ''
+__C.TRAIN.USE_PREFETCH = False
+__C.TRAIN.BBOX_NORMALIZE_TARGETS = True
+__C.TRAIN.BBOX_INSIDE_WEIGHTS = (1.0,) * 24
+__C.TRAIN.BBOX_NORMALIZE_TARGETS_PRECOMPUTED = False
+__C.TRAIN.BBOX_NORMALIZE_MEANS = (0.0, 0.0, 0.0, 0.0)
+__C.TRAIN.BBOX_NORMALIZE_STDS = (0.1, 0.1, 0.2, 0.2)
+__C.TRAIN.PROPOSAL_METHOD = 'selective_search'
+__C.TRAIN.ASPECT_GROUPING = True
+__C.TRAIN.HAS_RPN = False
+__C.TRAIN.RPN_POSITIVE_OVERLAP = 0.7
+__C.TRAIN.RPN_NEGATIVE_OVERLAP = 0.5
+__C.TRAIN.RPN_CLOBBER_POSITIVES = False
+__C.TRAIN.RPN_FG_FRACTION = 0.25
+__C.TRAIN.RPN_BATCHSIZE = 128
+__C.TRAIN.RPN_NMS_THRESH = 0.7
+__C.TRAIN.RPN_PRE_NMS_TOP_N = 12000
+__C.TRAIN.RPN_POST_NMS_TOP_N = 2000
+__C.TRAIN.RPN_MIN_SIZE = 5
+__C.TRAIN.RPN_BBOX_INSIDE_WEIGHTS = (1.0,) * 6
+__C.TRAIN.RPN_POSITIVE_WEIGHT = -1.0
+__C.TRAIN.DEBUG_TIMELINE = False
+
+# ---------------------------------------------------------------------------
+# Testing options (reference config.py:157-195)
+# ---------------------------------------------------------------------------
+__C.TEST = AttrDict()
+__C.TEST.SCALES = (600,)
+__C.TEST.SCALES_BASE = (1.0,)
+__C.TEST.NUM_PER_OCTAVE = 4
+__C.TEST.MAX_SIZE = 2000
+__C.TEST.NMS = 0.5
+__C.TEST.SVM = False
+__C.TEST.BBOX_REG = True
+__C.TEST.HAS_RPN = True
+__C.TEST.PROPOSAL_METHOD = 'selective_search'
+__C.TEST.RPN_NMS_THRESH = 0.7
+__C.TEST.RPN_PRE_NMS_TOP_N = 12000
+__C.TEST.RPN_POST_NMS_TOP_N = 2000
+__C.TEST.RPN_MIN_SIZE = 5
+__C.TEST.DEBUG_TIMELINE = False
+__C.TEST.DET_THRESHOLD = 0.0
+
+# ---------------------------------------------------------------------------
+# Misc (reference config.py:199-242)
+# ---------------------------------------------------------------------------
+__C.DEDUP_BOXES = 1. / 16.
+# Pixel mean values (BGR order), reference config.py:211
+__C.PIXEL_MEANS = np.array([[[95.8814, 98.7743, 93.8549]]])
+__C.RNG_SEED = 3
+__C.EPS = 1e-14
+__C.ROOT_DIR = osp.abspath(osp.join(osp.dirname(__file__), '..'))
+__C.DATA_DIR = osp.abspath(osp.join(__C.ROOT_DIR, 'data'))
+__C.MODELS_DIR = osp.abspath(osp.join(__C.ROOT_DIR, 'models', 'pascal_voc'))
+__C.MATLAB = 'matlab'
+__C.EXP_DIR = 'default'
+__C.USE_GPU_NMS = False             # kept for key parity
+__C.GPU_ID = 0
+
+# ---------------------------------------------------------------------------
+# Options the JAX package added (not in the reference); the names stay
+# ---------------------------------------------------------------------------
+__C.TPU = AttrDict()
+# static shape budget: BEV grid is fixed 601x601x9 by the KITTI recipe
+__C.TPU.BEV_SHAPE = (601, 601, 9)
+# image padding bucket (KITTI images are ~375x1242; pad to a conv-friendly
+# static bucket — zero padding matches the reference's SAME zero-pad halo)
+__C.TPU.IMAGE_SHAPE = (384, 1248, 3)
+# max ground-truth boxes per frame carried as a fixed-size padded tensor
+__C.TPU.MAX_GT = 32
+# compute dtype for the conv trunks ('float32' for parity, 'bfloat16' fast)
+__C.TPU.COMPUTE_DTYPE = 'float32'
+# mesh axis names (data parallel over frames)
+__C.TPU.MESH_AXES = ('data',)
+# per-chip frame batch for eval/bench
+__C.TPU.EVAL_BATCH = 8
+# device-memory budget (GiB) for caching the TRAIN dataset on-device
+# (bf16 BEV + uint8 image); datasets over budget are fed per iteration
+__C.TPU.TRAIN_DATA_HBM_GB = 6.0
+# train-graph conv1 stem: '' = the literal VGG stem (parity default);
+# 's2d' = the space-to-depth packed stem (mv3d_tf_tpu/ops/stem_s2d.py),
+# gradient-equivalent but not bit-identical; not ported yet
+__C.TPU.TRAIN_STEM = ''
+
+
+def get_cfg():
+    return __C
+
+
+def get_output_dir(imdb, weights_filename):
+    """Reference config.py:245-257."""
+    name = imdb if isinstance(imdb, str) else imdb.name
+    outdir = osp.abspath(osp.join(__C.ROOT_DIR, 'output', __C.EXP_DIR, name))
+    if weights_filename is not None:
+        outdir = osp.join(outdir, weights_filename)
+    if not os.path.exists(outdir):
+        os.makedirs(outdir)
+    return outdir
+
+
+def _merge_a_into_b(a, b):
+    """Recursive typed merge; reference config.py:259-289."""
+    if not isinstance(a, dict):
+        return
+    for k, v in a.items():
+        if k not in b:
+            raise KeyError('{} is not a valid config key'.format(k))
+        old_type = type(b[k])
+        if old_type is not type(v):
+            if isinstance(b[k], dict) and isinstance(v, dict):
+                pass          # AttrDict vs plain yaml dict: recurse below
+            elif isinstance(b[k], np.ndarray):
+                v = np.array(v, dtype=b[k].dtype)
+            elif isinstance(b[k], tuple) and isinstance(v, list):
+                v = tuple(v)
+            elif isinstance(b[k], float) and isinstance(v, int):
+                v = float(v)
+            else:
+                raise ValueError('Type mismatch ({} vs. {}) for config key: {}'
+                                 .format(type(b[k]), type(v), k))
+        if isinstance(v, dict):
+            _merge_a_into_b(a[k], b[k])
+        else:
+            b[k] = v
+
+
+def cfg_from_file(filename):
+    """Load a YAML config file and merge it into the defaults."""
+    import yaml
+    with open(filename, 'r') as f:
+        yaml_cfg = yaml.safe_load(f)
+    _merge_a_into_b(yaml_cfg, __C)
+
+
+def cfg_from_list(cfg_list):
+    """Set config keys via a ['KEY', 'VALUE', ...] list (CLI --set)."""
+    assert len(cfg_list) % 2 == 0
+    for k, v in zip(cfg_list[0::2], cfg_list[1::2]):
+        key_list = k.split('.')
+        d = __C
+        for subkey in key_list[:-1]:
+            assert subkey in d
+            d = d[subkey]
+        subkey = key_list[-1]
+        assert subkey in d
+        try:
+            value = literal_eval(v)
+        except (ValueError, SyntaxError):
+            value = v
+        if isinstance(d[subkey], tuple) and isinstance(value, list):
+            value = tuple(value)
+        if isinstance(d[subkey], float) and isinstance(value, int):
+            value = float(value)
+        assert type(value) == type(d[subkey]), \
+            'type {} does not match original type {}'.format(
+                type(value), type(d[subkey]))
+        d[subkey] = value

@@ -1,6 +1,10 @@
 """Inference: the MV3D detector on tensors (mv3d_tf_tpu/eval.py) — both
 trunks, RPN, proposal layer, dual-view ROI pooling, fusion head and
-corner decode, eagerly, on the device that holds the parameters.
+corner decode, eagerly, on the device that holds the parameters: the card,
+since utils/weights.params_from_jax and models/mv3d.init_params put them
+there unless asked otherwise. Its BEV input comes from the LiDAR front end
+(ops/bev.py:point_cloud_2_top_batch, data/blob.make_bird_view), which
+rasterizes a scan on the card, or from a raster file (tools/read_lidar.py).
 
 Parity notes, as in the JAX package:
   * the image mean is subtracted in float32 before any cast;
@@ -13,8 +17,8 @@ and on a card the ROI pooling runs the CUDA kernel (ops/roi_pool.py).
 import numpy as np
 import torch
 
-from mv3d_tf_tpu.config import cfg
 from mv3d_tf_tpu_torch import geometry as G
+from mv3d_tf_tpu_torch.config import cfg
 from mv3d_tf_tpu_torch.models import mv3d
 from mv3d_tf_tpu_torch.ops.nms import nms_np
 from mv3d_tf_tpu_torch.ops.roi_pool import roi_pool_fast

@@ -29,6 +29,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_int64
 # C entry points: name -> argument types (all return a cudaError_t as int)
 _SIGNATURES = {
     "mv3d_roi_pool_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
@@ -36,6 +37,7 @@ _SIGNATURES = {
     "mv3d_roi_pool_bwd_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "mv3d_roi_pool_bwd_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "mv3d_vgg_stem_bf16": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "mv3d_bev_place_f32": (_P, _P, _P, _P, _L, _L, _I, _I, _P),
 }
 
 _lock = threading.Lock()

@@ -19,7 +19,8 @@ NUM_ANCHORS = 4          # generate_anchors_bv -> 4 anchors/location
 FEAT_STRIDE = 8          # three VALID pools
 
 
-def init_params(generator, bev_channels=9, fc_dim=2048, pooled=7, device=None):
+def init_params(generator, bev_channels=9, fc_dim=2048, pooled=7,
+                device="cuda"):
     """Full parameter set with the JAX package's init (mv3d.py:33-65):
     truncated-normal std 0.01 (bbox_pred 0.001), zero biases."""
     def conv(cin, cout, k, std=0.01):

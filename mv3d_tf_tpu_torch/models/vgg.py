@@ -63,13 +63,13 @@ def layer(params, name):
     return m.weight, m.bias
 
 
-def empty_layer(cls, shape_args, device=None):
-    """An uninitialised Conv2d or Linear layer on ``device`` (CPU if None)."""
-    return torch.nn.utils.skip_init(
-        cls, *shape_args, device="cpu" if device is None else device)
+def empty_layer(cls, shape_args, device="cuda"):
+    """An uninitialised Conv2d or Linear layer on ``device``: the card
+    unless the caller asks for another device; without a card it raises."""
+    return torch.nn.utils.skip_init(cls, *shape_args, device=device)
 
 
-def init_layer(generator, cls, shape_args, std=0.01, device=None):
+def init_layer(generator, cls, shape_args, std=0.01, device="cuda"):
     """A conv or linear layer with truncated-normal(0, std) weights cut at
     two std and zero biases, the JAX package's init (vgg.py:62-73)."""
     m = empty_layer(cls, shape_args, device)
@@ -80,7 +80,7 @@ def init_layer(generator, cls, shape_args, std=0.01, device=None):
     return m
 
 
-def init_trunk(generator, in_channels, suffix="", device=None):
+def init_trunk(generator, in_channels, suffix="", device="cuda"):
     """{module key: Conv2d} for the 13 trunk convs."""
     params = {}
     c_in = in_channels

@@ -16,8 +16,9 @@ from mv3d_tf_tpu_torch.models import vgg
 from mv3d_tf_tpu_torch.models.mv3d import N_CLASSES, NUM_ANCHORS
 
 
-def params_from_jax(np_params, device=None):
-    """JAX flat param dict -> the port's ModuleDict, float32 on ``device``."""
+def params_from_jax(np_params, device="cuda"):
+    """JAX flat param dict -> the port's ModuleDict, float32 on ``device``
+    (the card unless the caller asks for another; without one it raises)."""
     layers = {}
     for name, p in np_params.items():
         w = np.array(p["weights"], np.float32)

@@ -46,7 +46,7 @@ def _np(det):
 def test_params_round_trip_is_exact():
     p = {k: {n: np.asarray(a) for n, a in v.items()}
          for k, v in J.init_params(jax.random.PRNGKey(1), fc_dim=16).items()}
-    back = params_to_jax(params_from_jax(p))
+    back = params_to_jax(params_from_jax(p, device="cpu"))
     assert set(back) == set(p)
     for name in p:
         for sub in ("weights", "biases"):
@@ -58,7 +58,8 @@ def test_golden_end_to_end():
     """tests/golden_e2e.npz within test_golden_e2e.py's tolerances, from the
     JAX package's own init (every score is a tie at 0.5 there, so this pins
     the tie rules of top-K and NMS)."""
-    params = params_from_jax(J.init_params(jax.random.PRNGKey(7)))
+    params = params_from_jax(J.init_params(jax.random.PRNGKey(7)),
+                             device="cpu")
     det = _np(build_detect_fn(**SMALL)(params, *_frame(7)))
     g = np.load(GOLDEN_FILE)
     np.testing.assert_array_equal(det["valid"], g["valid"])
@@ -110,7 +111,7 @@ def test_he_scaled_detector_matches_jax(he_case):
     # distinct pre-NMS scores, so both packages sort and suppress alike
     for frame in frames:
         assert np.min(-np.diff(_jax_pre_nms_scores(p, frame))) > 1e-4
-    params = params_from_jax(p)
+    params = params_from_jax(p, device="cpu")
     single = _np(build_detect_fn(**HE)(params, *frames[0]))
     assert set(single) == set(ref[0])
     _assert_matches(single, ref[0])
@@ -136,10 +137,13 @@ def test_detector_runs_without_jax():
         "cal = np.zeros((4, 12), np.float32); cal[0, [0, 5, 10]] = 1\n"
         "cal[2, [0, 4, 8]] = 1; cal[3, [1, 6, 8]] = [-1, -1, 1]\n"
         "det = build_detect_fn(feat_h=5, feat_w=5, pre_nms_top_n=30,\n"
-        "    post_nms_top_n=8)(params_from_jax(he_normal_params(0, fc_dim=8)),\n"
+        "    post_nms_top_n=8)(params_from_jax(he_normal_params(0, fc_dim=8),\n"
+        "    device='cpu'),\n"
         "    rng.rand(41, 41, 9), rng.rand(40, 48, 3) * 255, cal)\n"
         "assert det['scores'].shape == (8, 2)\n"
-        "assert 'jax' not in sys.modules, 'jax was imported'\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+        "       ('jax', 'jaxlib', 'mv3d_tf_tpu')]\n"
+        "assert not bad, 'loaded: %s' % bad\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,

@@ -150,7 +150,7 @@ def test_fusion_head_train_matches_jax(rng):
     shapes = [(12, FC)] * 4 + [(12, 2 * FC)]
     masks = tuple(_t(jax.random.bernoulli(k, 0.5, s))
                   for k, s in zip(jax.random.split(key, 5), shapes))
-    params = params_from_jax(p)
+    params = params_from_jax(p, device="cpu")
     with torch.no_grad():
         got = TM.fusion_head(params, *map(_t, pooled), train=True,
                              masks=masks, keep_prob=0.5)
@@ -207,7 +207,7 @@ def test_forward_losses_and_grads_match_jax(jax_step, monkeypatch):
         TR.anchor_target_layer, ("rpn_labels", "rpn_bbox_targets")))
     monkeypatch.setattr(TR, "proposal_target_layer_3d", recording(
         TR.proposal_target_layer_3d, ()))
-    params = params_from_jax(p)
+    params = params_from_jax(p, device="cpu")
     draws = _jax_draws(key, 10 * 10 * 4, 30 + MAX_GT, 16, FC)
     got = TR.build_forward_losses(**SMALL)(params, batch, draws)
 
@@ -292,7 +292,7 @@ def test_cached_step_matches_host_feed():
                     image=data["image"][idx].float())
         runs = []
         for step, args in ((step_c, (data, idx)), (step_h, (host,))):
-            params = params_from_jax(p)
+            params = params_from_jax(p, device="cpu")
             runs.append((step(params, make_opt(params), *args, draws), params))
         (mc, pc), (mh, ph) = runs
         for k in mh:
@@ -349,14 +349,17 @@ def test_train_step_runs_without_jax():
         "    gt_valid=np.arange(4) < 1)\n"
         "step, make_opt = TR.build_train_step(feat_h=5, feat_w=5,\n"
         "    pre_nms_top_n=40, post_nms_top_n=10, rois_per_image=8)\n"
-        "params = params_from_jax(he_normal_params(0, fc_dim=8))\n"
+        "params = params_from_jax(he_normal_params(0, fc_dim=8),\n"
+        "                         device='cpu')\n"
         "opt = make_opt(params)\n"
         "gen = torch.Generator().manual_seed(0)\n"
         "for _ in range(2):\n"
         "    m = step(params, opt, batch, TR.make_draws(gen, 100, 14, 8, 8, 0.5,"
         " 'cpu'))\n"
         "    assert torch.isfinite(m['loss']) and m['loss'] > 0\n"
-        "assert 'jax' not in sys.modules, 'jax was imported'\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+        "       ('jax', 'jaxlib', 'mv3d_tf_tpu')]\n"
+        "assert not bad, 'loaded: %s' % bad\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,

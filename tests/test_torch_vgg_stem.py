@@ -56,7 +56,8 @@ def test_trunk_f32_matches_jax(rng, he_params):
         {k: {n: jnp.asarray(a) for n, a in v.items()}
          for k, v in he_params.items()}, jnp.asarray(x)))
     with torch.no_grad():
-        got = T.trunk_apply(params_from_jax(he_params), torch.from_numpy(x))
+        got = T.trunk_apply(params_from_jax(he_params, device="cpu"),
+                            torch.from_numpy(x))
     assert got.shape == ref.shape == (1, 5, 6, 512)
     assert np.abs(ref).max() > 0.1          # He scale: O(1) features
     err = np.abs(got.numpy() - ref).max()
@@ -67,7 +68,7 @@ def test_fused_stem_dispatch_on_cpu(rng, he_params):
     """stem_impl="fused" on a CPU tensor is the plain stem, which is the
     literal bf16 stem; the kernel is not launched and a CPU tensor given
     to the kernel wrapper raises."""
-    params = params_from_jax(he_params)
+    params = params_from_jax(he_params, device="cpu")
     x = torch.from_numpy(rng.rand(1, 24, 28, 3).astype(np.float32))
     before = S.vgg_stem_cuda.launches
     with torch.no_grad():
