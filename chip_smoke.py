@@ -14,6 +14,13 @@ traffic of bench.py): the BEV placement kernel against its plain version
 and the whole rasterizer against the numpy twin, bit for bit; the
 read_lidar CLI over 16 scans on disk; and scan -> raster -> detections in
 float32, bfloat16 and batched bfloat16.
+Then the int8 detector: the s8 convolution kernel against its plain version
+at every shape of the int8 path (both views' trunk layers, the packed
+conv1_2 of the s2d stem, the RPN conv in float32 output), the s8 GEMM at
+the fc6/fc7 shapes, all bit for bit; then PTQ calibration on 4 frames and
+the int8 detector (s2d_int8 stem, int8 RPN, int8 ROI pool and head,
+pre-NMS 1024, post-NMS 300) at B=8, with the kernel route held bit for bit
+to the plain route at B=2.
 Every failed check raises, so the exit code is non-zero; without a CUDA
 device it exits non-zero before printing any result.
 The last line is {"ok": true, "device": {...}}; the line before it is the
@@ -31,8 +38,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from mv3d_tf_tpu_torch import eval as eval_mod
 from mv3d_tf_tpu_torch import geometry as G
 from mv3d_tf_tpu_torch import kernels
+from mv3d_tf_tpu_torch import quant as Q
 from mv3d_tf_tpu_torch import train as train_mod
 from mv3d_tf_tpu_torch.eval import (PIXEL_MEANS, build_detect_batch_fn,
                                     build_detect_fn, detect_from_features,
@@ -41,9 +50,14 @@ from mv3d_tf_tpu_torch.models import mv3d
 from mv3d_tf_tpu_torch.data.blob import make_bird_view
 from mv3d_tf_tpu_torch.models.vgg import (conv2d, layer, max_pool_2x2_valid,
                                           module_key)
-from mv3d_tf_tpu_torch.ops import bev
+from mv3d_tf_tpu_torch.ops import bev, conv_s8_cuda
+from mv3d_tf_tpu_torch.ops import conv_s8 as S8
+from mv3d_tf_tpu_torch.ops import roi_pool_cuda as roi_pool_cuda_mod
 from mv3d_tf_tpu_torch.ops.bev_cuda import (N_FLAT, bev_place_cuda,
                                             bev_place_plain)
+from mv3d_tf_tpu_torch.ops.conv_s8_cuda import (conv2x2_s8_cuda,
+                                                conv3x3_s8_cuda,
+                                                matmul_s8_cuda)
 from mv3d_tf_tpu_torch.ops.roi_pool import (bin_bounds, bin_cells, roi_pool,
                                             roi_pool_bwd, roi_pool_fast,
                                             roi_pool_train)
@@ -64,6 +78,8 @@ ROI_SOURCE = "mv3d_tf_tpu_torch/csrc/roi_pool.cu"
 STEM_SOURCE = "mv3d_tf_tpu_torch/csrc/vgg_stem.cu"
 BWD_SOURCE = "mv3d_tf_tpu_torch/csrc/roi_pool_bwd.cu"
 BEV_SOURCE = "mv3d_tf_tpu_torch/csrc/bev_place.cu"
+CONV_S8_SOURCE = "mv3d_tf_tpu_torch/csrc/conv_s8.cu"
+MATMUL_S8_SOURCE = "mv3d_tf_tpu_torch/csrc/matmul_s8.cu"
 TRAIN_STEPS = 3
 TRAIN_PRE_NMS, TRAIN_POST_NMS, TRAIN_ROIS, FC_DIM = 12000, 2000, 128, 2048
 MAX_GT = 32           # the config's TPU.MAX_GT: gt rows per frame
@@ -76,6 +92,20 @@ CLI_SCANS = 16
 # one H100 SXM's published peaks (NVIDIA's data sheet): HBM bytes/s,
 # float32 outside the tensor cores and dense bf16 tensor-core FLOP/s
 HBM_BYTES_PER_S, F32_PER_S, BF16_PER_S = 3.35e12, 67e12, 989e12
+INT8_PER_S = 1979e12  # dense int8 tensor-core operations/s
+# the int8 detector of bench.py:201-205: s2d int8 stem, int8 RPN, int8 head,
+# pre-NMS 1024; B=8 frames a call, PTQ calibrated on CALIB_FRAMES frames
+INT8_B, INT8_PRE_NMS, CALIB_FRAMES, PLAIN_B = 8, 1024, 4, 2
+INT8_KW = dict(stem_impl="s2d_int8", quant_rpn=True, nms_impl="blocked_fixed",
+               pre_nms_top_n=INT8_PRE_NMS, post_nms_top_n=POST_NMS)
+# each view's stem output (H, W): the s8 trunk convs run from there
+S8_VIEWS = {"bev": (300, 300), "image": (192, 624)}
+
+
+def max_err(got, ref):
+    """max |got - ref| over two tensors of one shape, taken in float64 (exact
+    for int8, int32 and float32 values)."""
+    return (got.double() - ref.double()).abs().max().item()
 
 
 def nbytes(*tensors):
@@ -204,6 +234,7 @@ def phase_roi_pool(gen):
                                      "NaN cells" % (name, dtype))
             print("roi_pool %s %s with NaN cells: equal to plain, NaN in the "
                   "same %d outputs" % (name, dtype, int(nan.sum())))
+    roi_pool_s8_check()
     ms = plain_ms = 0.0
     parts = []
     for name, shape, in_h, in_w in (("bev", (4, 75, 75, 512), 600, 600),
@@ -221,6 +252,36 @@ def phase_roi_pool(gen):
     # no single PyTorch call pools rois with these integer bins
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
             **bound(parts, F32_PER_S), "library_ms": None}
+
+
+def roi_pool_s8_check():
+    """The int8 kernel against the plain pool on int8 maps of both signs
+    (the int8 detector pools its trunk codes), edge rois included,
+    bit-identical; then its time at the int8 detector's shapes (B=8, 2400
+    rois a view), printed beside the plain pool's."""
+    gen = torch.Generator().manual_seed(SEED + 8)
+    for name, shape, in_h, in_w in (("bev", (2, 75, 75, 512), 600, 600),
+                                    ("image", (2, 48, 156, 512), 384, 1248)):
+        feat = torch.randint(-128, 128, shape, generator=gen,
+                             dtype=torch.int8).cuda()
+        rois = make_rois(gen, 594, in_h, in_w, shape[0])
+        got = roi_pool_cuda(feat, rois)
+        ref = roi_pool(feat, rois)
+        if got.dtype != torch.int8 or not torch.equal(got, ref):
+            raise AssertionError("roi_pool_cuda != plain on %s int8" % name)
+        print("roi_pool %s int8 %s rois=%d: bit-identical to plain (%d empty "
+              "bins give 0)" % (name, tuple(shape), rois.shape[0],
+                                int((ref == 0).all(-1).sum())))
+    for name, shape, in_h, in_w in (
+            ("bev", (INT8_B, 75, 75, 512), 600, 600),
+            ("image", (INT8_B, 48, 156, 512), 384, 1248)):
+        feat = torch.randint(0, 128, shape, generator=gen,
+                             dtype=torch.int8).cuda()
+        rois = make_rois(gen, INT8_B * POST_NMS - 6, in_h, in_w, INT8_B)
+        k = cuda_ms(lambda: roi_pool_cuda(feat, rois))
+        p = cuda_ms(lambda: roi_pool(feat, rois), iters=3, warmup=1)
+        print("roi_pool time %s int8 %s rois=%d: kernel %.4f ms, plain %.4f ms"
+              % (name, shape, rois.shape[0], k, p))
 
 
 def stem_halo_leak(x, w1, b1, w2, b2):
@@ -721,12 +782,13 @@ def phase_bev_kernel(smi):
              "slice boundaries": boundary_scan(),
              "all invalid": (kitti[:1], np.zeros((1, SCAN_POINTS), bool)),
              "NaN rows": (nan, ones(nan))}
+    worst = 0.0
     for what, (pts, val) in cases.items():
         p, v = torch.from_numpy(pts).cuda(), torch.from_numpy(val).cuda()
         sorted_ = bev.sort_slots(p, v)
         got = bev_place_cuda(*sorted_)
         ref = bev_place_plain(*sorted_)
-        torch.cuda.synchronize()
+        worst = max(worst, max_err(got, ref))
         if not torch.equal(got, ref):
             raise AssertionError("bev_place_cuda != plain on %s: %d entries "
                                  "differ" % (what, int((got != ref).sum())))
@@ -749,7 +811,7 @@ def phase_bev_kernel(smi):
     bev.point_cloud_2_top_batch(kitti, ones(kitti))
     torch.cuda.synchronize()
     host_ms = (time.perf_counter() - t0) * 1e3
-    stats = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+    stats = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
              **bound([(nbytes(seg_s, zs, rs) + SCANS * N_FLAT * 4, 0)],
                      F32_PER_S),
              # no single PyTorch call finds the run ends and places them
@@ -866,6 +928,385 @@ def phase_scan_detector(params, root, smi):
     return launches
 
 
+def trunk_convs(H, W):
+    """(count, H, W, C, N) of one view's s8 3x3 convs after its stem output
+    (H, W): conv2_1 .. conv5_3."""
+    return [(1, H, W, 64, 128), (1, H, W, 128, 128),
+            (1, H // 2, W // 2, 128, 256), (2, H // 2, W // 2, 256, 256),
+            (1, H // 4, W // 4, 256, 512), (5, H // 4, W // 4, 512, 512)]
+
+
+def s8_case(gen, B, H, W, C, N, taps):
+    """Random s8 conv operands on the card, drawn as tests/test_conv_s8.py
+    draws them: post-ReLU codes, symmetric weights, k and b of a requant."""
+    x = torch.randint(0, 128, (B, H, W, C), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    w = torch.randint(-127, 128, (taps, taps, C, N), generator=gen,
+                      device="cuda", dtype=torch.int8)
+    k = torch.rand(N, generator=gen, device="cuda") * 2e-3 + 1e-4
+    b = torch.rand(N, generator=gen, device="cuda") - 0.5
+    return x, w, k, b
+
+
+def conv_work(x, w, out):
+    """(bytes read and written once, operations) of one s8 conv."""
+    taps2, C, N = w.shape[0] * w.shape[1], w.shape[2], w.shape[3]
+    return (nbytes(x, w, out) + 8 * N, 2 * out.numel() * taps2 * C)
+
+
+def phase_conv_s8(smi):
+    """The s8 conv kernel against its plain version, torch.equal, at B=2 at
+    every shape of the int8 path: each view's trunk layers, its packed
+    conv1_2, the RPN conv in float32 output; a ragged 3x3 (H odd, W no
+    multiple of 8) in both outputs, a ragged 2x2, and a 9-channel input.
+    A replay of the float32 epilogue with two roundings (acc * k, then + b)
+    must differ from the kernel. Then kernel and plain times at B=8, summed
+    over one int8 detector call's convs. Returns the 3x3 and 2x2 stats."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    fns = {3: (conv3x3_s8_cuda, S8.conv3x3_s8_plain),
+           2: (conv2x2_s8_cuda, S8.conv2x2_s8_plain)}
+    cases = []
+    for view, (H, W) in S8_VIEWS.items():
+        cases += [("%s conv %dx%dx%d->%d" % (view, h, w, c, n), 3, h, w, c, n,
+                   torch.int8) for _, h, w, c, n in trunk_convs(H, W)]
+        cases.append(("%s packed conv1_2" % view, 2, H + 1, W + 1, 256, 256,
+                      torch.int8))
+    cases += [("rpn conv", 3, 75, 75, 512, 512, torch.float32),
+              ("ragged 3x3", 3, 37, 45, 96, 64, torch.int8),
+              ("ragged 3x3", 3, 37, 45, 96, 64, torch.float32),
+              ("ragged 2x2", 2, 38, 47, 96, 48, torch.int8),
+              ("9-channel input", 3, 41, 43, 9, 64, torch.int8)]
+    replay_seen = False
+    worst = {3: 0.0, 2: 0.0}
+    for name, taps, H, W, C, N, out_dtype in cases:
+        x, w, k, b = s8_case(gen, PLAIN_B, H, W, C, N, taps)
+        kernel, plain = fns[taps]
+        got = kernel(x, w, k, b, out_dtype)
+        ref = plain(x, w, k, b, out_dtype)
+        worst[taps] = max(worst[taps], max_err(got, ref))
+        if got.dtype != out_dtype or not torch.equal(got, ref):
+            raise AssertionError("s8 conv %s %s: kernel != plain (%d of %d "
+                                 "differ)" % (name, out_dtype,
+                                              int((got != ref).sum()),
+                                              ref.numel()))
+        line = "conv_s8 %s %s B=%d: bit-identical to plain" % (
+            name, str(out_dtype).split(".")[-1], PLAIN_B)
+        if out_dtype == torch.int8:
+            inside = ((ref > 0) & (ref < 127)).float().mean().item()
+            line += " (%.3f of codes inside (0, 127))" % inside
+        else:
+            acc = S8.conv_acc_plain(x, w, 1 if taps == 3 else 0)
+            two = (acc.float() * k + b).clamp_min(0.0)
+            moved = int((two != got).sum())
+            if not moved:
+                raise AssertionError("s8 conv %s: a two-rounding epilogue "
+                                     "would pass the check" % name)
+            replay_seen = True
+            line += ("; a two-rounding epilogue differs in %d of %d values"
+                     % (moved, got.numel()))
+        print(line)
+    if not replay_seen:
+        raise AssertionError("no two-rounding replay ran")
+
+    # one B=8 int8 detector call: 22 trunk convs and the RPN conv, two packed
+    # conv1_2; each distinct shape timed once and weighted by its count
+    sums = {3: [0.0, 0.0, []], 2: [0.0, 0.0, []]}
+    timed_cases = [(2, 1, H + 1, W + 1, 256, 256, torch.int8)
+                   for H, W in S8_VIEWS.values()]
+    for H, W in S8_VIEWS.values():
+        timed_cases += [(3, n, h, w, c, m, torch.int8)
+                        for n, h, w, c, m in trunk_convs(H, W)]
+    timed_cases.append((3, 1, 75, 75, 512, 512, torch.float32))
+    for taps, count, H, W, C, N, out_dtype in timed_cases:
+        x, w, k, b = s8_case(gen, INT8_B, H, W, C, N, taps)
+        kernel, plain = fns[taps]
+        out = kernel(x, w, k, b, out_dtype)
+        km = cuda_ms(lambda: kernel(x, w, k, b, out_dtype), iters=5, warmup=1)
+        pm = cuda_ms(lambda: plain(x, w, k, b, out_dtype), iters=1, warmup=1)
+        work = conv_work(x, w, out)
+        sums[taps][0] += count * km
+        sums[taps][1] += count * pm
+        sums[taps][2] += [work] * count
+        print("conv_s8 time %dx%d B=%d %dx%dx%d->%d %s x%d: kernel %.4f ms "
+              "(%.1f TOP/s), plain %.4f ms" % (
+                  taps, taps, INT8_B, H, W, C, N,
+                  str(out_dtype).split(".")[-1], count, km,
+                  work[1] / km / 1e9, pm))
+        del x, w, out
+    stats = {}
+    for taps, (km, pm, parts) in sums.items():
+        # PyTorch has no int8 convolution on CUDA
+        stats[taps] = {"max_abs_err": worst[taps], "ms": km, "plain_ms": pm,
+                       **bound(parts, INT8_PER_S), "library_ms": None}
+        print("conv_s8 %dx%d: one B=%d detector call's %d convs: kernel %.4f "
+              "ms, bound %.4f ms (%s), plain %.4f ms, on [%s]" % (
+                  taps, taps, INT8_B, len(parts), km,
+                  stats[taps]["bound_ms"], stats[taps]["bound_by"], pm, smi))
+    probe = torch.randint(0, 128, (1, 8, 6, 6), dtype=torch.int8,
+                          device="cuda")
+    try:
+        F.max_pool2d(probe, 2)
+        verdict = "takes it"
+    except RuntimeError as e:          # a probe of PyTorch, reported as found
+        verdict = "refuses it (%s)" % str(e).splitlines()[0]
+    print("F.max_pool2d on an int8 CUDA tensor %s; the port pools int8 maps "
+          "as the max of four strided slices" % verdict)
+    return stats[3], stats[2]
+
+
+def phase_matmul_s8(smi):
+    """The s8 GEMM kernel against its plain version, torch.equal, at the int8
+    head's fc6 and fc7 shapes for B=8 (M = 2400 rois), at 4096^3 and at a
+    ragged shape; times of the kernel, the plain version and torch._int_mm
+    (the yardstick; the port never calls it) for one detector call's four
+    products."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    M = INT8_B * POST_NMS
+    shapes = {"fc6": (M, 25088, 2048), "fc7": (M, 2048, 2048),
+              "4096^3": (4096, 4096, 4096), "ragged": (37, 200, 40)}
+    ms = plain_ms = lib_ms = worst = 0.0
+    parts = []
+    for name, (m, kdim, n) in shapes.items():
+        a = torch.randint(-128, 128, (m, kdim), generator=gen, device="cuda",
+                          dtype=torch.int8)
+        b = torch.randint(-127, 128, (kdim, n), generator=gen, device="cuda",
+                          dtype=torch.int8)
+        got = matmul_s8_cuda(a, b)
+        ref = S8.matmul_s8_plain(a, b)
+        worst = max(worst, max_err(got, ref))
+        if got.dtype != torch.int32 or not torch.equal(got, ref):
+            raise AssertionError("matmul_s8 %s: kernel != plain" % name)
+        line = "matmul_s8 %s (%d,%d)@(%d,%d): bit-identical to plain" % (
+            name, m, kdim, kdim, n)
+        if name != "ragged":
+            b_cm = b.t().contiguous().t()      # column-major, as cuBLASLt wants
+            km = cuda_ms(lambda: matmul_s8_cuda(a, b), iters=10)
+            pm = cuda_ms(lambda: S8.matmul_s8_plain(a, b), iters=2, warmup=1)
+            lm = cuda_ms(lambda: torch._int_mm(a, b_cm), iters=10)
+            same = torch.equal(torch._int_mm(a, b_cm), ref)
+            ops = 2 * m * kdim * n
+            line += ("; kernel %.4f ms (%.1f TOP/s), plain %.4f ms, "
+                     "torch._int_mm %.4f ms (%s the plain version)" % (
+                         km, ops / km / 1e9, pm, lm,
+                         "equal to" if same else "DIFFERENT from"))
+            if name in ("fc6", "fc7"):   # two of each per detector call
+                ms, plain_ms, lib_ms = (ms + 2 * km, plain_ms + 2 * pm,
+                                        lib_ms + 2 * lm)
+                parts += [(nbytes(a, b, got), ops)] * 2
+        print(line)
+    stats = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+             **bound(parts, INT8_PER_S), "library_ms": lib_ms}
+    print("matmul_s8: one B=%d detector call's 4 products: kernel %.4f ms, "
+          "bound %.4f ms (%s), plain %.4f ms, torch._int_mm %.4f ms, on [%s]"
+          % (INT8_B, ms, stats["bound_ms"], stats["bound_by"], plain_ms,
+             lib_ms, smi))
+    return stats
+
+
+class plain_routes:
+    """Within the block, the int8 path's kernel wrappers run their plain
+    versions on the card instead: for the kernel-vs-plain detector check."""
+
+    SWAPS = ((conv_s8_cuda, "conv3x3_s8_cuda",
+              lambda x, w, k, b, out_dtype=torch.int8:
+              S8.conv3x3_s8_plain(x, w, k, b, out_dtype)),
+             (conv_s8_cuda, "conv2x2_s8_cuda",
+              lambda x, w, k, b, out_dtype=torch.int8:
+              S8.conv2x2_s8_plain(x, w, k, b, out_dtype)),
+             (conv_s8_cuda, "matmul_s8_cuda", S8.matmul_s8_plain),
+             (roi_pool_cuda_mod, "roi_pool_cuda",
+              lambda f, r, pooled=7, spatial_scale=1.0 / 8:
+              roi_pool(f, r, pooled, spatial_scale)))
+
+    def __enter__(self):
+        self.saved = [getattr(mod, name) for mod, name, _ in self.SWAPS]
+        for mod, name, fn in self.SWAPS:
+            setattr(mod, name, fn)
+
+    def __exit__(self, *exc):
+        for (mod, name, _), fn in zip(self.SWAPS, self.saved):
+            setattr(mod, name, fn)
+
+
+def int8_launches():
+    return {"conv_s8": conv3x3_s8_cuda.launches,
+            "conv2x2_s8": conv2x2_s8_cuda.launches,
+            "matmul_s8": matmul_s8_cuda.launches,
+            "roi_pool": roi_pool_cuda.launches}
+
+
+def zero_int8_launches():
+    conv3x3_s8_cuda.launches = conv2x2_s8_cuda.launches = 0
+    matmul_s8_cuda.launches = roi_pool_cuda.launches = 0
+
+
+def device_busy(fn):
+    """One call of fn under torch.profiler: the device kernels' count and
+    summed time, and the idle share of the call's span (from its first host
+    event to its last device event) that no kernel covers."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    dev = sorted((e.time_range.start, e.time_range.end) for e in events
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not dev:
+        return "the profiler saw no device kernel: idle share not measured"
+    busy, end = 0.0, float("-inf")
+    for s, e in dev:                   # the union of the kernels' intervals
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    start = min(e.time_range.start for e in events)
+    span = max(end, max(e.time_range.end for e in events)) - start
+    return ("%d device kernels, busy %.3f of %.3f ms, idle share %.3f"
+            % (len(dev), busy / 1e3, span / 1e3, 1 - busy / span))
+
+
+def int8_stages(params, state, bev, image, calib):
+    """One int8 detector call (eval._detect_int8 with the INT8_KW options)
+    with a synchronize after each stage: ms per stage."""
+    ms = {}
+
+    def clock(stage, fn, *args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        ms[stage] = ms.get(stage, 0.0) + (time.perf_counter() - t0) * 1e3
+        return out
+
+    with torch.inference_mode():
+        bev, image, calib = clock("inputs", eval_mod._inputs, params, bev,
+                                  image, calib)
+        q_bv, q_im = state["trunk_bv"], state["trunk_img"]
+        stem_bv, _ = clock("s2d int8 stems", Q._s2d_stem_int8, params, q_bv,
+                           bev, "")
+        stem_im, _ = clock("s2d int8 stems", Q._s2d_stem_int8, params, q_im,
+                           image, "_2")
+        fbv, s_bv = clock("int8 trunk tails", Q.trunk_apply_int8_from_stem_q,
+                          q_bv, stem_bv)
+        fim, s_im = clock("int8 trunk tails", Q.trunk_apply_int8_from_stem_q,
+                          q_im, stem_im)
+        rpn_cls, rpn_box = clock("int8 rpn head", Q.rpn_head_int8, params,
+                                 fbv, s_bv)
+        rois, flat_bv, flat_img = clock(
+            "proposal layer", eval_mod.proposals, rpn_cls, rpn_box, calib,
+            FEAT, FEAT, INT8_PRE_NMS, POST_NMS, 0.7)
+        pooled_bv = clock("int8 roi pool", roi_pool_fast, fbv, flat_bv)
+        pooled_im = clock("int8 roi pool", roi_pool_fast, fim, flat_img)
+        _, cls_prob, bbox_pred = clock(
+            "int8 fusion head", Q.fusion_head_int8, params, state["head"],
+            pooled_bv, s_bv, pooled_im, s_im)
+        clock("corner decode", eval_mod._outputs, rois, cls_prob, bbox_pred)
+    return ms
+
+
+def phase_int8_detector(np_params, smi):
+    """PTQ on the card (build_quant_state from CALIB_FRAMES He-scaled frames,
+    the head calibrated on their pooled features), then the int8 detector of
+    bench.py:201-205 at full shape, B=8: a warm-up and 3 timed calls, the
+    output checks and nms_converged, the launch counts (zeroed just before,
+    read just after); a stage split of one more call; the bf16 batched
+    detector at the same options for comparison; and at B=2 the whole int8
+    detector through the kernels against the same detector through the
+    plain versions on the card, bit for bit. Returns the launch counts."""
+    params = params_from_jax(np_params, device="cuda")
+    rng = np.random.RandomState(SEED + 11)
+    means = torch.from_numpy(PIXEL_MEANS).cuda()
+
+    def frames(n):
+        bev_ = torch.from_numpy(rng.rand(n, 601, 601, 9).astype(np.float32))
+        image = torch.from_numpy(
+            (rng.rand(n, 384, 1248, 3) * 255).astype(np.float32))
+        calib = torch.from_numpy(np.stack([example_calib()] * n))
+        return bev_.cuda(), image.cuda(), calib.cuda()
+
+    cbev, cimage, ccalib = frames(CALIB_FRAMES)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pooled_bv, pooled_img = Q.calibrate_pooled_features(
+        params, cbev, cimage - means, ccalib)
+    state = Q.build_quant_state(params, cbev, cimage - means, pooled_bv,
+                                pooled_img)
+    torch.cuda.synchronize()
+    print("int8 PTQ on the card: %d calibration frames, %d pooled rows, %.1f "
+          "ms; conv5_3 scales bev %.6g image %.6g; head scales %s" % (
+              CALIB_FRAMES, pooled_bv.shape[0],
+              (time.perf_counter() - t0) * 1e3,
+              state["trunk_bv"]["conv5_3"]["s_out"].item(),
+              state["trunk_img"]["conv5_3"]["s_out"].item(),
+              {k: round(v.item(), 6)
+               for k, v in state["head"]["scales"].items()}))
+    del cbev, cimage, ccalib, pooled_bv, pooled_img
+
+    bev_, image, calib = frames(INT8_B)
+    detect = build_detect_batch_fn(quant=state, **INT8_KW)
+    calls = 3
+    zero_int8_launches()
+    timed(detect, params, bev_, image, calib)                   # warm-up
+    times = []
+    for _ in range(calls):
+        out, ms = timed(detect, params, bev_, image, calib)
+        conv = out.pop("nms_converged")
+        if tuple(conv.shape) != (INT8_B,) or not conv.all():
+            raise AssertionError("int8 detector: nms_converged %s"
+                                 % conv.tolist())
+        check_outputs(out, (INT8_B, POST_NMS), "int8 batch")
+        times.append(ms / INT8_B)
+    launches = int8_launches()
+    per_call = {"conv_s8": 23, "conv2x2_s8": 2, "matmul_s8": 4,
+                "roi_pool": 2}
+    expected = {k: v * (calls + 1) for k, v in per_call.items()}
+    print("int8-path launches: %s (expected %s)" % (launches, expected))
+    if launches != expected:
+        raise AssertionError("int8 launch counts %s != %s"
+                             % (launches, expected))
+    p50 = float(np.median(times))
+    print("detector int8 batch B=%d (s2d_int8 stem, int8 RPN, pool and head, "
+          "pre-NMS %d): p50 %.3f ms/frame = %.1f frames/s over %d calls (%s); "
+          "valid per frame %s; on [%s]" % (
+              INT8_B, INT8_PRE_NMS, p50, 1e3 / p50, calls,
+              ", ".join("%.3f" % t for t in times),
+              out["valid"].sum(1).tolist(), smi))
+    stages = int8_stages(params, state, bev_, image, calib)
+    print("int8 stage split B=%d (a synchronize after each stage), ms: %s; "
+          "total %.3f" % (INT8_B, ", ".join("%s %.3f" % kv
+                                            for kv in stages.items()),
+                          sum(stages.values())))
+    print("int8 detector B=%d traced: %s" % (
+        INT8_B, device_busy(lambda: detect(params, bev_, image, calib))))
+
+    detect_bf16 = build_detect_batch_fn(
+        compute_dtype=torch.bfloat16, nms_impl="blocked_fixed",
+        pre_nms_top_n=INT8_PRE_NMS, post_nms_top_n=POST_NMS)
+    timed(detect_bf16, params, bev_, image, calib)              # warm-up
+    bf16_times = [timed(detect_bf16, params, bev_, image, calib)[1] / INT8_B
+                  for _ in range(calls)]
+    bf16_p50 = float(np.median(bf16_times))
+    print("detector bf16 batch B=%d at the same options: p50 %.3f ms/frame "
+          "(%s); int8 p50 / bf16 p50 = %.3f; on [%s]" % (
+              INT8_B, bf16_p50, ", ".join("%.3f" % t for t in bf16_times),
+              p50 / bf16_p50, smi))
+
+    small = (bev_[:PLAIN_B], image[:PLAIN_B], calib[:PLAIN_B])
+    kernel_out = detect(params, *small)
+    with plain_routes():
+        plain_out = detect(params, *small)
+    torch.cuda.synchronize()
+    differ = [k for k in kernel_out
+              if not torch.equal(kernel_out[k], plain_out[k])]
+    if differ:
+        raise AssertionError("int8 detector B=%d: the kernel route differs "
+                             "from the plain route in %s" % (PLAIN_B, differ))
+    print("int8 detector B=%d: kernel route bit-identical to the plain route "
+          "in all %d outputs (%d valid proposals)" % (
+              PLAIN_B, len(kernel_out), int(kernel_out["valid"].sum())))
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; "
@@ -886,18 +1327,21 @@ def main():
         params = params_from_jax(np_params, device="cuda")
         scan_launches = phase_scan_detector(params, root, smi)
         del params
+    conv_stats, conv2x2_stats = phase_conv_s8(smi)
+    matmul_stats = phase_matmul_s8(smi)
+    int8 = phase_int8_detector(np_params, smi)
     loaded = [m for m in sys.modules
               if m.split(".")[0] in ("jax", "jaxlib", "mv3d_tf_tpu")]
     if loaded:
         raise AssertionError("modules of jax or the JAX package were "
                              "imported: %s" % loaded)
     # launches on the main paths: the detector's run, the train run, the
-    # read_lidar run and the scan-to-detections run
+    # read_lidar run, the scan-to-detections run and the int8 detector's run
     print(json.dumps({"kernels": [
         {"name": "roi_pool", "route": "cuda", "source": ROI_SOURCE,
          "replaces": "mv3d_tf_tpu/ops/roi_pool_pallas.py:71",
          "launches": launches["roi_pool"] + train_launches["roi_pool"]
-         + scan_launches["roi_pool"], **roi},
+         + scan_launches["roi_pool"] + int8["roi_pool"], **roi},
         {"name": "vgg_stem", "route": "cuda", "source": STEM_SOURCE,
          "replaces": "mv3d_tf_tpu/ops/vgg_stem_pallas.py:106",
          "launches": launches["vgg_stem"] + scan_launches["vgg_stem"],
@@ -908,6 +1352,15 @@ def main():
         {"name": "bev_place", "route": "cuda", "source": BEV_SOURCE,
          "replaces": "mv3d_tf_tpu/ops/bev_pallas.py:58",
          "launches": cli_launches + scan_launches["bev_place"], **bev_stats},
+        {"name": "conv_s8", "route": "cuda", "source": CONV_S8_SOURCE,
+         "replaces": "mv3d_tf_tpu/ops/conv_s8_pallas.py:46,155",
+         "launches": int8["conv_s8"], **conv_stats},
+        {"name": "conv2x2_s8", "route": "cuda", "source": CONV_S8_SOURCE,
+         "replaces": "mv3d_tf_tpu/ops/conv_s8_pallas.py:260",
+         "launches": int8["conv2x2_s8"], **conv2x2_stats},
+        {"name": "matmul_s8", "route": "cuda", "source": MATMUL_S8_SOURCE,
+         "replaces": "mv3d_tf_tpu/ops/conv_s8_pallas.py:376",
+         "launches": int8["matmul_s8"], **matmul_stats},
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

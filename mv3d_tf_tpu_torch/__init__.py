@@ -1,10 +1,11 @@
-"""mv3d_tf_tpu_torch — the MV3D LiDAR front end, inference detector and
-single-frame train step in PyTorch, with hand-written CUDA kernels for
-NVIDIA Hopper (sm_90a).
+"""mv3d_tf_tpu_torch — the MV3D LiDAR front end, inference detector (float
+and int8 PTQ) and single-frame train step in PyTorch, with hand-written
+CUDA kernels for NVIDIA Hopper (sm_90a).
 
 The front end turns Velodyne scans into (601, 601, 9) BEV rasters
 (``ops/bev.py``, ``tools/read_lidar.py``, ``data/blob.make_bird_view``),
-which feed the detector (``eval.py``) and the train step (``train.py``).
+which feed the detector (``eval.py``; int8 with a ``quant.py`` state) and
+the train step (``train.py``).
 Entry points and parameter constructors run on the card ("cuda") unless
 the caller asks for another device; without a card they raise rather than
 fall back to the CPU. Tensors given as inputs stay on their device.

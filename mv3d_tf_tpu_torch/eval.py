@@ -12,12 +12,16 @@ Parity notes, as in the JAX package:
     corners are returned alongside.
 In bfloat16 the trunks run the fused conv1 stem (ops/vgg_stem_cuda.py),
 and on a card the ROI pooling runs the CUDA kernel (ops/roi_pool.py).
+Given an int8 quant state (quant.py), the batched detector runs the int8
+trunks, RPN conv, ROI pool and fc6/fc7 through the s8 kernels
+(ops/conv_s8.py).
 """
 
 import numpy as np
 import torch
 
 from mv3d_tf_tpu_torch import geometry as G
+from mv3d_tf_tpu_torch import quant as Q
 from mv3d_tf_tpu_torch.config import cfg
 from mv3d_tf_tpu_torch.models import mv3d
 from mv3d_tf_tpu_torch.ops.nms import nms_np
@@ -28,32 +32,25 @@ PIXEL_MEANS = np.array([95.8814, 98.7743, 93.8549], np.float32)
 _NMS_IMPLS = ("auto", "blocked_fixed")
 
 
-def detect_from_features(params, c5, c5_2, calib, feat_h=75, feat_w=75,
-                         pre_nms_top_n=6000, post_nms_top_n=300,
-                         rpn_nms_thresh=0.7, compute_dtype=None,
-                         pool=roi_pool_fast):
-    """The detector after the trunks, for B frames.
-
-    c5 (B,h,w,512) BEV and c5_2 (B,h',w',512) image features; calib
-    (B,4,12). ``pool`` is the ROI pool (the kernel dispatch by default).
-    Returns the single-frame detector's keys with leading dims (B, P).
-    """
-    B, P = c5.shape[0], post_nms_top_n
-    rpn_cls, rpn_box = mv3d.rpn_head(params, c5, dtype=compute_dtype)
+def proposals(rpn_cls, rpn_box, calib, feat_h=75, feat_w=75,
+              pre_nms_top_n=6000, post_nms_top_n=300, rpn_nms_thresh=0.7):
+    """The proposal layer for B frames, and its rois flattened for the ROI
+    pool with the frame index in column 0 (eval.py:217-220). Returns
+    (rois, flat_bv (B*P,5), flat_img (B*P,5))."""
+    B, P = rpn_cls.shape[0], post_nms_top_n
     rois = proposal_layer_3d(mv3d.rpn_probs(rpn_cls), rpn_box.float(), calib,
                              feat_h, feat_w, pre_nms_top_n=pre_nms_top_n,
                              post_nms_top_n=P, nms_thresh=rpn_nms_thresh)
-
-    # frame-index column of the flattened rois (eval.py:217-220)
     frame = torch.arange(B, dtype=torch.float32,
-                         device=c5.device).repeat_interleave(P)[:, None]
+                         device=rpn_cls.device).repeat_interleave(P)[:, None]
     flat_bv = torch.cat([frame, rois["rois_bv"].reshape(B * P, 5)[:, 1:]], 1)
     flat_img = torch.cat([frame, rois["rois_img"].reshape(B * P, 5)[:, 1:]], 1)
-    pooled_bv = pool(c5, flat_bv, spatial_scale=1.0 / 8)
-    pooled_img = pool(c5_2, flat_img, spatial_scale=1.0 / 8)
-    _, cls_prob, bbox_pred = mv3d.fusion_head(params, pooled_bv, pooled_img,
-                                              dtype=compute_dtype)
+    return rois, flat_bv, flat_img
 
+
+def _outputs(rois, cls_prob, bbox_pred):
+    """The corner decode and the masked output dict, leading dims (B, P)."""
+    B, P = rois["valid"].shape
     boxes_cnr = G.lidar_3d_to_corners(rois["rois_3d"].reshape(B * P, 7)[:, 1:])
     # unregressed corners duplicated per class (test_mv.py:255)
     pred_cnr = torch.cat([boxes_cnr, boxes_cnr], dim=1)
@@ -72,19 +69,96 @@ def detect_from_features(params, c5, c5_2, calib, feat_h=75, feat_w=75,
     }
 
 
-@torch.inference_mode()
-def _detect(params, bev, image, calib, compute_dtype, **kw):
-    """Batched detector from raw inputs (B,...) on the params' device."""
+def detect_from_features(params, c5, c5_2, calib, feat_h=75, feat_w=75,
+                         pre_nms_top_n=6000, post_nms_top_n=300,
+                         rpn_nms_thresh=0.7, compute_dtype=None,
+                         pool=roi_pool_fast):
+    """The detector after the trunks, for B frames.
+
+    c5 (B,h,w,512) BEV and c5_2 (B,h',w',512) image features; calib
+    (B,4,12). ``pool`` is the ROI pool (the kernel dispatch by default).
+    Returns the single-frame detector's keys with leading dims (B, P).
+    """
+    rpn_cls, rpn_box = mv3d.rpn_head(params, c5, dtype=compute_dtype)
+    rois, flat_bv, flat_img = proposals(
+        rpn_cls, rpn_box, calib, feat_h, feat_w, pre_nms_top_n,
+        post_nms_top_n, rpn_nms_thresh)
+    pooled_bv = pool(c5, flat_bv, spatial_scale=1.0 / 8)
+    pooled_img = pool(c5_2, flat_img, spatial_scale=1.0 / 8)
+    _, cls_prob, bbox_pred = mv3d.fusion_head(params, pooled_bv, pooled_img,
+                                              dtype=compute_dtype)
+    return _outputs(rois, cls_prob, bbox_pred)
+
+
+def _inputs(params, bev, image, calib):
+    """Inputs as float32 tensors on the params' device, the image
+    mean-subtracted in float32 before any cast."""
     dev = next(params.parameters()).device
     bev = torch.as_tensor(bev, dtype=torch.float32, device=dev)
     image = (torch.as_tensor(image, device=dev).float()
              - torch.from_numpy(PIXEL_MEANS).to(dev))
     calib = torch.as_tensor(calib, dtype=torch.float32, device=dev)
+    return bev, image, calib
+
+
+@torch.inference_mode()
+def _detect(params, bev, image, calib, compute_dtype, **kw):
+    """Batched detector from raw inputs (B,...) on the params' device."""
+    bev, image, calib = _inputs(params, bev, image, calib)
     stem_impl = "fused" if compute_dtype == torch.bfloat16 else None
     c5, c5_2 = mv3d.extract_features(params, bev, image, dtype=compute_dtype,
                                      stem_impl=stem_impl)
     return detect_from_features(params, c5, c5_2, calib,
                                 compute_dtype=compute_dtype, **kw)
+
+
+def _dequant(q, s):
+    """int8 codes times their scale, as bf16: the product is taken in
+    float32, as JAX promotes bf16 * float32 (PyTorch would keep bf16)."""
+    return (q.to(torch.bfloat16).float() * s).to(torch.bfloat16)
+
+
+@torch.inference_mode()
+def _detect_int8(params, qstate, bev, image, calib, stem_impl, conv_impl,
+                 quant_rpn, quant_pool, feat_h, feat_w, pre_nms_top_n,
+                 post_nms_top_n, rpn_nms_thresh):
+    """The int8 batched detector (eval.py:137-291): int8 trunks, the int8
+    RPN conv with quant_rpn, the ROI pool on the int8 maps with quant_pool
+    (on dequantized bf16 maps without), the int8 head when the state has
+    one; bf16 heads otherwise."""
+    bev, image, calib = _inputs(params, bev, image, calib)
+    fbv, s_bv, fim, s_im = Q.extract_features_int8(
+        params, qstate, bev, image, stem=stem_impl or "bf16",
+        conv_impl=conv_impl)
+    if quant_rpn:
+        rpn_cls, rpn_box = Q.rpn_head_int8(params, fbv, s_bv,
+                                           conv_impl=conv_impl)
+    else:
+        rpn_cls, rpn_box = mv3d.rpn_head(params, _dequant(fbv, s_bv),
+                                         dtype=torch.bfloat16)
+    rois, flat_bv, flat_img = proposals(
+        rpn_cls, rpn_box, calib, feat_h, feat_w, pre_nms_top_n,
+        post_nms_top_n, rpn_nms_thresh)
+    if not quant_pool:
+        fbv, fim = _dequant(fbv, s_bv), _dequant(fim, s_im)
+    pooled_bv = roi_pool_fast(fbv, flat_bv, spatial_scale=1.0 / 8)
+    pooled_img = roi_pool_fast(fim, flat_img, spatial_scale=1.0 / 8)
+    head = qstate.get("head")
+    if head is not None:
+        if not quant_pool:
+            # the bf16 pool gave dequantized values: back to int8 at the
+            # trunk scales (exact up to the one bf16 rounding of q * s)
+            pooled_bv = Q._quantize(pooled_bv, s_bv, 0)
+            pooled_img = Q._quantize(pooled_img, s_im, 0)
+        _, cls_prob, bbox_pred = Q.fusion_head_int8(
+            params, head, pooled_bv, s_bv, pooled_img, s_im)
+    else:
+        if quant_pool:
+            pooled_bv = _dequant(pooled_bv, s_bv)
+            pooled_img = _dequant(pooled_img, s_im)
+        _, cls_prob, bbox_pred = mv3d.fusion_head(
+            params, pooled_bv, pooled_img, dtype=torch.bfloat16)
+    return _outputs(rois, cls_prob, bbox_pred)
 
 
 def build_detect_fn(feat_h=75, feat_w=75, pre_nms_top_n=6000,
@@ -112,26 +186,46 @@ def build_detect_fn(feat_h=75, feat_w=75, pre_nms_top_n=6000,
 
 def build_detect_batch_fn(feat_h=75, feat_w=75, pre_nms_top_n=6000,
                           post_nms_top_n=300, rpn_nms_thresh=0.7,
-                          compute_dtype=None, quant=None, nms_impl="auto"):
-    """The batched detector (eval.py:99-305), with quant=None.
+                          compute_dtype=None, quant=None,
+                          quant_conv_impl="xla", stem_impl=None,
+                          quant_rpn=False, rois_per_step=12,
+                          quant_pool=True, nms_impl="auto"):
+    """The batched detector (eval.py:99-305).
 
     Returns detect_batch(params, bev (B,...), image (B,...), calib (B,4,12))
     -> dict with leading dims (B, P) and the keys of the JAX batch detector.
     Both nms_impl values run the one exact greedy NMS; with "blocked_fixed"
     the output carries "nms_converged" (B,), all True, as the JAX key
     promises.
+
+    quant: an int8 PTQ state (quant.build_quant_state, load_quant_state or
+    utils.weights.quant_state_from_jax) runs the int8 detector: stem_impl
+    picks its stem (quant.extract_features_int8, "bf16" by default),
+    quant_rpn the int8 RPN conv, quant_pool the ROI pool on int8 maps;
+    heads run in bf16, the fc6/fc7 in int8 when the state has a head.
+    quant_conv_impl is checked and names the same integers for every value;
+    rois_per_step, a TPU tiling, is accepted and unused. With quant=None the
+    float detector runs in compute_dtype and stem_impl must be None.
     """
-    if quant is not None:
-        raise NotImplementedError(
-            "int8 detection is not ported yet: ROADMAP.md, Queue 1 item 10 "
-            "(quant.py)")
     if nms_impl not in _NMS_IMPLS:
         raise ValueError("unknown nms_impl {!r}".format(nms_impl))
     kw = dict(feat_h=feat_h, feat_w=feat_w, pre_nms_top_n=pre_nms_top_n,
               post_nms_top_n=post_nms_top_n, rpn_nms_thresh=rpn_nms_thresh)
+    if quant is None:
+        if stem_impl is not None:
+            raise NotImplementedError(
+                "stem_impl is taken by the int8 detector only; the float "
+                "detector picks its stem by compute_dtype")
+        run = lambda p, b, i, c: _detect(  # noqa: E731
+            p, b, i, c, compute_dtype, **kw)
+    else:
+        Q._check_impl(quant_conv_impl)
+        run = lambda p, b, i, c: _detect_int8(  # noqa: E731
+            p, quant, b, i, c, stem_impl, quant_conv_impl, quant_rpn,
+            quant_pool, **kw)
 
     def detect_batch(params, bev, image, calib):
-        out = _detect(params, bev, image, calib, compute_dtype, **kw)
+        out = run(params, bev, image, calib)
         del out["rois_img"]
         if nms_impl == "blocked_fixed":
             out["nms_converged"] = torch.ones(

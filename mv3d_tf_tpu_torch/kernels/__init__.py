@@ -1,10 +1,11 @@
 """Build and load the hand-written CUDA kernels of ``csrc/``.
 
 On first use, nvcc compiles each ``csrc/*.cu`` for Hopper (``sm_90a``),
-one process per source, all started together, and links the objects into
+one process per source, all started together (``*.cuh`` headers are
+included by the sources), and links the objects into
 one shared library with a plain C interface, which is then loaded with
 ctypes. The library lands in ``mv3d_tf_tpu_torch/_build/`` under a name
-derived from the sources and flags, so an edited source is rebuilt and an
+derived from the sources, headers and flags, so an edited source is rebuilt and an
 unchanged one is reused. A missing nvcc or a failed build raises.
 
 Each C entry point launches on the stream it is given and returns
@@ -34,10 +35,14 @@ _L = ctypes.c_int64
 _SIGNATURES = {
     "mv3d_roi_pool_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "mv3d_roi_pool_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "mv3d_roi_pool_s8": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "mv3d_roi_pool_bwd_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "mv3d_roi_pool_bwd_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "mv3d_vgg_stem_bf16": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "mv3d_bev_place_f32": (_P, _P, _P, _P, _L, _L, _I, _I, _P),
+    "mv3d_conv3x3_s8": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "mv3d_conv2x2_s8": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "mv3d_matmul_s8": (_P, _P, _P, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()
@@ -64,8 +69,9 @@ def _run(cmd):
 
 def _build():
     sources = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+    headers = sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in sources + headers:
         with open(src, "rb") as fh:
             digest.update(fh.read())
     lib_path = os.path.join(BUILD_DIR,

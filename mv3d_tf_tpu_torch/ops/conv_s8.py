@@ -1,0 +1,124 @@
+"""s8 convolutions and the s8 GEMM: the plain PyTorch versions, the
+requant epilogue they share with the CUDA kernels, and the dispatch between
+them (mv3d_tf_tpu/ops/conv_s8_pallas.py, quant.py:_conv_requant).
+
+    conv3x3_s8(x, w, k, b)  3x3 SAME, (B,H,W,C) int8 -> (B,H,W,N)
+    conv2x2_s8(x, w, k, b)  2x2 VALID, (B,H,W,C) int8 -> (B,H-1,W-1,N)
+    matmul_s8(a, b)         (M,K) int8 @ (K,N) int8 -> (M,N) int32
+
+Weights are HWIO int8 as the JAX package keeps them; k and b are the (N,)
+float32 requant scale and bias. The output is
+clip(round(fma(float(acc), k, b)), 0, 127) as int8, or max(fma(...), 0) as
+float32: the epilogue that XLA fuses into ONE fused multiply-add under jit
+(rounded once; PyTorch's eager ``a * k + b`` rounds twice and differs on a
+quarter of float32 values). ``torch.round`` rounds half to even, as
+``jnp.round`` does.
+
+The dispatch sends a CUDA tensor to the hand-written kernel
+(ops/conv_s8_cuda.py) and a CPU tensor to the plain version; any other
+device raises.
+"""
+
+import torch
+import torch.nn.functional as F
+
+
+def fma_f32(a, k, b):
+    """float32 a * k + b rounded once, as a fused multiply-add.
+
+    The product of two float32 values is exact in float64; TwoSum gives the
+    float64 sum s and its exact error e. Rounding s to float32 is then right
+    unless s is a float32 midpoint and e is not 0 (a second rounding would
+    break the tie the wrong way): there e's sign picks the neighbour.
+    """
+    p = a.double() * k.double()
+    bd = b.double()
+    s = p + bd
+    bb = s - p
+    e = (p - (s - bb)) + (bd - bb)
+    r = s.float()
+    rd = r.double()
+    half = s - rd                       # exact: s and r are close
+    other = rd + 2.0 * half             # r's other neighbour if s is a tie
+    tie = (half != 0) & (other.float().double() == other)
+    away = tie & (e != 0) & ((e > 0) == (half > 0))
+    return torch.where(away, other.float(), r)
+
+
+def requant(acc, k, b, out_dtype=torch.int8):
+    """The kernels' epilogue on s32 sums acc (..., N) with (N,) float32 k, b:
+    clip(round(fma(float(acc), k, b)), 0, 127) int8, or for float32 output
+    max(fma(...), 0)."""
+    y = fma_f32(acc.float(), k, b)
+    if out_dtype == torch.int8:
+        return torch.round(y).clamp(0, 127).to(torch.int8)
+    if out_dtype == torch.float32:
+        return y.clamp_min(0.0)
+    raise ValueError("requant: out_dtype must be int8 or float32")
+
+
+def _exact_mm(a, b):
+    """Integer a @ b, exactly, as int32: in float64 every product and partial
+    sum is an integer below 2^53 (127 * 128 * 25088 < 2^29), so any
+    summation order gives the same sum. float32 would not be exact."""
+    return (a.double() @ b.double()).to(torch.int32)
+
+
+def conv_acc_plain(x, w, pad):
+    """The s32 sums of an s8 conv, stride 1: x (B,H,W,C) int8 zero-padded by
+    ``pad`` on each side, w (kh,kw,C,N) int8 HWIO. im2col in the (dy, dx, c)
+    order of quant.py:_conv_s8_im2col, then one exact matmul."""
+    kh, kw, C, N = w.shape
+    if x.dtype != torch.int8 or w.dtype != torch.int8:
+        raise TypeError("s8 conv: x and w must be int8")
+    if x.shape[-1] != C:
+        raise ValueError("s8 conv: x has %d channels, w %d" % (x.shape[-1], C))
+    if pad:
+        x = F.pad(x, (0, 0, pad, pad, pad, pad))
+    B, H, W, _ = x.shape
+    Ho, Wo = H - kh + 1, W - kw + 1
+    cols = torch.cat([x[:, dy:dy + Ho, dx:dx + Wo, :]
+                      for dy in range(kh) for dx in range(kw)], dim=-1)
+    return _exact_mm(cols.reshape(B * Ho * Wo, kh * kw * C),
+                     w.reshape(kh * kw * C, N)).reshape(B, Ho, Wo, N)
+
+
+def conv3x3_s8_plain(x, w, k, b, out_dtype=torch.int8):
+    """The plain 3x3 SAME s8 conv + requant: x (B,H,W,C) int8, w (3,3,C,N)."""
+    return requant(conv_acc_plain(x, w, 1), k, b, out_dtype)
+
+
+def conv2x2_s8_plain(x, w, k, b, out_dtype=torch.int8):
+    """The plain 2x2 VALID s8 conv + requant: x (B,H,W,C) int8, w (2,2,C,N)."""
+    return requant(conv_acc_plain(x, w, 0), k, b, out_dtype)
+
+
+def matmul_s8_plain(a, b):
+    """The plain s8 GEMM: (M,K) int8 @ (K,N) int8 -> (M,N) int32."""
+    if a.dtype != torch.int8 or b.dtype != torch.int8:
+        raise TypeError("matmul_s8: a and b must be int8")
+    return _exact_mm(a, b)
+
+
+def _dispatch(name, x):
+    if x.is_cuda:
+        from mv3d_tf_tpu_torch.ops import conv_s8_cuda
+        return getattr(conv_s8_cuda, name + "_cuda")
+    if x.device.type == "cpu":
+        return globals()[name + "_plain"]
+    raise ValueError("%s: no kernel for device %s" % (name, x.device))
+
+
+def conv3x3_s8(x, w, k, b, out_dtype=torch.int8):
+    """3x3 SAME s8 conv + requant: the kernel on a card, plain on the CPU."""
+    return _dispatch("conv3x3_s8", x)(x, w, k, b, out_dtype)
+
+
+def conv2x2_s8(x, w, k, b, out_dtype=torch.int8):
+    """2x2 VALID s8 conv + requant: the kernel on a card, plain on the CPU."""
+    return _dispatch("conv2x2_s8", x)(x, w, k, b, out_dtype)
+
+
+def matmul_s8(a, b):
+    """s8 GEMM to int32: the kernel on a card, plain on the CPU."""
+    return _dispatch("matmul_s8", a)(a, b)

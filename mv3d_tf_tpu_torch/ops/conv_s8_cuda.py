@@ -1,0 +1,130 @@
+"""Wrappers of the CUDA s8 kernels, the Hopper replacements of
+mv3d_tf_tpu/ops/conv_s8_pallas.py: the s8 convolutions with the fused
+requant epilogue (csrc/conv_s8.cu: conv3x3_s8_pallas_v2 and its v1 twin
+conv3x3_s8_pallas, conv2x2_s8_pallas) and the s8 GEMM (csrc/matmul_s8.cu,
+matmul_s8_pallas). Both are one implicit-GEMM kernel on the tensor cores
+(csrc/s8_igemm.cuh).
+
+The plain PyTorch versions are ops/conv_s8.py:conv3x3_s8_plain,
+conv2x2_s8_plain and matmul_s8_plain. The wrappers take the same arguments:
+they zero-pad channels (and the GEMM's K and N) to the kernel's 16-byte
+granularity, which adds zero to every integer sum, and lay the weights out
+output-channel major with the reduction contiguous.
+"""
+
+import torch
+import torch.nn.functional as F
+
+from mv3d_tf_tpu_torch import kernels
+
+_ALIGN = 16   # bytes of one cp.async; channels pad to a multiple of it
+
+
+def _pad_dim(t, dim, mult):
+    """Zero-pad dimension ``dim`` of t up to a multiple of mult."""
+    extra = (-t.shape[dim]) % mult
+    if not extra:
+        return t
+    pad = [0, 0] * (t.dim() - 1 - dim % t.dim()) + [0, extra]
+    return F.pad(t, pad)
+
+
+def _aligned(t):
+    """t contiguous at a 16-byte aligned address (a fresh copy if not)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % _ALIGN == 0 else t.clone()
+
+
+def _conv_cuda(fn, entry, taps, x, w, k, b, out_dtype):
+    """Check, pad and lay out the operands, then launch ``entry`` once,
+    counted on the wrapper ``fn``."""
+    if not x.is_cuda or any(t.device != x.device for t in (w, k, b)):
+        raise ValueError("%s: all inputs must be on one CUDA device" % entry)
+    if x.dtype != torch.int8 or w.dtype != torch.int8:
+        raise TypeError("%s: x and w must be int8" % entry)
+    if k.dtype != torch.float32 or b.dtype != torch.float32:
+        raise TypeError("%s: k and b must be float32" % entry)
+    if out_dtype not in (torch.int8, torch.float32):
+        raise ValueError("%s: out_dtype must be int8 or float32" % entry)
+    if x.dim() != 4 or w.dim() != 4 or tuple(w.shape[:2]) != (taps, taps):
+        raise ValueError("%s: x must be (B,H,W,C) and w (%d,%d,C,N), got %s "
+                         "and %s" % (entry, taps, taps, tuple(x.shape),
+                                     tuple(w.shape)))
+    B, H, W, C = x.shape
+    N = w.shape[3]
+    if w.shape[2] != C or tuple(k.shape) != (N,) or tuple(b.shape) != (N,):
+        raise ValueError("%s: w %s, k %s and b %s do not fit x %s" % (
+            entry, tuple(w.shape), tuple(k.shape), tuple(b.shape),
+            tuple(x.shape)))
+    if N % _ALIGN:
+        raise ValueError("%s: N=%d is not a multiple of %d"
+                         % (entry, N, _ALIGN))
+    pad = 1 if taps == 3 else 0
+    Ho, Wo = H + 2 * pad - taps + 1, W + 2 * pad - taps + 1
+    out = torch.empty((B, Ho, Wo, N), dtype=out_dtype, device=x.device)
+    if out.numel() == 0:
+        return out
+    xk = _aligned(_pad_dim(x, 3, _ALIGN))
+    Cp = xk.shape[3]
+    # (N, taps*taps*Cp): output channel major, reduction in (dy, dx, c) order
+    wk = _aligned(_pad_dim(w, 2, _ALIGN).reshape(taps * taps * Cp, N).t())
+    kk, bk = _aligned(k), _aligned(b)
+    lib = kernels.library()
+    with torch.cuda.device(x.device):
+        fn.launches += 1
+        err = getattr(lib, entry)(
+            xk.data_ptr(), wk.data_ptr(), kk.data_ptr(), bk.data_ptr(),
+            out.data_ptr(), B, H, W, Cp, N, int(out_dtype == torch.float32),
+            torch.cuda.current_stream().cuda_stream)
+    kernels.check(err, entry)
+    return out
+
+
+def conv3x3_s8_cuda(x, w, k, b, out_dtype=torch.int8):
+    """3x3 SAME s8 conv + requant on the card: x (B,H,W,C) int8, w (3,3,C,N)
+    int8 HWIO, k and b (N,) float32, N % 16 == 0, all on one CUDA device.
+    Returns (B,H,W,N) int8, or float32 max(fma, 0)."""
+    return _conv_cuda(conv3x3_s8_cuda, "mv3d_conv3x3_s8", 3, x, w, k, b,
+                      out_dtype)
+
+
+conv3x3_s8_cuda.launches = 0
+
+
+def conv2x2_s8_cuda(x, w, k, b, out_dtype=torch.int8):
+    """2x2 VALID s8 conv + requant on the card: x (B,H,W,C) int8, w
+    (2,2,C,N) -> (B,H-1,W-1,N), as conv3x3_s8_cuda."""
+    return _conv_cuda(conv2x2_s8_cuda, "mv3d_conv2x2_s8", 2, x, w, k, b,
+                      out_dtype)
+
+
+conv2x2_s8_cuda.launches = 0
+
+
+def matmul_s8_cuda(a, b):
+    """(M,K) int8 @ (K,N) int8 -> (M,N) int32 on the card, exact."""
+    if not (a.is_cuda and b.device == a.device):
+        raise ValueError("matmul_s8_cuda: a and b must be on one CUDA device")
+    if a.dtype != torch.int8 or b.dtype != torch.int8:
+        raise TypeError("matmul_s8_cuda: a and b must be int8")
+    if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
+        raise ValueError("matmul_s8_cuda: shapes %s and %s do not multiply"
+                         % (tuple(a.shape), tuple(b.shape)))
+    M, N = a.shape[0], b.shape[1]
+    if M == 0 or N == 0:
+        return torch.zeros((M, N), dtype=torch.int32, device=a.device)
+    ak = _aligned(_pad_dim(a, 1, _ALIGN))
+    bt = _aligned(_pad_dim(_pad_dim(b, 0, _ALIGN), 1, _ALIGN).t())
+    Np = bt.shape[0]
+    out = torch.empty((M, Np), dtype=torch.int32, device=a.device)
+    lib = kernels.library()
+    with torch.cuda.device(a.device):
+        matmul_s8_cuda.launches += 1
+        err = lib.mv3d_matmul_s8(ak.data_ptr(), bt.data_ptr(), out.data_ptr(),
+                                 M, ak.shape[1], Np,
+                                 torch.cuda.current_stream().cuda_stream)
+    kernels.check(err, "mv3d_matmul_s8")
+    return out if Np == N else out[:, :N]
+
+
+matmul_s8_cuda.launches = 0

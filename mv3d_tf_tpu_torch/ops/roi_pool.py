@@ -59,7 +59,7 @@ def _as_batch(feat, rois):
 def roi_pool(feat, rois, pooled=7, spatial_scale=1.0 / 8):
     """Plain PyTorch ROI max-pool, the reference for the CUDA kernel.
 
-    feat (H,W,C) or (B,H,W,C) float; rois (R,5) float32. Returns
+    feat (H,W,C) or (B,H,W,C) float or int8; rois (R,5) float32. Returns
     (R, pooled, pooled, C) in feat's dtype. A separable masked max: rows of
     each bin first, then columns, over _CHUNK rois at a time to bound the
     (_CHUNK, pooled, W, C) intermediate.
@@ -79,13 +79,15 @@ def _pool_block(f, bounds, frame, P):
     B, H, W, C = f.shape
     r = bounds.shape[0]
     hs, he, ws, we = bounds.unbind(1)                   # (r, P) each
-    m1 = f.new_full((r, P, W, C), _NEG)
+    # the max's start: -inf, or an integer type's least value
+    low = _NEG if f.is_floating_point() else torch.iinfo(f.dtype).min
+    m1 = f.new_full((r, P, W, C), low)
     hlen = he - hs
     for k in range(int(hlen.max().clamp(min=0))):
         rows = f[frame[:, None], (hs + k).clamp(max=H - 1)]      # (r,P,W,C)
         ok = (k < hlen)[:, :, None, None]
         m1 = torch.where(ok, torch.maximum(m1, rows), m1)
-    out = f.new_full((r, P, P, C), _NEG)
+    out = f.new_full((r, P, P, C), low)
     wlen = we - ws
     for k in range(int(wlen.max().clamp(min=0))):
         idx = (ws + k).clamp(max=W - 1)[:, None, :, None].expand(r, P, P, C)

@@ -14,13 +14,14 @@ from mv3d_tf_tpu_torch import kernels
 from mv3d_tf_tpu_torch.ops.roi_pool import _as_batch, bin_bounds
 
 _ENTRY = {torch.float32: "mv3d_roi_pool_f32",
-          torch.bfloat16: "mv3d_roi_pool_bf16"}
+          torch.bfloat16: "mv3d_roi_pool_bf16",
+          torch.int8: "mv3d_roi_pool_s8"}
 
 
 def roi_pool_cuda(feat, rois, pooled=7, spatial_scale=1.0 / 8):
-    """ROI max-pool on the card. feat (H,W,C) or (B,H,W,C) float32/bfloat16,
-    contiguous NHWC; rois (R,5) float32 on the same device, column 0 the
-    frame. Returns (R, pooled, pooled, C) in feat's dtype."""
+    """ROI max-pool on the card. feat (H,W,C) or (B,H,W,C) float32, bfloat16
+    or int8, contiguous NHWC; rois (R,5) float32 on the same device, column 0
+    the frame. Returns (R, pooled, pooled, C) in feat's dtype."""
     if not (feat.is_cuda and rois.device == feat.device):
         raise ValueError("roi_pool_cuda: feat and rois must be on one CUDA "
                          "device, got %s and %s" % (feat.device, rois.device))

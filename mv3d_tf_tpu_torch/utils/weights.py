@@ -90,3 +90,29 @@ def he_normal_params(seed, bev_channels=9, fc_dim=2048, pooled=7):
         out[name] = {"weights": w * np.float32(std),
                      "biases": np.zeros(shape[-1], np.float32)}
     return out
+
+
+def quant_state_from_jax(np_state, device="cuda"):
+    """The JAX package's int8 quant state (quant.build_quant_state or
+    load_quant_state: nested dicts of arrays, None for a missing head) as
+    the port's: the same keys and layouts (HWIO conv w_q, (in, out) fc w_q),
+    each leaf a tensor of the leaf's dtype on ``device`` (the card unless
+    the caller asks for another)."""
+    if np_state is None or isinstance(np_state, bool):
+        return np_state                   # a missing head; use_stem
+    if isinstance(np_state, dict):
+        return {k: quant_state_from_jax(v, device)
+                for k, v in np_state.items()}
+    return torch.from_numpy(np.array(np_state)).to(device)
+
+
+def quant_state_to_jax(state):
+    """The port's quant state with numpy leaves, as the JAX package takes
+    it (its functions convert numpy arrays themselves)."""
+    if state is None:
+        return None
+    if isinstance(state, dict):
+        return {k: quant_state_to_jax(v) for k, v in state.items()}
+    if torch.is_tensor(state):
+        return state.detach().cpu().numpy()
+    return np.asarray(state)
