@@ -21,6 +21,13 @@ the fc6/fc7 shapes, all bit for bit; then PTQ calibration on 4 frames and
 the int8 detector (s2d_int8 stem, int8 RPN, int8 ROI pool and head,
 pre-NMS 1024, post-NMS 300) at B=8, with the kernel route held bit for bit
 to the plain route at B=2.
+Then the fused space-to-depth stem: its kernel against its plain version in
+float32 and bfloat16 at the detector's shapes and four odd and even small
+ones, and the plain version without the edge mask shown to miss; the
+batched detectors with stem_impl="s2d_fused" (bf16 at B=4, int8 at B=8);
+and the evaluation entry points on a synthetic KITTI tree that the port
+writes: tools/test_net over its val split (bf16, and int8 with the s2d_int8
+stem) and tools/quant_check with the s2d_fused stem.
 Every failed check raises, so the exit code is non-zero; without a CUDA
 device it exits non-zero before printing any result.
 The last line is {"ok": true, "device": {...}}; the line before it is the
@@ -43,6 +50,10 @@ from mv3d_tf_tpu_torch import geometry as G
 from mv3d_tf_tpu_torch import kernels
 from mv3d_tf_tpu_torch import quant as Q
 from mv3d_tf_tpu_torch import train as train_mod
+from mv3d_tf_tpu_torch.config import cfg
+from mv3d_tf_tpu_torch.data import synthetic
+from mv3d_tf_tpu_torch.data.kitti import get_imdb
+from mv3d_tf_tpu_torch.data.kitti_eval import evaluate_kitti_bev
 from mv3d_tf_tpu_torch.eval import (PIXEL_MEANS, build_detect_batch_fn,
                                     build_detect_fn, detect_from_features,
                                     frame_detections)
@@ -62,8 +73,13 @@ from mv3d_tf_tpu_torch.ops.roi_pool import (bin_bounds, bin_cells, roi_pool,
                                             roi_pool_bwd, roi_pool_fast,
                                             roi_pool_train)
 from mv3d_tf_tpu_torch.ops.roi_pool_cuda import roi_pool_bwd_cuda, roi_pool_cuda
+from mv3d_tf_tpu_torch.ops.stem_s2d import _conv as s2d_conv
+from mv3d_tf_tpu_torch.ops.stem_s2d import (group_max, hwio,
+                                            pack_stem_weights, stem_s2d)
+from mv3d_tf_tpu_torch.ops.stem_s2d_cuda import (stem_s2d_fused_cuda,
+                                                 stem_s2d_fused_plain)
 from mv3d_tf_tpu_torch.ops.vgg_stem_cuda import vgg_stem_cuda, vgg_stem_plain
-from mv3d_tf_tpu_torch.tools import read_lidar
+from mv3d_tf_tpu_torch.tools import quant_check, read_lidar, test_net
 from mv3d_tf_tpu_torch.train import (build_forward_losses, build_train_step,
                                      make_draws)
 from mv3d_tf_tpu_torch.utils.weights import he_normal_params, params_from_jax
@@ -80,6 +96,7 @@ BWD_SOURCE = "mv3d_tf_tpu_torch/csrc/roi_pool_bwd.cu"
 BEV_SOURCE = "mv3d_tf_tpu_torch/csrc/bev_place.cu"
 CONV_S8_SOURCE = "mv3d_tf_tpu_torch/csrc/conv_s8.cu"
 MATMUL_S8_SOURCE = "mv3d_tf_tpu_torch/csrc/matmul_s8.cu"
+S2D_SOURCE = "mv3d_tf_tpu_torch/csrc/stem_s2d.cu"
 TRAIN_STEPS = 3
 TRAIN_PRE_NMS, TRAIN_POST_NMS, TRAIN_ROIS, FC_DIM = 12000, 2000, 128, 2048
 MAX_GT = 32           # the config's TPU.MAX_GT: gt rows per frame
@@ -100,6 +117,8 @@ INT8_KW = dict(stem_impl="s2d_int8", quant_rpn=True, nms_impl="blocked_fixed",
                pre_nms_top_n=INT8_PRE_NMS, post_nms_top_n=POST_NMS)
 # each view's stem output (H, W): the s8 trunk convs run from there
 S8_VIEWS = {"bev": (300, 300), "image": (192, 624)}
+# the evaluation CLIs' synthetic KITTI tree: half train, half val
+EVAL_FRAMES = 16
 
 
 def max_err(got, ref):
@@ -355,6 +374,115 @@ def phase_stem(params):
     # the plain version is the library path: two cuDNN convs and the pool
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
             **bound(parts, BF16_PER_S), "library_ms": plain_ms}
+
+
+def s2d_mask_leak(x, w1, b1, w2, b2, dtype):
+    """The plain fused stem without the edge mask: packed entries outside
+    the image keep relu(conv1_1 + b1) instead of acting as conv1_2's zero
+    padding. The check must tell it apart."""
+    C2 = w2.shape[0]
+    B, H, W, _ = x.shape
+    Ho, Wo = H // 2, W // 2
+    K1, B1, K2, B2 = pack_stem_weights(hwio(w1), b1, hwio(w2), b2)
+    f32 = torch.float32
+    x, K1, K2 = (t.to(dtype).to(f32) for t in (x, K1, K2))
+    y = s2d_conv(x, K1, 2, (2, 2 * Wo + 2 - W, 2, 2 * Ho + 2 - H))
+    y = F.relu(y + B1.to(f32)).to(dtype).to(f32)
+    return group_max(F.relu(s2d_conv(y, K2) + B2.to(f32)), C2).to(dtype)
+
+
+def phase_stem_s2d_fused(params, smi):
+    """The fused s2d stem kernel against its plain version on the card, in
+    float32 (within 1e-5 * max|ref|) and bf16 (within STEM_TOL * max|ref|),
+    at B=4 on the detector's BEV 601x601x9 (odd: no last-row or last-column
+    mask) and image 384x1248x3 (even: both masks), and at B=2 on the four
+    odd and even shapes of tests/test_stem_s2d_pallas.py; the biases drawn
+    here, nonzero (b1 in [0.5, 1), b2 of both signs). The plain version
+    without the edge mask must miss the tolerance. Then one int8 detector
+    call's stems (B=8, both views, bf16): kernel, plain, the literal bf16
+    stem through cuDNN (the library yardstick) and the XLA-twin route
+    ops/stem_s2d.stem_s2d (cuDNN), beside the bound."""
+    gen = torch.Generator().manual_seed(SEED + 12)
+    means = torch.from_numpy(PIXEL_MEANS)
+    cases = [("bev", 4, 601, 601, 9), ("image", 4, 384, 1248, 3)]
+    cases += [("small", PLAIN_B, h, w, c) for h, w, c in
+              ((26, 26, 9), (25, 21, 9), (24, 34, 3), (27, 20, 3))]
+    tols = {torch.float32: 1e-5, torch.bfloat16: STEM_TOL}
+    weights = {}
+    worst = 0.0
+    for name, B, H, W, cin in cases:
+        x = torch.rand((B, H, W, cin), generator=gen)
+        if cin == 3:
+            x = x * 255 - means
+        x = x.cuda()
+        suffix = "" if cin == 9 else "_2"
+        b1 = (0.5 + 0.5 * torch.rand(64, generator=gen)).cuda()
+        b2 = (0.1 * torch.randn(64, generator=gen)).cuda()
+        w = (layer(params, "conv1_1" + suffix)[0], b1,
+             layer(params, "conv1_2" + suffix)[0], b2)
+        weights[cin] = w
+        for dtype, rtol in tols.items():
+            with torch.inference_mode():
+                got = stem_s2d_fused_cuda(x, *w, dtype=dtype)
+                ref = stem_s2d_fused_plain(x, *w, dtype=dtype)
+                leak = s2d_mask_leak(x, *w, dtype=dtype)
+            torch.cuda.synchronize()
+            what = "stem_s2d_fused %s %s %s" % (
+                name, tuple(x.shape), str(dtype).split(".")[-1])
+            if got.shape != ref.shape or got.dtype != dtype:
+                raise AssertionError("%s: %s %s vs %s" % (
+                    what, got.dtype, tuple(got.shape), tuple(ref.shape)))
+            err = max_err(got, ref)
+            scale = ref.float().abs().max().item()
+            tol = rtol * scale + 1e-6
+            if not err <= tol:
+                raise AssertionError("%s: max |diff| %g > %g * %g"
+                                     % (what, err, rtol, scale))
+            leak_err = max_err(leak, ref)
+            if not leak_err > tol:
+                raise AssertionError("%s: the stem without the edge mask "
+                                     "would pass the check (%g <= %g)"
+                                     % (what, leak_err, tol))
+            worst = max(worst, err)
+            print("%s: max |diff| %g <= %g, max |ref| %g; without the edge "
+                  "mask off by %g" % (what, err, tol, scale, leak_err))
+
+    # one B=8 int8 detector call's two stems, bf16, from its float32 inputs
+    ms = plain_ms = lib_ms = twin_ms = 0.0
+    parts = []
+    literal_ops = packed_ops = 0
+    for name, H, W, cin in (("bev", 601, 601, 9), ("image", 384, 1248, 3)):
+        x = torch.rand((INT8_B, H, W, cin), generator=gen).cuda()
+        w = weights[cin]
+        with torch.inference_mode():
+            out = stem_s2d_fused_cuda(x, *w)
+            k = cuda_ms(lambda: stem_s2d_fused_cuda(x, *w), iters=5, warmup=1)
+            p = cuda_ms(lambda: stem_s2d_fused_plain(x, *w), iters=3,
+                        warmup=1)
+            lib = cuda_ms(lambda: vgg_stem_plain(x, *w), iters=5, warmup=1)
+            twin = cuda_ms(lambda: stem_s2d(x, *w, dtype=torch.bfloat16),
+                           iters=3, warmup=1)
+        ops = 2 * INT8_B * H * W * 64 * 9 * (cin + 64)     # the literal convs
+        literal_ops += ops
+        Ho, Wo = H // 2, W // 2
+        packed_ops += 2 * INT8_B * ((Ho + 1) * (Wo + 1) * 16 * cin * 256
+                                    + Ho * Wo * 4 * 256 * 256)
+        parts.append((nbytes(x, *w, out), ops))
+        ms, plain_ms, lib_ms, twin_ms = (ms + k, plain_ms + p, lib_ms + lib,
+                                         twin_ms + twin)
+        print("stem_s2d_fused time %s bf16 B=%d %dx%dx%d: kernel %.4f ms, "
+              "plain %.4f ms, literal cuDNN stem %.4f ms, stem_s2d (XLA twin, "
+              "cuDNN) %.4f ms" % (name, INT8_B, H, W, cin, k, p, lib, twin))
+    stats = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+             **bound(parts, BF16_PER_S), "library_ms": lib_ms}
+    print("stem_s2d_fused: one B=%d int8 call's two stems: kernel %.4f ms, "
+          "bound %.4f ms (%s; literal convs %.4g GFLOP = %.2f a frame, the "
+          "packed dots %.4g GFLOP = %.2f a frame), plain %.4f ms, literal "
+          "cuDNN stem %.4f ms, stem_s2d %.4f ms, on [%s]" % (
+              INT8_B, ms, stats["bound_ms"], stats["bound_by"],
+              literal_ops / 1e9, literal_ops / 1e9 / INT8_B, packed_ops / 1e9,
+              packed_ops / 1e9 / INT8_B, plain_ms, lib_ms, twin_ms, smi))
+    return stats
 
 
 def check_outputs(out, lead, what):
@@ -1128,16 +1256,25 @@ class plain_routes:
             setattr(mod, name, fn)
 
 
-def int8_launches():
-    return {"conv_s8": conv3x3_s8_cuda.launches,
+def path_launches():
+    """Every kernel's count, for the paths that may reach any of them."""
+    return {"roi_pool": roi_pool_cuda.launches,
+            "vgg_stem": vgg_stem_cuda.launches,
+            "conv_s8": conv3x3_s8_cuda.launches,
             "conv2x2_s8": conv2x2_s8_cuda.launches,
             "matmul_s8": matmul_s8_cuda.launches,
-            "roi_pool": roi_pool_cuda.launches}
+            "stem_s2d_fused": stem_s2d_fused_cuda.launches}
 
 
-def zero_int8_launches():
-    conv3x3_s8_cuda.launches = conv2x2_s8_cuda.launches = 0
-    matmul_s8_cuda.launches = roi_pool_cuda.launches = 0
+def zero_path_launches():
+    for fn in (roi_pool_cuda, vgg_stem_cuda, conv3x3_s8_cuda,
+               conv2x2_s8_cuda, matmul_s8_cuda, stem_s2d_fused_cuda):
+        fn.launches = 0
+
+
+def add_launches(total, launches):
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
 
 
 def device_busy(fn):
@@ -1165,9 +1302,10 @@ def device_busy(fn):
             % (len(dev), busy / 1e3, span / 1e3, 1 - busy / span))
 
 
-def int8_stages(params, state, bev, image, calib):
-    """One int8 detector call (eval._detect_int8 with the INT8_KW options)
-    with a synchronize after each stage: ms per stage."""
+def int8_stages(params, state, bev, image, calib, stem="s2d_int8"):
+    """One int8 detector call (eval._detect_int8 with the INT8_KW options,
+    the stem named by ``stem``: "s2d_int8" or "s2d_fused") with a
+    synchronize after each stage: ms per stage."""
     ms = {}
 
     def clock(stage, fn, *args):
@@ -1182,14 +1320,20 @@ def int8_stages(params, state, bev, image, calib):
         bev, image, calib = clock("inputs", eval_mod._inputs, params, bev,
                                   image, calib)
         q_bv, q_im = state["trunk_bv"], state["trunk_img"]
-        stem_bv, _ = clock("s2d int8 stems", Q._s2d_stem_int8, params, q_bv,
-                           bev, "")
-        stem_im, _ = clock("s2d int8 stems", Q._s2d_stem_int8, params, q_im,
-                           image, "_2")
-        fbv, s_bv = clock("int8 trunk tails", Q.trunk_apply_int8_from_stem_q,
-                          q_bv, stem_bv)
-        fim, s_im = clock("int8 trunk tails", Q.trunk_apply_int8_from_stem_q,
-                          q_im, stem_im)
+        if stem == "s2d_int8":
+            stem_bv, _ = clock("s2d int8 stems", Q._s2d_stem_int8, params,
+                               q_bv, bev, "")
+            stem_im, _ = clock("s2d int8 stems", Q._s2d_stem_int8, params,
+                               q_im, image, "_2")
+            tail = Q.trunk_apply_int8_from_stem_q
+        else:
+            stem_bv = clock("s2d fused stems", Q._float_stem, params, bev, "",
+                            stem)
+            stem_im = clock("s2d fused stems", Q._float_stem, params, image,
+                            "_2", stem)
+            tail = Q.trunk_apply_int8_from_stem
+        fbv, s_bv = clock("int8 trunk tails", tail, q_bv, stem_bv)
+        fim, s_im = clock("int8 trunk tails", tail, q_im, stem_im)
         rpn_cls, rpn_box = clock("int8 rpn head", Q.rpn_head_int8, params,
                                  fbv, s_bv)
         rois, flat_bv, flat_img = clock(
@@ -1212,7 +1356,8 @@ def phase_int8_detector(np_params, smi):
     read just after); a stage split of one more call; the bf16 batched
     detector at the same options for comparison; and at B=2 the whole int8
     detector through the kernels against the same detector through the
-    plain versions on the card, bit for bit. Returns the launch counts."""
+    plain versions on the card, bit for bit. Returns the launch counts and
+    the quant state."""
     params = params_from_jax(np_params, device="cuda")
     rng = np.random.RandomState(SEED + 11)
     means = torch.from_numpy(PIXEL_MEANS).cuda()
@@ -1245,7 +1390,7 @@ def phase_int8_detector(np_params, smi):
     bev_, image, calib = frames(INT8_B)
     detect = build_detect_batch_fn(quant=state, **INT8_KW)
     calls = 3
-    zero_int8_launches()
+    zero_path_launches()
     timed(detect, params, bev_, image, calib)                   # warm-up
     times = []
     for _ in range(calls):
@@ -1256,9 +1401,9 @@ def phase_int8_detector(np_params, smi):
                                  % conv.tolist())
         check_outputs(out, (INT8_B, POST_NMS), "int8 batch")
         times.append(ms / INT8_B)
-    launches = int8_launches()
-    per_call = {"conv_s8": 23, "conv2x2_s8": 2, "matmul_s8": 4,
-                "roi_pool": 2}
+    launches = path_launches()
+    per_call = {"roi_pool": 2, "vgg_stem": 0, "conv_s8": 23,
+                "conv2x2_s8": 2, "matmul_s8": 4, "stem_s2d_fused": 0}
     expected = {k: v * (calls + 1) for k, v in per_call.items()}
     print("int8-path launches: %s (expected %s)" % (launches, expected))
     if launches != expected:
@@ -1304,7 +1449,196 @@ def phase_int8_detector(np_params, smi):
     print("int8 detector B=%d: kernel route bit-identical to the plain route "
           "in all %d outputs (%d valid proposals)" % (
               PLAIN_B, len(kernel_out), int(kernel_out["valid"].sum())))
-    return launches
+    return launches, state
+
+
+def phase_s2d_fused_detectors(np_params, state, smi):
+    """The detectors with stem_impl="s2d_fused" at full shape: the float
+    batched detector in bf16 at B=4 with phase_detector's options, and the
+    int8 detector at B=8 with INT8_KW's options and quant state but the
+    fused s2d stem; a warm-up and 3 timed calls each, output checks and
+    each detector's exact launch counts (zeroed just before it, read just
+    after it); then each detector alternating with its usual stem on the
+    same inputs (p50 and profile), and the stage split of one int8 call
+    with each stem. Returns the summed launch counts."""
+    params = params_from_jax(np_params, device="cuda")
+    rng = np.random.RandomState(SEED + 13)
+
+    def frames(n):
+        bev_ = torch.from_numpy(rng.rand(n, 601, 601, 9).astype(np.float32))
+        image = torch.from_numpy(
+            (rng.rand(n, 384, 1248, 3) * 255).astype(np.float32))
+        calib = torch.from_numpy(np.stack([example_calib()] * n))
+        return bev_.cuda(), image.cuda(), calib.cuda()
+
+    float_b = 4
+    f_in, q_in = frames(float_b), frames(INT8_B)
+    detect_f = build_detect_batch_fn(
+        compute_dtype=torch.bfloat16, stem_impl="s2d_fused",
+        pre_nms_top_n=PRE_NMS, post_nms_top_n=POST_NMS)
+    detect_q = build_detect_batch_fn(quant=state,
+                                     **dict(INT8_KW, stem_impl="s2d_fused"))
+    calls = 3
+    zero = dict.fromkeys(path_launches(), 0)
+    per_call = {"bf16": dict(zero, roi_pool=2, stem_s2d_fused=2),
+                "int8": dict(zero, roi_pool=2, conv_s8=23, matmul_s8=4,
+                             stem_s2d_fused=2)}
+    total = {}
+    for name, detect, inputs, B in (("bf16", detect_f, f_in, float_b),
+                                    ("int8", detect_q, q_in, INT8_B)):
+        zero_path_launches()
+        timed(detect, params, *inputs)                       # warm-up
+        times = []
+        for _ in range(calls):
+            out, ms = timed(detect, params, *inputs)
+            conv = out.pop("nms_converged", None)
+            if conv is not None and not conv.all():
+                raise AssertionError("s2d_fused %s detector: nms_converged %s"
+                                     % (name, conv.tolist()))
+            check_outputs(out, (B, POST_NMS), "s2d_fused %s batch" % name)
+            times.append(ms / B)
+        print("detector %s batch B=%d, s2d_fused stem: p50 %.3f ms/frame over "
+              "%d calls (%s); valid per frame %s; on [%s]" % (
+                  name, B, float(np.median(times)), calls,
+                  ", ".join("%.3f" % t for t in times),
+                  out["valid"].sum(1).tolist(), smi))
+        launches = path_launches()
+        expected = {k: v * (calls + 1) for k, v in per_call[name].items()}
+        print("s2d_fused %s-path launches: %s (expected %s)"
+              % (name, launches, expected))
+        if launches != expected:
+            raise AssertionError("s2d_fused %s launch counts %s != %s"
+                                 % (name, launches, expected))
+        add_launches(total, launches)
+    # each detector with the s2d_fused stem and its usual stem on the same
+    # inputs, alternating, so that host noise falls on both alike
+    pairs = (("bf16", float_b, f_in, {
+        "fused literal stem": build_detect_batch_fn(
+            compute_dtype=torch.bfloat16, pre_nms_top_n=PRE_NMS,
+            post_nms_top_n=POST_NMS),
+        "s2d_fused stem": detect_f}),
+        ("int8", INT8_B, q_in, {
+            "s2d_int8 stem": build_detect_batch_fn(quant=state, **INT8_KW),
+            "s2d_fused stem": detect_q}))
+    for name, B, inputs, pair in pairs:
+        ab = {k: [] for k in pair}
+        for _ in range(calls):
+            for k, detect in pair.items():
+                ab[k].append(timed(detect, params, *inputs)[1] / B)
+        for k, detect in pair.items():
+            print("detector %s batch B=%d, %s, alternating: p50 %.3f "
+                  "ms/frame (%s); traced: %s" % (
+                      name, B, k, float(np.median(ab[k])),
+                      ", ".join("%.3f" % t for t in ab[k]),
+                      device_busy(lambda: detect(params, *inputs))))
+    for stem in ("s2d_fused", "s2d_int8"):
+        stages = int8_stages(params, state, *q_in, stem=stem)
+        print("int8 stage split B=%d, %s stem (a synchronize after each "
+              "stage), ms: %s; total %.3f" % (
+                  INT8_B, stem, ", ".join("%s %.3f" % kv
+                                          for kv in stages.items()),
+                  sum(stages.values())))
+    return total
+
+
+def phase_eval_clis(np_params, smi):
+    """The evaluation entry points on a synthetic KITTI tree that the port
+    writes in a temp dir (EVAL_FRAMES frames, 8 train and 8 val), with the
+    He weights as a reference-style .npy: tools/test_net over the val split
+    in bf16, without and with --int8 --int8_stem s2d_int8, then
+    tools/quant_check --stem s2d_fused with the int8 head and RPN,
+    blocked_fixed NMS, pre-NMS 1024, 8 frames, 4 calibration frames, B=8.
+    Each CLI's main(argv) runs in this process with the counts zeroed just
+    before and read just after, against exact counts per batch. Checks the
+    pickles, finite APs (with random weights they mean nothing) and
+    nms_cert_failures 0. Returns the summed launch counts."""
+    total = {}
+    saved = cfg.ROOT_DIR, cfg.DATA_DIR
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        root = synthetic.generate(os.path.join(tmp, "kitti"),
+                                  num_frames=EVAL_FRAMES, cars_per_frame=3,
+                                  seed=SEED)
+        weights = os.path.join(tmp, "he.npy")
+        np.save(weights, np_params)
+        print("synthetic KITTI tree: %d frames and the He weights written in "
+              "%.2f s" % (EVAL_FRAMES, time.perf_counter() - t0))
+        try:
+            cfg.ROOT_DIR, cfg.DATA_DIR = tmp, os.path.join(tmp, "data")
+            out_dir = os.path.join(tmp, "output", cfg.EXP_DIR, "kitti_val",
+                                   "he")
+            imdb = get_imdb("kitti_val", kitti_path=root)
+            zero = dict.fromkeys(path_launches(), 0)
+            # test_net runs one detector call per batch of 8 val frames; the
+            # int8 run calibrates without the head (no launch), keeps the
+            # RPN conv in bf16 (22 s8 3x3 convs) and the head in bf16
+            batches = -(-imdb.num_images // 8)
+            per_batch = {
+                "bf16": dict(zero, vgg_stem=2, roi_pool=2),
+                "int8 s2d_int8": dict(zero, conv_s8=22, conv2x2_s8=2,
+                                      roi_pool=2)}
+            for name, extra in (("bf16", []),
+                                ("int8 s2d_int8",
+                                 ["--int8", "--int8_stem", "s2d_int8"])):
+                argv = ["--imdb", "kitti_val", "--kitti_path", root,
+                        "--weights", weights, "--dtype", "bfloat16"] + extra
+                zero_path_launches()
+                t0 = time.perf_counter()
+                all_boxes, _ = test_net.main(argv)
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+                launches = path_launches()
+                missing = [f for f in ("detections.pkl", "detections_cnr.pkl",
+                                       "detections_cnr_r.pkl")
+                           if not os.path.isfile(os.path.join(out_dir, f))]
+                if missing:
+                    raise AssertionError("test_net %s wrote no %s in %s"
+                                         % (name, missing, out_dir))
+                aps = [evaluate_kitti_bev(imdb, all_boxes, iou_thresh=t)["ap"]
+                       for t in (0.5, 0.7)]
+                if not np.isfinite(aps).all():
+                    raise AssertionError("test_net %s: APs %s" % (name, aps))
+                expected = {k: v * batches
+                            for k, v in per_batch[name].items()}
+                if launches != expected:
+                    raise AssertionError("test_net %s launched %s != %s"
+                                         % (name, launches, expected))
+                print("tools/test_net %s over %d val frames: %.2f s, BEV AP "
+                      "at 0.5/0.7 %s (random weights), launches %s, on [%s]"
+                      % (name, imdb.num_images, secs, aps, launches, smi))
+                add_launches(total, launches)
+            argv = ["--kitti_path", root, "--model", weights,
+                    "--stem", "s2d_fused", "--int8-head", "--int8-rpn",
+                    "--nms", "blocked_fixed", "--pre-nms", str(INT8_PRE_NMS),
+                    "--frames", "8", "--calib_frames", str(CALIB_FRAMES),
+                    "--batch", str(INT8_B)]
+            zero_path_launches()
+            t0 = time.perf_counter()
+            res = quant_check.main(argv)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launches = path_launches()
+            aps = [v for k, v in res.items() if k.startswith(("ap", "q3d",
+                                                              "qbev"))]
+            if res["nms_cert_failures"] != 0 or not np.isfinite(aps).all():
+                raise AssertionError("quant_check: %s" % res)
+            # the pooled-feature calibration (one pool pair), then per
+            # batch the bf16 reference detector and the int8 detector
+            batches = -(-res["frames"] // INT8_B)
+            expected = dict(zero, roi_pool=2 + 4 * batches,
+                            vgg_stem=2 * batches, conv_s8=23 * batches,
+                            matmul_s8=4 * batches,
+                            stem_s2d_fused=2 * batches)
+            if launches != expected:
+                raise AssertionError("quant_check launched %s != %s"
+                                     % (launches, expected))
+            print("tools/quant_check --stem s2d_fused over %d frames: %.2f s, "
+                  "launches %s, on [%s]" % (res["frames"], secs, launches,
+                                            smi))
+            add_launches(total, launches)
+        finally:
+            cfg.ROOT_DIR, cfg.DATA_DIR = saved
+    return total
 
 
 def main():
@@ -1317,6 +1651,9 @@ def main():
     np_params = he_normal_params(SEED)
     params = params_from_jax(np_params, device="cuda")
     stem = phase_stem(params)
+    t0 = time.perf_counter()
+    s2d = phase_stem_s2d_fused(params, smi)
+    new_phases_s = time.perf_counter() - t0
     launches = phase_detector(params, smi)
     del params
     bwd = phase_roi_bwd(gen)
@@ -1329,23 +1666,35 @@ def main():
         del params
     conv_stats, conv2x2_stats = phase_conv_s8(smi)
     matmul_stats = phase_matmul_s8(smi)
-    int8 = phase_int8_detector(np_params, smi)
+    int8, state = phase_int8_detector(np_params, smi)
+    t0 = time.perf_counter()
+    fused = phase_s2d_fused_detectors(np_params, state, smi)
+    del state
+    clis = phase_eval_clis(np_params, smi)
+    new_phases_s += time.perf_counter() - t0
+    print("the fused s2d stem's phases (kernel check, detectors, CLIs): "
+          "%.1f s" % new_phases_s)
+    new_paths = {}
+    add_launches(new_paths, fused)
+    add_launches(new_paths, clis)
     loaded = [m for m in sys.modules
               if m.split(".")[0] in ("jax", "jaxlib", "mv3d_tf_tpu")]
     if loaded:
         raise AssertionError("modules of jax or the JAX package were "
                              "imported: %s" % loaded)
     # launches on the main paths: the detector's run, the train run, the
-    # read_lidar run, the scan-to-detections run and the int8 detector's run
+    # read_lidar run, the scan-to-detections run, the int8 detector's run,
+    # the s2d_fused detectors' run and the evaluation CLIs' runs
     print(json.dumps({"kernels": [
         {"name": "roi_pool", "route": "cuda", "source": ROI_SOURCE,
          "replaces": "mv3d_tf_tpu/ops/roi_pool_pallas.py:71",
          "launches": launches["roi_pool"] + train_launches["roi_pool"]
-         + scan_launches["roi_pool"] + int8["roi_pool"], **roi},
+         + scan_launches["roi_pool"] + int8["roi_pool"]
+         + new_paths["roi_pool"], **roi},
         {"name": "vgg_stem", "route": "cuda", "source": STEM_SOURCE,
          "replaces": "mv3d_tf_tpu/ops/vgg_stem_pallas.py:106",
-         "launches": launches["vgg_stem"] + scan_launches["vgg_stem"],
-         **stem},
+         "launches": launches["vgg_stem"] + scan_launches["vgg_stem"]
+         + new_paths["vgg_stem"], **stem},
         {"name": "roi_pool_bwd", "route": "cuda", "source": BWD_SOURCE,
          "replaces": "mv3d_tf_tpu/ops/roi_pool_pallas.py:333",
          "launches": train_launches["roi_pool_bwd"], **bwd},
@@ -1354,13 +1703,18 @@ def main():
          "launches": cli_launches + scan_launches["bev_place"], **bev_stats},
         {"name": "conv_s8", "route": "cuda", "source": CONV_S8_SOURCE,
          "replaces": "mv3d_tf_tpu/ops/conv_s8_pallas.py:46,155",
-         "launches": int8["conv_s8"], **conv_stats},
+         "launches": int8["conv_s8"] + new_paths["conv_s8"], **conv_stats},
         {"name": "conv2x2_s8", "route": "cuda", "source": CONV_S8_SOURCE,
          "replaces": "mv3d_tf_tpu/ops/conv_s8_pallas.py:260",
-         "launches": int8["conv2x2_s8"], **conv2x2_stats},
+         "launches": int8["conv2x2_s8"] + new_paths["conv2x2_s8"],
+         **conv2x2_stats},
         {"name": "matmul_s8", "route": "cuda", "source": MATMUL_S8_SOURCE,
          "replaces": "mv3d_tf_tpu/ops/conv_s8_pallas.py:376",
-         "launches": int8["matmul_s8"], **matmul_stats},
+         "launches": int8["matmul_s8"] + new_paths["matmul_s8"],
+         **matmul_stats},
+        {"name": "stem_s2d_fused", "route": "cuda", "source": S2D_SOURCE,
+         "replaces": "mv3d_tf_tpu/ops/stem_s2d_pallas.py:124",
+         "launches": new_paths["stem_s2d_fused"], **s2d},
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -152,8 +152,9 @@ __C.TPU.EVAL_BATCH = 8
 # (bf16 BEV + uint8 image); datasets over budget are fed per iteration
 __C.TPU.TRAIN_DATA_HBM_GB = 6.0
 # train-graph conv1 stem: '' = the literal VGG stem (parity default);
-# 's2d' = the space-to-depth packed stem (mv3d_tf_tpu/ops/stem_s2d.py),
-# gradient-equivalent but not bit-identical; not ported yet
+# 's2d' = the space-to-depth packed stem (ops/stem_s2d.py),
+# gradient-equivalent but not bit-identical; train.build_train_step takes
+# it as stem_impl; solver.train_net, which reads this key, is not ported yet
 __C.TPU.TRAIN_STEM = ''
 
 

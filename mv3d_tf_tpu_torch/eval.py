@@ -10,8 +10,10 @@ Parity notes, as in the JAX package:
   * the image mean is subtracted in float32 before any cast;
   * boxes for BEV NMS come from the UNREGRESSED corners; the regressed
     corners are returned alongside.
-In bfloat16 the trunks run the fused conv1 stem (ops/vgg_stem_cuda.py),
-and on a card the ROI pooling runs the CUDA kernel (ops/roi_pool.py).
+In bfloat16 the trunks run the fused conv1 stem (ops/vgg_stem_cuda.py)
+unless the batched detector is given another stem (the fused s2d stem of
+ops/stem_s2d_cuda.py among them), and on a card the ROI pooling runs the
+CUDA kernel (ops/roi_pool.py).
 Given an int8 quant state (quant.py), the batched detector runs the int8
 trunks, RPN conv, ROI pool and fc6/fc7 through the s8 kernels
 (ops/conv_s8.py).
@@ -102,10 +104,13 @@ def _inputs(params, bev, image, calib):
 
 
 @torch.inference_mode()
-def _detect(params, bev, image, calib, compute_dtype, **kw):
-    """Batched detector from raw inputs (B,...) on the params' device."""
+def _detect(params, bev, image, calib, compute_dtype, stem_impl=None, **kw):
+    """Batched detector from raw inputs (B,...) on the params' device.
+    stem_impl None picks the fused stem in bfloat16 and the literal one
+    otherwise; any other value names the stem (models/vgg.trunk_apply)."""
     bev, image, calib = _inputs(params, bev, image, calib)
-    stem_impl = "fused" if compute_dtype == torch.bfloat16 else None
+    if stem_impl is None and compute_dtype == torch.bfloat16:
+        stem_impl = "fused"
     c5, c5_2 = mv3d.extract_features(params, bev, image, dtype=compute_dtype,
                                      stem_impl=stem_impl)
     return detect_from_features(params, c5, c5_2, calib,
@@ -205,19 +210,18 @@ def build_detect_batch_fn(feat_h=75, feat_w=75, pre_nms_top_n=6000,
     heads run in bf16, the fc6/fc7 in int8 when the state has a head.
     quant_conv_impl is checked and names the same integers for every value;
     rois_per_step, a TPU tiling, is accepted and unused. With quant=None the
-    float detector runs in compute_dtype and stem_impl must be None.
+    float detector runs in compute_dtype with the stem stem_impl names
+    (models/vgg.trunk_apply: "literal", "fused" / "pallas", "s2d",
+    "s2d_fused"); None picks the fused stem in bfloat16 and the literal one
+    otherwise (eval.py:174-182).
     """
     if nms_impl not in _NMS_IMPLS:
         raise ValueError("unknown nms_impl {!r}".format(nms_impl))
     kw = dict(feat_h=feat_h, feat_w=feat_w, pre_nms_top_n=pre_nms_top_n,
               post_nms_top_n=post_nms_top_n, rpn_nms_thresh=rpn_nms_thresh)
     if quant is None:
-        if stem_impl is not None:
-            raise NotImplementedError(
-                "stem_impl is taken by the int8 detector only; the float "
-                "detector picks its stem by compute_dtype")
         run = lambda p, b, i, c: _detect(  # noqa: E731
-            p, b, i, c, compute_dtype, **kw)
+            p, b, i, c, compute_dtype, stem_impl, **kw)
     else:
         Q._check_impl(quant_conv_impl)
         run = lambda p, b, i, c: _detect_int8(  # noqa: E731

@@ -94,20 +94,40 @@ def init_trunk(generator, in_channels, suffix="", device="cuda"):
 def trunk_apply(params, x, suffix="", dtype=None, stem_impl=None):
     """Run the 13-conv trunk. x (B,H,W,C) NHWC -> conv5_3 (B,H/8,W/8,512).
 
-    stem_impl selects how conv1_1 + conv1_2 + pool1 run:
-      None / "literal" — two conv2d calls and the pool;
-      "fused"          — ops/vgg_stem_cuda.vgg_stem: the hand-written CUDA
-                         kernel on a CUDA tensor, its plain version on the
-                         CPU; bfloat16 output, the counterpart of the JAX
-                         package's "pallas" stem.
+    stem_impl selects how conv1_1 + conv1_2 + pool1 run (vgg.py:76-126):
+      None / "literal"   — two conv2d calls and the pool;
+      "fused" / "pallas" — ops/vgg_stem_cuda.vgg_stem: the hand-written CUDA
+                           kernel on a CUDA tensor, its plain version on the
+                           CPU; bfloat16 output ("pallas" is the JAX
+                           package's name for it);
+      "s2d"              — ops/stem_s2d.stem_s2d in dtype: the space-to-depth
+                           packed convs, differentiable;
+      "s2d_fused"        — ops/stem_s2d_cuda.stem_s2d_fused in dtype, float32
+                           when dtype is None: the fused s2d kernel on a CUDA
+                           tensor, its plain version on the CPU; inference
+                           only.
     """
-    if stem_impl not in (None, "literal", "fused"):
-        raise ValueError("unknown stem_impl {!r}".format(stem_impl))
+    if stem_impl not in (None, "literal", "fused", "pallas", "s2d",
+                         "s2d_fused"):
+        raise ValueError(
+            "unknown stem_impl {!r} for the float trunk (the s2d_int8 stem "
+            "lives in quant.extract_features_int8)".format(stem_impl))
+    if stem_impl in ("fused", "pallas") and dtype != torch.bfloat16:
+        raise ValueError("the fused literal stem outputs bfloat16: run the "
+                         "trunk with dtype=torch.bfloat16")
     layers = VGG_LAYERS
-    if stem_impl == "fused":
-        from mv3d_tf_tpu_torch.ops.vgg_stem_cuda import vgg_stem
-        x = vgg_stem(x, *layer(params, "conv1_1" + suffix),
-                     *layer(params, "conv1_2" + suffix))
+    if stem_impl not in (None, "literal"):
+        p = (*layer(params, "conv1_1" + suffix),
+             *layer(params, "conv1_2" + suffix))
+        if stem_impl == "s2d":
+            from mv3d_tf_tpu_torch.ops.stem_s2d import stem_s2d
+            x = stem_s2d(x, *p, dtype=dtype)
+        elif stem_impl == "s2d_fused":
+            from mv3d_tf_tpu_torch.ops.stem_s2d_cuda import stem_s2d_fused
+            x = stem_s2d_fused(x, *p, dtype=dtype or torch.float32)
+        else:
+            from mv3d_tf_tpu_torch.ops.vgg_stem_cuda import vgg_stem
+            x = vgg_stem(x, *p)
         layers = VGG_LAYERS[2:]
     for name, _, pool in layers:
         x = conv2d(x, *layer(params, name + suffix), dtype=dtype)

@@ -353,6 +353,9 @@ def _float_stem(params, x, suffix, stem):
          *vgg.layer(params, "conv1_2" + suffix))
     if stem == "s2d":
         return stem_s2d(x, *p, dtype=_BF16)
+    if stem == "s2d_fused":
+        from mv3d_tf_tpu_torch.ops.stem_s2d_cuda import stem_s2d_fused
+        return stem_s2d_fused(x, *p, dtype=_BF16)
     if stem == "pallas":
         from mv3d_tf_tpu_torch.ops.vgg_stem_cuda import vgg_stem
         return vgg_stem(x, *p)
@@ -364,22 +367,19 @@ def extract_features_int8(params, quant, bev, image, fused_stem=False,
     """Quantized twin of mv3d.extract_features (quant.py:610-689). stem:
       "bf16"     — literal bf16 conv1 pair and pool, then int8;
       "s2d"      — the space-to-depth bf16 stem (ops/stem_s2d.py);
+      "s2d_fused" — the s2d stem as one kernel in bf16
+                   (ops/stem_s2d_cuda.py: the CUDA kernel on a card);
       "s2d_int8" — s2d with the packed conv1_2 as the s8 2x2 kernel,
                    feeding the trunk int8 directly;
       "int8"     — int8 from the input;
       "pallas"   — the fused bf16 stem (ops/vgg_stem_cuda.py: the CUDA
-                   kernel on a card); fused_stem=True is its alias;
-      "s2d_fused" is not ported yet and raises.
+                   kernel on a card); fused_stem=True is its alias.
     Returns (feat_bv_q, s_bv, feat_img_q, s_img)."""
     if fused_stem:
         stem = "pallas"
     _check_impl(conv_impl)
     if stem not in STEMS:
         raise ValueError("unknown stem {!r}".format(stem))
-    if stem == "s2d_fused":
-        raise NotImplementedError(
-            "the s2d_fused stem (TPU kernel stem_s2d_fused) is not ported "
-            "yet: ROADMAP.md, Queue 2 item 9")
     out = []
     for key, x, suffix in (("trunk_bv", bev, ""), ("trunk_img", image, "_2")):
         qt = quant[key]

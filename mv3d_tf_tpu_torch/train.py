@@ -31,6 +31,7 @@ from mv3d_tf_tpu_torch.targets import (anchor_target_layer,
 
 BATCH_KEYS = ("bev", "image", "calib", "gt_boxes_bv", "gt_boxes_3d",
               "gt_boxes_corners", "gt_valid")
+TRAIN_STEMS = (None, "literal", "s2d")   # the differentiable stems
 
 
 def smooth_l1(diff, sigma=3.0):
@@ -105,7 +106,8 @@ def _on_device(batch, device):
 def build_forward_losses(feat_h=75, feat_w=75, pre_nms_top_n=12000,
                          post_nms_top_n=2000, rpn_nms_thresh=0.7,
                          rois_per_image=128, keep_prob=0.5,
-                         compute_dtype=None, pool=roi_pool_train):
+                         compute_dtype=None, pool=roi_pool_train,
+                         stem_impl=None):
     """The per-frame forward and 4-term loss (train.py:89-161).
 
     Returns forward_losses(params, batch, draws) -> dict of 0-d tensors
@@ -113,14 +115,24 @@ def build_forward_losses(feat_h=75, feat_w=75, pre_nms_top_n=12000,
     image (H,W,3) raw BGR, calib (4,12), gt_boxes_bv (G,5), gt_boxes_3d
     (G,7), gt_boxes_corners (G,25), gt_valid (G,) bool, as arrays or
     tensors; draws comes from make_draws. ``pool`` is the differentiable
-    single-frame ROI pool.
+    single-frame ROI pool. stem_impl None or "literal" runs the literal
+    stem, "s2d" the space-to-depth packed convs (ops/stem_s2d.py), whose
+    gradient is the literal stem's; the fused stems have no gradient and
+    are refused.
     """
+    if stem_impl not in TRAIN_STEMS:
+        raise ValueError(
+            "stem_impl {!r} cannot train: the fused stems are inference "
+            "kernels without a gradient; use one of {}".format(
+                stem_impl, TRAIN_STEMS))
+
     def forward_losses(params, batch, draws):
         dev = next(params.parameters()).device
         b = _on_device(batch, dev)
         image = b["image"].float() - torch.from_numpy(PIXEL_MEANS).to(dev)
         c5, c5_2 = mv3d.extract_features(params, b["bev"].float()[None],
-                                         image[None], dtype=compute_dtype)
+                                         image[None], dtype=compute_dtype,
+                                         stem_impl=stem_impl)
         rpn_cls, rpn_box = mv3d.rpn_head(params, c5, dtype=compute_dtype)
         gt = (b["gt_boxes_bv"], b["gt_valid"], b["gt_boxes_3d"])
 
@@ -153,19 +165,20 @@ def build_forward_losses(feat_h=75, feat_w=75, pre_nms_top_n=12000,
 def build_train_step(feat_h=75, feat_w=75, pre_nms_top_n=12000,
                      post_nms_top_n=2000, rpn_nms_thresh=0.7,
                      rois_per_image=128, keep_prob=0.5, lr=1e-5,
-                     compute_dtype=None):
+                     compute_dtype=None, stem_impl=None):
     """Build (train_step, make_optimizer) (train.py:164-198).
 
     make_optimizer(params) is Adam over the parameter ModuleDict with
     optax.adam's defaults. train_step(params, opt, batch, draws) runs the
     forward, the backward and one optimizer step, updating params in place,
-    and returns the metrics as detached 0-d tensors.
+    and returns the metrics as detached 0-d tensors. stem_impl is
+    build_forward_losses'.
     """
     forward_losses = build_forward_losses(
         feat_h=feat_h, feat_w=feat_w, pre_nms_top_n=pre_nms_top_n,
         post_nms_top_n=post_nms_top_n, rpn_nms_thresh=rpn_nms_thresh,
         rois_per_image=rois_per_image, keep_prob=keep_prob,
-        compute_dtype=compute_dtype)
+        compute_dtype=compute_dtype, stem_impl=stem_impl)
 
     def make_optimizer(params):
         return torch.optim.Adam(params.parameters(), lr=lr,

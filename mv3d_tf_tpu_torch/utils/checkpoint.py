@@ -1,0 +1,73 @@
+"""Snapshots of the port's parameters (mv3d_tf_tpu/utils/checkpoint.py).
+
+The JAX package writes orbax directories with its optimizer state; the port
+writes one ``torch.save`` file of the parameters, named by the reference's
+scheme ``<SNAPSHOT_PREFIX>[_<INFIX>]_iter_<N>`` with a ``.pt`` suffix.
+Saving and resuming the optimizer state belongs to the training loop and
+waits for it (ROADMAP.md, Queue 1 item 8). ``load_pretrained`` reads a
+reference-style ``.npy`` weight dict (utils/weights.load_npy_weights) or a
+snapshot the port wrote; an orbax directory raises.
+"""
+
+import os
+import os.path as osp
+
+import torch
+
+from mv3d_tf_tpu_torch.config import cfg
+
+SUFFIX = ".pt"
+
+
+def snapshot_name(iter_n, prefix=None, infix=None):
+    prefix = cfg.TRAIN.SNAPSHOT_PREFIX if prefix is None else prefix
+    infix = cfg.TRAIN.SNAPSHOT_INFIX if infix is None else infix
+    mid = ("_" + infix) if infix else ""
+    return "{}{}_iter_{:d}".format(prefix, mid, iter_n)
+
+
+def save_checkpoint(output_dir, iter_n, params):
+    """Write the parameters to <output_dir>/<snapshot_name>.pt."""
+    os.makedirs(output_dir, exist_ok=True)
+    path = osp.abspath(osp.join(output_dir, snapshot_name(iter_n) + SUFFIX))
+    torch.save({"params": params.state_dict()}, path)
+    print("Wrote snapshot to: {:s}".format(path))
+    return path
+
+
+def load_checkpoint(path, params):
+    """Load a snapshot of save_checkpoint into ``params`` in place, onto the
+    devices its tensors are on; returns params."""
+    blob = torch.load(path, map_location="cpu", weights_only=True)
+    params.load_state_dict(blob["params"])
+    return params
+
+
+def latest_snapshot(output_dir):
+    """The highest-iteration snapshot file in output_dir, or None."""
+    if not osp.isdir(output_dir):
+        return None
+    best, best_iter = None, -1
+    for name in os.listdir(output_dir):
+        if "_iter_" in name and name.endswith(SUFFIX):
+            try:
+                it = int(name[:-len(SUFFIX)].rsplit("_iter_", 1)[1])
+            except ValueError:
+                continue
+            if it > best_iter:
+                best, best_iter = osp.join(output_dir, name), it
+    return best
+
+
+def load_pretrained(params, path):
+    """Load a reference-style .npy weight dict or a port snapshot into
+    ``params`` in place; returns params."""
+    from mv3d_tf_tpu_torch.utils.weights import load_npy_weights
+    if path.endswith(".npy"):
+        return load_npy_weights(params, path, ignore_missing=True)
+    if osp.isdir(path):
+        raise ValueError(
+            "{} is a directory: an orbax snapshot of the JAX package. The "
+            "port reads .npy weight dicts and its own torch.save snapshots "
+            "(.pt); it does not read orbax".format(path))
+    return load_checkpoint(path, params)

@@ -69,6 +69,73 @@ def jax_param_shapes(bev_channels=9, fc_dim=2048, pooled=7):
     return shapes
 
 
+def _fc_row_perm(channels, pooled=7):
+    """Row permutation from the reference's channel-major fc flatten
+    (c, h, w) to the NHWC flatten (h, w, c) of models/mv3d.fc_apply
+    (weights.py:17-23)."""
+    return (np.arange(channels * pooled * pooled)
+            .reshape(channels, pooled, pooled).transpose(1, 2, 0).reshape(-1))
+
+
+# fc layers whose inputs are ROI-pooled maps in the reference graphs
+_POOLED_FC_KEYS = ("fc6", "fc6_1", "fc6_2")
+
+
+def load_npy_weights(params, path_or_dict, ignore_missing=True, log=print):
+    """Merge a reference-style .npy weight dict ({name: {"weights",
+    "biases"}} in the JAX layout: HWIO convs, (in, out) fcs) into the port's
+    ModuleDict in place, with the reference's semantics (network.py:45-64,
+    weights.py:30-74): unknown names and, with ignore_missing, shape
+    mismatches are skipped (so ImageNet's 3-channel conv1_1 leaves the
+    9-channel BEV conv1_1 as it was); fc6-family weight rows are permuted
+    from the channel-major flatten to NHWC. Returns params."""
+    if isinstance(path_or_dict, (str, bytes)):
+        data = np.load(path_or_dict, allow_pickle=True).item()
+    else:
+        data = path_or_dict
+    for key, sub in data.items():
+        mkey = vgg.module_key(key)
+        if mkey not in params:
+            if log:
+                log("ignore " + key)
+            if not ignore_missing:
+                raise KeyError(key)
+            continue
+        m = params[mkey]
+        targets = {"weights": m.weight, "biases": m.bias}
+        for subkey, value in sub.items():
+            if subkey not in targets:
+                if log:
+                    log("ignore {}/{}".format(key, subkey))
+                if not ignore_missing:
+                    raise KeyError((key, subkey))
+                continue
+            t = targets[subkey]
+            # the JAX layout's shape: HWIO convs, (in, out) fcs
+            shape = (tuple(t.shape) if t.dim() == 1 else
+                     tuple(t.permute(2, 3, 1, 0).shape) if t.dim() == 4 else
+                     tuple(t.shape[::-1]))
+            if shape != tuple(np.shape(value)):
+                if log:
+                    log("ignore " + key + " (shape mismatch)")
+                if not ignore_missing:
+                    raise ValueError((key, subkey))
+                continue
+            arr = np.asarray(value, np.float32)
+            if (key in _POOLED_FC_KEYS and subkey == "weights"
+                    and arr.ndim == 2 and arr.shape[0] % 49 == 0):
+                arr = arr[_fc_row_perm(arr.shape[0] // 49)]
+            if arr.ndim == 4:
+                arr = arr.transpose(3, 2, 0, 1)             # HWIO -> OIHW
+            elif arr.ndim == 2:
+                arr = arr.T                                 # (in, out) -> (out, in)
+            with torch.no_grad():
+                t.copy_(torch.from_numpy(np.ascontiguousarray(arr)))
+            if log:
+                log("assign pretrain model " + subkey + " to " + key)
+    return params
+
+
 def he_normal_params(seed, bev_channels=9, fc_dim=2048, pooled=7):
     """JAX-layout params with He-scaled normal weights (std sqrt(2/fan_in))
     and zero biases, from a numpy seed.

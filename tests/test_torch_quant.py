@@ -9,6 +9,7 @@ matmul (calibration, the packed conv1_1, the 1x1 RPN heads, cls/bbox) is
 held within a stated tolerance, since the two frameworks' bf16 kernels
 round at other places."""
 
+import functools
 import os
 import subprocess
 import sys
@@ -373,7 +374,8 @@ def test_int8_detector_int8_stem_pool_false_matches_jax(case):
     np.testing.assert_allclose(got["scores"], want["scores"], atol=1e-3)
 
 
-@pytest.mark.parametrize("stem", ["bf16", "s2d", "pallas", "int8"])
+@pytest.mark.parametrize("stem", ["bf16", "s2d", "pallas", "int8",
+                                  "s2d_fused"])
 def test_int8_detector_stems_run(case, stem):
     """Every ported stem drives the int8 detector to finite outputs of the
     batch detector's shapes."""
@@ -384,11 +386,24 @@ def test_int8_detector_stems_run(case, stem):
     assert torch.isfinite(out["scores"]).all() and out["valid"].any()
 
 
-def test_s2d_fused_stem_is_not_ported(case):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_detect_batch_fn(quant=case["state"], stem_impl="s2d_fused",
-                              **SMALL)(case["params"], case["bev"],
-                                       case["image"], case["calib"])
+def test_int8_detector_s2d_fused_matches_jax(case, monkeypatch):
+    """The fused s2d stem in bf16 (JAX's Pallas kernel in interpret mode,
+    the port's plain version on the CPU) feeding the int8 trunks, with the
+    int8 RPN and blocked_fixed NMS, on JAX's state: the same keys and valid
+    slots, scores within 1e-3 and regressed corners within 1e-2 m, the
+    tolerances of test_int8_detector_matches_jax."""
+    from mv3d_tf_tpu.ops import stem_s2d_pallas as JP
+    monkeypatch.setattr(JP, "stem_s2d_fused",
+                        functools.partial(JP.stem_s2d_fused, interpret=True))
+    want, got = _detectors(case, stem_impl="s2d_fused", quant_rpn=True,
+                           nms_impl="blocked_fixed")
+    assert set(got) == set(want)
+    assert got["nms_converged"].tolist() == [True] * B
+    np.testing.assert_array_equal(got["valid"], want["valid"])
+    assert want["valid"].sum() >= 4
+    np.testing.assert_allclose(got["scores"], want["scores"], atol=1e-3)
+    np.testing.assert_allclose(got["boxes_cnr_r"], want["boxes_cnr_r"],
+                               atol=1e-2)
 
 
 def test_build_quant_state_on_the_port(case):

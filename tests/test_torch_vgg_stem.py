@@ -81,5 +81,7 @@ def test_fused_stem_dispatch_on_cpu(rng, he_params):
     w2, b2 = T.layer(params, "conv1_2_2")
     with pytest.raises(ValueError):
         S.vgg_stem_cuda(x, w1, b1, w2, b2)
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="bfloat16"):
         T.trunk_apply(params, x, stem_impl="pallas")
+    with pytest.raises(ValueError, match="unknown stem_impl"):
+        T.trunk_apply(params, x, stem_impl="s2d_int8")
