@@ -16,14 +16,17 @@ read_lidar CLI over 16 scans on disk; and scan -> raster -> detections in
 float32, bfloat16 and batched bfloat16.
 Then the int8 detector: the s8 convolution kernel against its plain version
 at every shape of the int8 path (both views' trunk layers, the packed
-conv1_2 of the s2d stem, the RPN conv in float32 output), the s8 GEMM at
-the fc6/fc7 shapes, all bit for bit; then PTQ calibration on 4 frames and
+conv1_2 of the s2d stem, the RPN conv in float32 output), the s8 GEMM on
+prepared (N, K) weights at the fc6/fc7 shapes and five edge shapes, all bit
+for bit, beside torch._int_mm on the same bytes; then PTQ calibration on 4
+frames and
 the int8 detector (s2d_int8 stem, int8 RPN, int8 ROI pool and head,
 pre-NMS 1024, post-NMS 300) at B=8, with the kernel route held bit for bit
 to the plain route at B=2.
 Then the fused space-to-depth stem: its kernel against its plain version in
-float32 and bfloat16 at the detector's shapes and four odd and even small
-ones, and the plain version without the edge mask shown to miss; the
+float32 and bfloat16 at the detector's shapes, four odd and even small
+ones and four off the bf16 kernel's tile, and the plain version without the
+edge mask shown to miss; the
 batched detectors with stem_impl="s2d_fused" (bf16 at B=4, int8 at B=8);
 and the evaluation entry points on a synthetic KITTI tree that the port
 writes: tools/test_net over its val split (bf16, and int8 with the s2d_int8
@@ -68,7 +71,8 @@ from mv3d_tf_tpu_torch.ops.bev_cuda import (N_FLAT, bev_place_cuda,
                                             bev_place_plain)
 from mv3d_tf_tpu_torch.ops.conv_s8_cuda import (conv2x2_s8_cuda,
                                                 conv3x3_s8_cuda,
-                                                matmul_s8_cuda)
+                                                matmul_s8_cuda,
+                                                matmul_s8_nk_cuda)
 from mv3d_tf_tpu_torch.ops.roi_pool import (bin_bounds, bin_cells, roi_pool,
                                             roi_pool_bwd, roi_pool_fast,
                                             roi_pool_train)
@@ -396,8 +400,10 @@ def phase_stem_s2d_fused(params, smi):
     float32 (within 1e-5 * max|ref|) and bf16 (within STEM_TOL * max|ref|),
     at B=4 on the detector's BEV 601x601x9 (odd: no last-row or last-column
     mask) and image 384x1248x3 (even: both masks), and at B=2 on the four
-    odd and even shapes of tests/test_stem_s2d_pallas.py; the biases drawn
-    here, nonzero (b1 in [0.5, 1), b2 of both signs). The plain version
+    odd and even shapes of tests/test_stem_s2d_pallas.py and on four whose
+    pooled extents are no multiple of the bf16 kernel's 8 x 16 tile (two
+    with 5 and 16 input channels); the biases drawn here, nonzero (b1 in
+    [0.5, 1), b2 of both signs). The plain version
     without the edge mask must miss the tolerance. Then one int8 detector
     call's stems (B=8, both views, bf16): kernel, plain, the literal bf16
     stem through cuDNN (the library yardstick) and the XLA-twin route
@@ -407,6 +413,10 @@ def phase_stem_s2d_fused(params, smi):
     cases = [("bev", 4, 601, 601, 9), ("image", 4, 384, 1248, 3)]
     cases += [("small", PLAIN_B, h, w, c) for h, w, c in
               ((26, 26, 9), (25, 21, 9), (24, 34, 3), (27, 20, 3))]
+    # pooled extents off the bf16 kernel's 8 x 16 tile, and channel counts
+    # that take its other conv1_1 depths (K = 48 -> 96, 144)
+    cases += [("ragged tile", PLAIN_B, h, w, c) for h, w, c in
+              ((75, 203, 9), (50, 90, 3), (21, 29, 5), (22, 35, 16))]
     tols = {torch.float32: 1e-5, torch.bfloat16: STEM_TOL}
     weights = {}
     worst = 0.0
@@ -418,9 +428,12 @@ def phase_stem_s2d_fused(params, smi):
         suffix = "" if cin == 9 else "_2"
         b1 = (0.5 + 0.5 * torch.rand(64, generator=gen)).cuda()
         b2 = (0.1 * torch.randn(64, generator=gen)).cuda()
-        w = (layer(params, "conv1_1" + suffix)[0], b1,
-             layer(params, "conv1_2" + suffix)[0], b2)
-        weights[cin] = w
+        w1 = layer(params, "conv1_1" + suffix)[0]
+        if cin not in (3, 9):       # He-scaled, as the detector's
+            w1 = (torch.randn((64, cin, 3, 3), generator=gen)
+                  * (2.0 / (9 * cin)) ** 0.5).cuda()
+        w = (w1, b1, layer(params, "conv1_2" + suffix)[0], b2)
+        weights.setdefault(cin, w)
         for dtype, rtol in tols.items():
             with torch.inference_mode():
                 got = stem_s2d_fused_cuda(x, *w, dtype=dtype)
@@ -1183,15 +1196,25 @@ def phase_conv_s8(smi):
 
 
 def phase_matmul_s8(smi):
-    """The s8 GEMM kernel against its plain version, torch.equal, at the int8
-    head's fc6 and fc7 shapes for B=8 (M = 2400 rois), at 4096^3 and at a
-    ragged shape; times of the kernel, the plain version and torch._int_mm
-    (the yardstick; the port never calls it) for one detector call's four
-    products."""
+    """The s8 GEMM kernel against its plain version, torch.equal, through
+    the prepared-weight wrapper that the int8 head calls
+    (matmul_s8_nk_cuda on prepare_s8_gemm_weight's (N, Kp) operand) and
+    through the public matmul_s8_cuda, at the head's fc6 and fc7 shapes for
+    B=8 (M = 2400 rois) and B=1 (M = 300), at 4096^3, at the ragged
+    (37, 200, 40), at a K that is no multiple of the kernel's 128-byte K
+    slab and at an N that is no multiple of its 160-column tile. Times of
+    the kernel, the plain version and torch._int_mm on the same (N, K)
+    bytes (the yardstick; the port never calls it), with TOP/s and the
+    fraction of the bound; the one-time weight preparation apart. Stats
+    for one B=8 detector call's four products."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
     M = INT8_B * POST_NMS
     shapes = {"fc6": (M, 25088, 2048), "fc7": (M, 2048, 2048),
-              "4096^3": (4096, 4096, 4096), "ragged": (37, 200, 40)}
+              "fc6 B=1": (POST_NMS, 25088, 2048),
+              "fc7 B=1": (POST_NMS, 2048, 2048),
+              "4096^3": (4096, 4096, 4096), "ragged": (37, 200, 40),
+              "K off the slab": (300, 2000, 256),
+              "N off the tile": (500, 512, 200)}
     ms = plain_ms = lib_ms = worst = 0.0
     parts = []
     for name, (m, kdim, n) in shapes.items():
@@ -1199,35 +1222,50 @@ def phase_matmul_s8(smi):
                           dtype=torch.int8)
         b = torch.randint(-127, 128, (kdim, n), generator=gen, device="cuda",
                           dtype=torch.int8)
-        got = matmul_s8_cuda(a, b)
+        bt = S8.prepare_s8_gemm_weight(b)
+        got = matmul_s8_nk_cuda(a, bt)
         ref = S8.matmul_s8_plain(a, b)
         worst = max(worst, max_err(got, ref))
         if got.dtype != torch.int32 or not torch.equal(got, ref):
-            raise AssertionError("matmul_s8 %s: kernel != plain" % name)
+            raise AssertionError("matmul_s8 %s: kernel != plain (%d of %d "
+                                 "differ)" % (name, int((got != ref).sum()),
+                                              ref.numel()))
+        if not torch.equal(matmul_s8_cuda(a, b), ref):
+            raise AssertionError("matmul_s8 %s: matmul_s8_cuda != plain"
+                                 % name)
         line = "matmul_s8 %s (%d,%d)@(%d,%d): bit-identical to plain" % (
             name, m, kdim, kdim, n)
-        if name != "ragged":
-            b_cm = b.t().contiguous().t()      # column-major, as cuBLASLt wants
-            km = cuda_ms(lambda: matmul_s8_cuda(a, b), iters=10)
+        if name in ("fc6", "fc7", "fc6 B=1", "fc7 B=1", "4096^3"):
+            ops = 2 * m * kdim * n
+            work = (nbytes(a, bt, got), ops)
+            floor = bound([work], INT8_PER_S)["bound_ms"]
+            km = cuda_ms(lambda: matmul_s8_nk_cuda(a, bt), iters=10)
             pm = cuda_ms(lambda: S8.matmul_s8_plain(a, b), iters=2, warmup=1)
+            b_cm = bt.t()          # (K, N) column-major: the same bytes
             lm = cuda_ms(lambda: torch._int_mm(a, b_cm), iters=10)
             same = torch.equal(torch._int_mm(a, b_cm), ref)
-            ops = 2 * m * kdim * n
-            line += ("; kernel %.4f ms (%.1f TOP/s), plain %.4f ms, "
-                     "torch._int_mm %.4f ms (%s the plain version)" % (
-                         km, ops / km / 1e9, pm, lm,
-                         "equal to" if same else "DIFFERENT from"))
+            prep = cuda_ms(lambda: S8.prepare_s8_gemm_weight(b), iters=3,
+                           warmup=1)
+            line += ("; kernel %.4f ms (%.1f TOP/s, %.3f of the bound %.4f "
+                     "ms), plain %.4f ms, torch._int_mm %.4f ms (%.1f TOP/s, "
+                     "%s the plain version), kernel / torch._int_mm %.3f; "
+                     "weight preparation, once per weight, %.4f ms" % (
+                         km, ops / km / 1e9, floor / km, floor, pm, lm,
+                         ops / lm / 1e9,
+                         "equal to" if same else "DIFFERENT from", km / lm,
+                         prep))
             if name in ("fc6", "fc7"):   # two of each per detector call
                 ms, plain_ms, lib_ms = (ms + 2 * km, plain_ms + 2 * pm,
                                         lib_ms + 2 * lm)
-                parts += [(nbytes(a, b, got), ops)] * 2
+                parts += [work] * 2
         print(line)
     stats = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
              **bound(parts, INT8_PER_S), "library_ms": lib_ms}
-    print("matmul_s8: one B=%d detector call's 4 products: kernel %.4f ms, "
-          "bound %.4f ms (%s), plain %.4f ms, torch._int_mm %.4f ms, on [%s]"
-          % (INT8_B, ms, stats["bound_ms"], stats["bound_by"], plain_ms,
-             lib_ms, smi))
+    print("matmul_s8: one B=%d detector call's 4 products on prepared "
+          "weights: kernel %.4f ms, bound %.4f ms (%s), plain %.4f ms, "
+          "torch._int_mm %.4f ms on the same bytes, kernel / torch._int_mm "
+          "%.3f, on [%s]" % (INT8_B, ms, stats["bound_ms"], stats["bound_by"],
+                             plain_ms, lib_ms, ms / lib_ms, smi))
     return stats
 
 
@@ -1241,7 +1279,7 @@ class plain_routes:
              (conv_s8_cuda, "conv2x2_s8_cuda",
               lambda x, w, k, b, out_dtype=torch.int8:
               S8.conv2x2_s8_plain(x, w, k, b, out_dtype)),
-             (conv_s8_cuda, "matmul_s8_cuda", S8.matmul_s8_plain),
+             (conv_s8_cuda, "matmul_s8_nk_cuda", S8.matmul_s8_nk_plain),
              (roi_pool_cuda_mod, "roi_pool_cuda",
               lambda f, r, pooled=7, spatial_scale=1.0 / 8:
               roi_pool(f, r, pooled, spatial_scale)))
@@ -1307,6 +1345,7 @@ def int8_stages(params, state, bev, image, calib, stem="s2d_int8"):
     the stem named by ``stem``: "s2d_int8" or "s2d_fused") with a
     synchronize after each stage: ms per stage."""
     ms = {}
+    head_nk = Q.prepare_head_weights(state["head"])   # as the detector does
 
     def clock(stage, fn, *args):
         torch.cuda.synchronize()
@@ -1343,7 +1382,7 @@ def int8_stages(params, state, bev, image, calib, stem="s2d_int8"):
         pooled_im = clock("int8 roi pool", roi_pool_fast, fim, flat_img)
         _, cls_prob, bbox_pred = clock(
             "int8 fusion head", Q.fusion_head_int8, params, state["head"],
-            pooled_bv, s_bv, pooled_im, s_im)
+            pooled_bv, s_bv, pooled_im, s_im, head_nk)
         clock("corner decode", eval_mod._outputs, rois, cls_prob, bbox_pred)
     return ms
 

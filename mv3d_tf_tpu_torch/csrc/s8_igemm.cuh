@@ -1,11 +1,12 @@
-// Implicit-GEMM s8 x s8 -> s32 on the tensor cores, shared by the s8
-// convolutions (conv_s8.cu) and the s8 GEMM (matmul_s8.cu).
+// Implicit-GEMM s8 x s8 -> s32 on the tensor cores. It serves the s8
+// convolutions only (conv_s8.cu); the s8 GEMM has its own kernel.
 //
 // One output row m is one output pixel (b, h, w) of an NHWC map; one output
 // column n is one output channel. The reduction runs over the taps (dy, dx)
 // of a KH x KW window and, inside each tap, over the input channels c, the
 // (dy, dx, c) order of the JAX package's im2col (quant.py:_conv_s8_im2col).
-// A GEMM is the 1 x 1 case on a (1, 1, M, K) "map".
+// A GEMM is the 1 x 1 case on a (1, 1, M, K) "map" (OUT_S32; no source
+// instantiates it).
 //
 //   x    (B, H, W, C) int8 NHWC, C % 16 == 0, 16-byte aligned
 //   w    (N, KH*KW*C) int8: output channel major, reduction contiguous

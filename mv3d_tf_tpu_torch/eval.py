@@ -126,11 +126,12 @@ def _dequant(q, s):
 @torch.inference_mode()
 def _detect_int8(params, qstate, bev, image, calib, stem_impl, conv_impl,
                  quant_rpn, quant_pool, feat_h, feat_w, pre_nms_top_n,
-                 post_nms_top_n, rpn_nms_thresh):
+                 post_nms_top_n, rpn_nms_thresh, head_nk):
     """The int8 batched detector (eval.py:137-291): int8 trunks, the int8
     RPN conv with quant_rpn, the ROI pool on the int8 maps with quant_pool
     (on dequantized bf16 maps without), the int8 head when the state has
-    one; bf16 heads otherwise."""
+    one (its GEMMs on head_nk, quant.prepare_head_weights' dict); bf16
+    heads otherwise."""
     bev, image, calib = _inputs(params, bev, image, calib)
     fbv, s_bv, fim, s_im = Q.extract_features_int8(
         params, qstate, bev, image, stem=stem_impl or "bf16",
@@ -156,7 +157,7 @@ def _detect_int8(params, qstate, bev, image, calib, stem_impl, conv_impl,
             pooled_bv = Q._quantize(pooled_bv, s_bv, 0)
             pooled_img = Q._quantize(pooled_img, s_im, 0)
         _, cls_prob, bbox_pred = Q.fusion_head_int8(
-            params, head, pooled_bv, s_bv, pooled_img, s_im)
+            params, head, pooled_bv, s_bv, pooled_img, s_im, head_nk)
     else:
         if quant_pool:
             pooled_bv = _dequant(pooled_bv, s_bv)
@@ -207,7 +208,8 @@ def build_detect_batch_fn(feat_h=75, feat_w=75, pre_nms_top_n=6000,
     utils.weights.quant_state_from_jax) runs the int8 detector: stem_impl
     picks its stem (quant.extract_features_int8, "bf16" by default),
     quant_rpn the int8 RPN conv, quant_pool the ROI pool on int8 maps;
-    heads run in bf16, the fc6/fc7 in int8 when the state has a head.
+    heads run in bf16, the fc6/fc7 in int8 when the state has a head, on
+    weights laid out for the GEMM once, here (the state is left as it is).
     quant_conv_impl is checked and names the same integers for every value;
     rois_per_step, a TPU tiling, is accepted and unused. With quant=None the
     float detector runs in compute_dtype with the stem stem_impl names
@@ -224,9 +226,11 @@ def build_detect_batch_fn(feat_h=75, feat_w=75, pre_nms_top_n=6000,
             p, b, i, c, compute_dtype, stem_impl, **kw)
     else:
         Q._check_impl(quant_conv_impl)
+        head_nk = (None if quant.get("head") is None
+                   else Q.prepare_head_weights(quant["head"]))
         run = lambda p, b, i, c: _detect_int8(  # noqa: E731
             p, quant, b, i, c, stem_impl, quant_conv_impl, quant_rpn,
-            quant_pool, **kw)
+            quant_pool, head_nk=head_nk, **kw)
 
     def detect_batch(params, bev, image, calib):
         out = run(params, bev, image, calib)

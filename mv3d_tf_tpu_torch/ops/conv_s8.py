@@ -5,6 +5,8 @@ them (mv3d_tf_tpu/ops/conv_s8_pallas.py, quant.py:_conv_requant).
     conv3x3_s8(x, w, k, b)  3x3 SAME, (B,H,W,C) int8 -> (B,H,W,N)
     conv2x2_s8(x, w, k, b)  2x2 VALID, (B,H,W,C) int8 -> (B,H-1,W-1,N)
     matmul_s8(a, b)         (M,K) int8 @ (K,N) int8 -> (M,N) int32
+    matmul_s8_nk(a, bt)     (M,K) int8 @ bt.T -> (M,N) int32, bt the (N,Kp)
+                            operand prepare_s8_gemm_weight makes once
 
 Weights are HWIO int8 as the JAX package keeps them; k and b are the (N,)
 float32 requant scale and bias. The output is
@@ -21,6 +23,8 @@ device raises.
 
 import torch
 import torch.nn.functional as F
+
+GEMM_K_ALIGN = 16   # bytes: the prepared GEMM operand's K padding
 
 
 def fma_f32(a, k, b):
@@ -100,6 +104,37 @@ def matmul_s8_plain(a, b):
     return _exact_mm(a, b)
 
 
+def prepare_s8_gemm_weight(b):
+    """The GEMM kernel's operand for a (K,N) int8 weight, made once: (N,Kp)
+    int8, K-major (each output column's weights contiguous), K zero-padded
+    to Kp, a multiple of GEMM_K_ALIGN bytes. Zeros add zero to every sum."""
+    if b.dtype != torch.int8 or b.dim() != 2:
+        raise TypeError("prepare_s8_gemm_weight: b must be a 2-D int8 tensor")
+    extra = (-b.shape[0]) % GEMM_K_ALIGN
+    return F.pad(b, (0, 0, 0, extra)).t().clone(
+        memory_format=torch.contiguous_format)
+
+
+def check_nk(a, bt, name):
+    """Raise unless bt is the (N, Kp) operand of a (M,K) int8 a."""
+    if a.dtype != torch.int8 or bt.dtype != torch.int8:
+        raise TypeError("%s: a and bt must be int8" % name)
+    if a.dim() != 2 or bt.dim() != 2:
+        raise ValueError("%s: a must be (M,K) and bt (N,Kp)" % name)
+    kp = -(-a.shape[1] // GEMM_K_ALIGN) * GEMM_K_ALIGN
+    if bt.shape[1] != kp:
+        raise ValueError("%s: bt %s is not the (N, %d) operand of a %s "
+                         "(prepare_s8_gemm_weight makes it)"
+                         % (name, tuple(bt.shape), kp, tuple(a.shape)))
+
+
+def matmul_s8_nk_plain(a, bt):
+    """The plain prepared-weight s8 GEMM: a (M,K) int8 @ bt.T, bt the (N,Kp)
+    operand of prepare_s8_gemm_weight -> (M,N) int32."""
+    check_nk(a, bt, "matmul_s8_nk")
+    return _exact_mm(F.pad(a, (0, bt.shape[1] - a.shape[1])), bt.t())
+
+
 def _dispatch(name, x):
     if x.is_cuda:
         from mv3d_tf_tpu_torch.ops import conv_s8_cuda
@@ -122,3 +157,9 @@ def conv2x2_s8(x, w, k, b, out_dtype=torch.int8):
 def matmul_s8(a, b):
     """s8 GEMM to int32: the kernel on a card, plain on the CPU."""
     return _dispatch("matmul_s8", a)(a, b)
+
+
+def matmul_s8_nk(a, bt):
+    """s8 GEMM on a prepared (N,Kp) weight: the kernel on a card, plain on
+    the CPU."""
+    return _dispatch("matmul_s8_nk", a)(a, bt)

@@ -1,23 +1,27 @@
 """Wrappers of the CUDA s8 kernels, the Hopper replacements of
 mv3d_tf_tpu/ops/conv_s8_pallas.py: the s8 convolutions with the fused
 requant epilogue (csrc/conv_s8.cu: conv3x3_s8_pallas_v2 and its v1 twin
-conv3x3_s8_pallas, conv2x2_s8_pallas) and the s8 GEMM (csrc/matmul_s8.cu,
-matmul_s8_pallas). Both are one implicit-GEMM kernel on the tensor cores
-(csrc/s8_igemm.cuh).
+conv3x3_s8_pallas, conv2x2_s8_pallas; the implicit GEMM of
+csrc/s8_igemm.cuh) and the s8 GEMM (csrc/matmul_s8.cu, matmul_s8_pallas;
+wgmma fed by TMA).
 
 The plain PyTorch versions are ops/conv_s8.py:conv3x3_s8_plain,
-conv2x2_s8_plain and matmul_s8_plain. The wrappers take the same arguments:
-they zero-pad channels (and the GEMM's K and N) to the kernel's 16-byte
-granularity, which adds zero to every integer sum, and lay the weights out
-output-channel major with the reduction contiguous.
+conv2x2_s8_plain, matmul_s8_plain and matmul_s8_nk_plain. The wrappers take
+the same arguments: they zero-pad channels (and the GEMM's K) to the
+kernels' 16-byte granularity, which adds zero to every integer sum, and lay
+the weights out output-channel major with the reduction contiguous. The
+convolutions do that per call; the GEMM's weight is laid out once
+(conv_s8.prepare_s8_gemm_weight) and matmul_s8_nk_cuda takes it as it is.
 """
 
 import torch
 import torch.nn.functional as F
 
 from mv3d_tf_tpu_torch import kernels
+from mv3d_tf_tpu_torch.ops.conv_s8 import check_nk, prepare_s8_gemm_weight
 
 _ALIGN = 16   # bytes of one cp.async; channels pad to a multiple of it
+_NO_ENCODE_ENTRY = -999   # mv3d_matmul_s8: cudaGetDriverEntryPoint failed
 
 
 def _pad_dim(t, dim, mult):
@@ -101,8 +105,44 @@ def conv2x2_s8_cuda(x, w, k, b, out_dtype=torch.int8):
 conv2x2_s8_cuda.launches = 0
 
 
+def matmul_s8_nk_cuda(a, bt):
+    """(M,K) int8 @ bt.T -> (M,N) int32 on the card, exact; bt is the (N,Kp)
+    operand of conv_s8.prepare_s8_gemm_weight, taken as it is (no copy). The
+    one launch site of csrc/matmul_s8.cu; its launches are counted on
+    ``matmul_s8_cuda.launches``, the GEMM kernel's one count."""
+    check_nk(a, bt, "matmul_s8_nk_cuda")
+    if not (a.is_cuda and bt.device == a.device):
+        raise ValueError("matmul_s8_nk_cuda: a and bt must be on one CUDA "
+                         "device")
+    if not bt.is_contiguous() or bt.data_ptr() % _ALIGN:
+        raise ValueError("matmul_s8_nk_cuda: bt must be contiguous and "
+                         "16-byte aligned, as prepare_s8_gemm_weight makes it")
+    M, N = a.shape[0], bt.shape[0]
+    if M == 0 or N == 0 or a.shape[1] == 0:
+        return torch.zeros((M, N), dtype=torch.int32, device=a.device)
+    ak = _aligned(_pad_dim(a, 1, _ALIGN))
+    out = torch.empty((M, N), dtype=torch.int32, device=a.device)
+    lib = kernels.library()
+    with torch.cuda.device(a.device):
+        matmul_s8_cuda.launches += 1
+        err = lib.mv3d_matmul_s8(ak.data_ptr(), bt.data_ptr(), out.data_ptr(),
+                                 M, ak.shape[1], N,
+                                 torch.cuda.current_stream().cuda_stream)
+    if err == _NO_ENCODE_ENTRY:
+        raise RuntimeError("mv3d_matmul_s8: the driver has no "
+                           "cuTensorMapEncodeTiled entry point")
+    if err < 0:
+        raise RuntimeError("mv3d_matmul_s8: tensor map encode failed, "
+                           "CUresult %d" % -err)
+    kernels.check(err, "mv3d_matmul_s8")
+    return out
+
+
 def matmul_s8_cuda(a, b):
-    """(M,K) int8 @ (K,N) int8 -> (M,N) int32 on the card, exact."""
+    """(M,K) int8 @ (K,N) int8 -> (M,N) int32 on the card, exact: b laid
+    out by prepare_s8_gemm_weight on every call, then matmul_s8_nk_cuda.
+    Callers that reuse a weight prepare it once. ``launches`` counts the
+    kernel's launches through either wrapper."""
     if not (a.is_cuda and b.device == a.device):
         raise ValueError("matmul_s8_cuda: a and b must be on one CUDA device")
     if a.dtype != torch.int8 or b.dtype != torch.int8:
@@ -110,21 +150,7 @@ def matmul_s8_cuda(a, b):
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
         raise ValueError("matmul_s8_cuda: shapes %s and %s do not multiply"
                          % (tuple(a.shape), tuple(b.shape)))
-    M, N = a.shape[0], b.shape[1]
-    if M == 0 or N == 0:
-        return torch.zeros((M, N), dtype=torch.int32, device=a.device)
-    ak = _aligned(_pad_dim(a, 1, _ALIGN))
-    bt = _aligned(_pad_dim(_pad_dim(b, 0, _ALIGN), 1, _ALIGN).t())
-    Np = bt.shape[0]
-    out = torch.empty((M, Np), dtype=torch.int32, device=a.device)
-    lib = kernels.library()
-    with torch.cuda.device(a.device):
-        matmul_s8_cuda.launches += 1
-        err = lib.mv3d_matmul_s8(ak.data_ptr(), bt.data_ptr(), out.data_ptr(),
-                                 M, ak.shape[1], Np,
-                                 torch.cuda.current_stream().cuda_stream)
-    kernels.check(err, "mv3d_matmul_s8")
-    return out if Np == N else out[:, :N]
+    return matmul_s8_nk_cuda(a, prepare_s8_gemm_weight(b))
 
 
 matmul_s8_cuda.launches = 0

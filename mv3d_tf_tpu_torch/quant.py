@@ -10,7 +10,9 @@ mv3d_tf_tpu/quant.py.
   * 2x2 max pools run on int8 directly (max commutes with the monotone
     quantization map);
   * the fusion head's fc6/fc7 run as s8 GEMMs (csrc/matmul_s8.cu) on the
-    int8 ROI-pooled features; cls/bbox stay bf16.
+    int8 ROI-pooled features; cls/bbox stay bf16. A built detector lays the
+    four fc weights out once for the GEMM (prepare_head_weights) and keeps
+    that copy itself: the state keeps JAX's (in, out) leaves.
 
 The quant state is the JAX package's pytree with tensor leaves: the same
 keys, HWIO ``w_q`` for convs and (in, out) for fcs, 0-dim float32 scales,
@@ -213,30 +215,43 @@ def quantize_head(params, head_scales):
     return q
 
 
-def _fc_s8(x_q, p, s_in):
-    """relu(fma(float(x_q @ w_q), s_in*s_w, bias)) in float32."""
-    acc = S8.matmul_s8(x_q, p["w_q"])
+def prepare_head_weights(qhead):
+    """The four fc weights as the GEMM kernel's (out, in) operands
+    (ops/conv_s8.prepare_s8_gemm_weight), laid out once: {layer: w_nk}.
+    A new dict; qhead is left as it is."""
+    return {name: S8.prepare_s8_gemm_weight(qhead[name]["w_q"])
+            for name in FC_LAYERS}
+
+
+def _fc_s8(x_q, p, s_in, w_nk):
+    """relu(fma(float(x_q @ w_q), s_in*s_w, bias)) in float32, with w_nk
+    the layer's w_q as prepare_head_weights lays it out."""
+    acc = S8.matmul_s8_nk(x_q, w_nk)
     return requant(acc, s_in * p["s_w"], p["bias"], torch.float32)
 
 
-def fc_int8(qhead, pooled_q, s_in, view):
+def fc_int8(qhead, pooled_q, s_in, view, weights_nk):
     """fc6 and fc7 of one view ("1" BEV, "2" image) in int8 on its pooled
     codes (N,7,7,C) at scale s_in, requantized between the two at fc6's
-    calibrated scale (quant.py:360-365). Returns float32 (N, fc_dim)."""
+    calibrated scale (quant.py:360-365), the GEMMs on weights_nk,
+    prepare_head_weights' dict. Returns float32 (N, fc_dim)."""
     sc = qhead["scales"]
-    f = _fc_s8(pooled_q.reshape(pooled_q.shape[0], -1),
-               qhead["fc6_" + view], s_in)
-    return _fc_s8(_quantize(f, sc["fc6_" + view], 0), qhead["fc7_" + view],
-                  sc["fc6_" + view])
+    fc6, fc7 = "fc6_" + view, "fc7_" + view
+    f = _fc_s8(pooled_q.reshape(pooled_q.shape[0], -1), qhead[fc6], s_in,
+               weights_nk[fc6])
+    return _fc_s8(_quantize(f, sc[fc6], 0), qhead[fc7], sc[fc6],
+                  weights_nk[fc7])
 
 
-def fusion_head_int8(params, qhead, pooled_bv_q, s_bv, pooled_img_q, s_img):
+def fusion_head_int8(params, qhead, pooled_bv_q, s_bv, pooled_img_q, s_img,
+                     weights_nk):
     """The fusion head on int8 ROI features (scales s_bv, s_img): fc6/fc7
-    per view as s8 GEMMs (fc_int8); cls/bbox in bf16 on the fused
-    activations, no dropout. Returns cls_score, cls_prob (float32
-    softmax), bbox_pred."""
-    fused = torch.cat([fc_int8(qhead, pooled_bv_q, s_bv, "1"),
-                       fc_int8(qhead, pooled_img_q, s_img, "2")],
+    per view as s8 GEMMs (fc_int8 on weights_nk, prepare_head_weights'
+    dict); cls/bbox in
+    bf16 on the fused activations, no dropout. Returns cls_score, cls_prob
+    (float32 softmax), bbox_pred."""
+    fused = torch.cat([fc_int8(qhead, pooled_bv_q, s_bv, "1", weights_nk),
+                       fc_int8(qhead, pooled_img_q, s_img, "2", weights_nk)],
                       dim=1).to(_BF16)
     cls_score = mv3d.fc_apply(params, "cls_score", fused, relu=False)
     cls_prob = torch.softmax(cls_score.float(), dim=-1)

@@ -30,6 +30,7 @@ from mv3d_tf_tpu.ops.stem_s2d import _mask_edges as j_mask_edges  # noqa
 from mv3d_tf_tpu.ops.stem_s2d import pack_stem_weights as j_pack  # noqa
 from mv3d_tf_tpu_torch import quant as Q  # noqa: E402
 from mv3d_tf_tpu_torch.eval import build_detect_batch_fn  # noqa: E402
+from mv3d_tf_tpu_torch.ops import conv_s8 as S8  # noqa: E402
 from mv3d_tf_tpu_torch.ops.stem_s2d import hwio, pack_stem_weights  # noqa
 from mv3d_tf_tpu_torch.models import vgg  # noqa: E402
 from mv3d_tf_tpu_torch.utils.weights import (he_normal_params,  # noqa: E402
@@ -280,9 +281,69 @@ def test_fc_int8_bit_identical(case, view):
     want = np.asarray(jax.jit(j_fc)(head, codes, s_in))
     with torch.no_grad():
         got = Q.fc_int8(case["state"]["head"], _T(codes),
-                        torch.tensor(s_in), view)
+                        torch.tensor(s_in), view,
+                        Q.prepare_head_weights(case["state"]["head"]))
     np.testing.assert_array_equal(got.numpy(), want)
     assert (codes > 0).mean() > 0.2 and (want > 0).mean() > 0.2
+
+
+def _j_fc_pair(head, view):
+    """JAX's fc6 -> requant -> fc7 of one view (quant.py:360-365), jitted."""
+    def fc(head, x, s_in):
+        sc = head["scales"]
+        f = JQ._fc_s8(x.reshape(x.shape[0], -1), head["fc6_" + view], s_in)
+        f = jnp.clip(jnp.round(f / sc["fc6_" + view]), 0, 127)
+        return JQ._fc_s8(f.astype(jnp.int8), head["fc7_" + view],
+                         sc["fc6_" + view])
+    return jax.jit(fc)
+
+
+def test_detector_head_on_prepared_weights_matches_jax(case, monkeypatch):
+    """build_detect_batch_fn(quant=state) lays the four fc weights out for
+    the GEMM once, when it is built, and its int8 head then runs on them
+    (no layout per call): each view's fc6/fc7 output, given the pooled
+    codes the detector produced, equals JAX's _fc_s8 pair under jit on
+    JAX's state, bit for bit."""
+    prepared, seen = [], []
+    prepare = S8.prepare_s8_gemm_weight
+    fc_int8 = Q.fc_int8
+
+    def counting_prepare(b):
+        prepared.append(tuple(b.shape))
+        return prepare(b)
+
+    def recording_fc(qhead, pooled_q, s_in, view, weights_nk):
+        out = fc_int8(qhead, pooled_q, s_in, view, weights_nk)
+        seen.append((view, pooled_q.clone(), s_in, weights_nk, out))
+        return out
+
+    monkeypatch.setattr(S8, "prepare_s8_gemm_weight", counting_prepare)
+    monkeypatch.setattr(Q, "fc_int8", recording_fc)
+    detect = build_detect_batch_fn(quant=case["state"], stem_impl="s2d_int8",
+                                   quant_rpn=True, **SMALL)
+    assert len(prepared) == 4
+    detect(case["params"], case["bev"], case["image"], case["calib"])
+    assert len(prepared) == 4 and [v for v, *_ in seen] == ["1", "2"]
+    head = case["jstate"]["head"]
+    for view, codes, s_in, w_nk, got in seen:
+        assert set(w_nk) == set(Q.FC_LAYERS)
+        assert tuple(w_nk["fc6_" + view].shape) == tuple(
+            case["state"]["head"]["fc6_" + view]["w_q"].shape[::-1])
+        want = _j_fc_pair(head, view)(head, codes.numpy(),
+                                      np.asarray(s_in, np.float32))
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        assert (codes > 0).float().mean() > 0.05
+
+
+def test_building_the_detector_leaves_the_state_as_jax(case):
+    """The prepared copy lives in the built detector: after building and
+    running it, the quant state still equals JAX's leaf for leaf, (in, out)
+    fc weights included, with no new key."""
+    detect = build_detect_batch_fn(quant=case["state"], **SMALL)
+    detect(case["params"], case["bev"], case["image"], case["calib"])
+    _assert_tree_equal(case["state"], case["jstate"])
+    assert tuple(case["state"]["head"]["fc6_1"]["w_q"].shape) == tuple(
+        np.asarray(case["jstate"]["head"]["fc6_1"]["w_q"]).shape)
 
 
 def test_fusion_head_int8_tracks_jax(case):
@@ -300,7 +361,8 @@ def test_fusion_head_int8_tracks_jax(case):
     with torch.no_grad():
         _, prob, box = Q.fusion_head_int8(
             case["params"], case["state"]["head"], _T(bv), torch.tensor(s_bv),
-            _T(img), torch.tensor(s_img))
+            _T(img), torch.tensor(s_img),
+            Q.prepare_head_weights(case["state"]["head"]))
     np.testing.assert_allclose(prob.numpy(), np.asarray(j_prob), atol=2e-2)
     j_box = _np(j_box)
     np.testing.assert_allclose(box.float().numpy(), j_box, rtol=0,
