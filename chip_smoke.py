@@ -3,7 +3,9 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from csrc/ (nvcc, sm_90a), checks each against its
-plain PyTorch version on the card, then drives the full-shape detector
+plain PyTorch version on the card (the literal stem's kernel, which is the
+fused s2d stem's bf16 kernel, against both stems' plain versions), then
+drives the full-shape detector
 (601x601x9 BEV, 384x1248x3 image, pre-NMS 6000, post-NMS 300) with random
 He-scaled weights: single-frame in float32 and bfloat16, and batched in
 bfloat16 with B=4. Then it checks the ROI-pool backward kernel against its
@@ -14,12 +16,12 @@ traffic of bench.py): the BEV placement kernel against its plain version
 and the whole rasterizer against the numpy twin, bit for bit; the
 read_lidar CLI over 16 scans on disk; and scan -> raster -> detections in
 float32, bfloat16 and batched bfloat16.
-Then the int8 detector: the s8 convolution kernel against its plain version
-at every shape of the int8 path (both views' trunk layers, the packed
-conv1_2 of the s2d stem, the RPN conv in float32 output), the s8 GEMM on
-prepared (N, K) weights at the fc6/fc7 shapes and five edge shapes, all bit
-for bit, beside torch._int_mm on the same bytes; then PTQ calibration on 4
-frames and
+Then the int8 detector: the s8 convolution kernels against their plain
+versions at every shape of the int8 path (both views' trunk layers on
+weights prepared once, the packed conv1_2 of the s2d stem, the RPN conv in
+float32 output) and at edge shapes, the s8 GEMM on prepared (N, K) weights
+at the fc6/fc7 shapes and five edge shapes, all bit for bit, beside
+torch._int_mm on the same bytes; then PTQ calibration on 4 frames and
 the int8 detector (s2d_int8 stem, int8 RPN, int8 ROI pool and head,
 pre-NMS 1024, post-NMS 300) at B=8, with the kernel route held bit for bit
 to the plain route at B=2.
@@ -71,6 +73,7 @@ from mv3d_tf_tpu_torch.ops.bev_cuda import (N_FLAT, bev_place_cuda,
                                             bev_place_plain)
 from mv3d_tf_tpu_torch.ops.conv_s8_cuda import (conv2x2_s8_cuda,
                                                 conv3x3_s8_cuda,
+                                                conv3x3_s8_nk_cuda,
                                                 matmul_s8_cuda,
                                                 matmul_s8_nk_cuda)
 from mv3d_tf_tpu_torch.ops.roi_pool import (bin_bounds, bin_cells, roi_pool,
@@ -95,12 +98,11 @@ STEM_TOL = 2 ** -7    # one bf16 ulp of the max magnitude (+1e-6)
 # version's index_add_; tie counts are exact, so only the sums' rounding
 BWD_RTOL, BWD_ATOL = 1e-5, 1e-7
 ROI_SOURCE = "mv3d_tf_tpu_torch/csrc/roi_pool.cu"
-STEM_SOURCE = "mv3d_tf_tpu_torch/csrc/vgg_stem.cu"
 BWD_SOURCE = "mv3d_tf_tpu_torch/csrc/roi_pool_bwd.cu"
 BEV_SOURCE = "mv3d_tf_tpu_torch/csrc/bev_place.cu"
 CONV_S8_SOURCE = "mv3d_tf_tpu_torch/csrc/conv_s8.cu"
 MATMUL_S8_SOURCE = "mv3d_tf_tpu_torch/csrc/matmul_s8.cu"
-S2D_SOURCE = "mv3d_tf_tpu_torch/csrc/stem_s2d.cu"
+S2D_SOURCE = "mv3d_tf_tpu_torch/csrc/stem_s2d.cu"   # both stems' kernel
 TRAIN_STEPS = 3
 TRAIN_PRE_NMS, TRAIN_POST_NMS, TRAIN_ROIS, FC_DIM = 12000, 2000, 128, 2048
 MAX_GT = 32           # the config's TPU.MAX_GT: gt rows per frame
@@ -196,9 +198,17 @@ def phase_environment():
           "build_and_load_s=%.2f" % (smi, torch.__version__, torch.version.cuda,
                                      nvcc, kernels.build_info["seconds"],
                                      load_s))
+    # one line per kernel: its (mangled) name, registers and spills
+    entry, spill = None, ""
     for line in kernels.build_info["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            print("ptxas:", line.strip())
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif "spill stores" in line:
+            spill = line.split(":", 1)[-1].strip()
+        elif "Used" in line and "registers" in line and entry:
+            print("ptxas: %s: %s; %s" % (
+                entry, line.split(":", 1)[-1].strip(), spill))
+            entry = None
     return smi
 
 
@@ -318,53 +328,66 @@ def stem_halo_leak(x, w1, b1, w2, b2):
                                      dtype=torch.bfloat16))
 
 
-def phase_stem(params):
-    """Kernel vs plain on the card at the detector's stem shapes, with the
-    batched detector's B=4 of distinct frames, and at a narrow shape,
-    within STEM_TOL of the max magnitude; then the time of one frame's two
-    stems. The biases are drawn here, nonzero (the detector's He params
-    have zero biases): b1 in [0.5, 1), so relu(b1) in conv1_2's padding
-    would show, and b2 of both signs."""
+def phase_stem(params, smi):
+    """The literal stem's kernel (csrc/stem_s2d.cu's bf16 instance, through
+    vgg_stem_cuda) on the card, within STEM_TOL of the max magnitude of both
+    plain versions: vgg_stem_plain (the literal bf16 conv pair, cuDNN) and
+    stem_s2d_fused_plain in bf16 (the kernel's own rounding). At the
+    detector's stem shapes with B=4 distinct frames, at a narrow shape, and
+    at B=1 on three shapes whose pooled extents are no multiple of the
+    kernel's 8 x 16 tile. The biases are drawn here, nonzero (the
+    detector's He params have zero biases): b1 in [0.5, 1), so relu(b1) in
+    conv1_2's padding would show, and b2 of both signs. Then the time of
+    one frame's two stems beside cuDNN's and the bound."""
     gen = torch.Generator().manual_seed(SEED + 1)
     means = torch.from_numpy(PIXEL_MEANS)
-    inputs = {
-        "bev": (torch.rand((4, 601, 601, 9), generator=gen), ""),
-        "image": (torch.rand((4, 384, 1248, 3), generator=gen) * 255 - means,
-                  "_2"),
-        "narrow": (torch.rand((2, 36, 200, 9), generator=gen), ""),
-    }
+    cases = [("bev", 4, 601, 601, 9), ("image", 4, 384, 1248, 3),
+             ("narrow", 2, 36, 200, 9)]
+    cases += [("ragged tile", 1, h, w, c) for h, w, c in
+              ((75, 203, 9), (50, 90, 3), (21, 29, 9))]
     worst = 0.0
     ms = plain_ms = 0.0
     parts = []
-    for name, (x, suffix) in inputs.items():
+    for name, B, H, W, cin in cases:
+        x = torch.rand((B, H, W, cin), generator=gen)
+        if cin == 3:
+            x = x * 255 - means
         x = x.cuda()
+        suffix = "" if cin == 9 else "_2"
         b1 = (0.5 + 0.5 * torch.rand(64, generator=gen)).cuda()
         b2 = (0.1 * torch.randn(64, generator=gen)).cuda()
         w = (layer(params, "conv1_1" + suffix)[0], b1,
              layer(params, "conv1_2" + suffix)[0], b2)
         with torch.inference_mode():
             got = vgg_stem_cuda(x, *w)
-            ref = vgg_stem_plain(x, *w)
+            refs = {"vgg_stem_plain": vgg_stem_plain(x, *w),
+                    "stem_s2d_fused_plain": stem_s2d_fused_plain(
+                        x, *w, dtype=torch.bfloat16)}
             leak = stem_halo_leak(x, *w)
         torch.cuda.synchronize()
-        if got.shape != ref.shape or got.dtype != torch.bfloat16:
-            raise AssertionError("stem %s: %s %s vs %s" % (
-                name, got.dtype, tuple(got.shape), tuple(ref.shape)))
-        err = (got.float() - ref.float()).abs().max().item()
-        scale = ref.float().abs().max().item()
-        tol = STEM_TOL * scale + 1e-6
-        if not err <= tol:
-            raise AssertionError("stem %s: max |diff| %g > %g * %g" % (
-                name, err, STEM_TOL, scale))
-        leak_err = (leak.float() - ref.float()).abs().max().item()
+        what = "stem %s %s" % (name, tuple(x.shape))
+        line = what + ":"
+        for rname, ref in refs.items():
+            if got.shape != ref.shape or got.dtype != torch.bfloat16:
+                raise AssertionError("%s: %s %s vs %s %s" % (
+                    what, got.dtype, tuple(got.shape), rname,
+                    tuple(ref.shape)))
+            err = max_err(got, ref)
+            scale = ref.float().abs().max().item()
+            tol = STEM_TOL * scale + 1e-6
+            if not err <= tol:
+                raise AssertionError("%s: max |diff| to %s %g > %g * %g" % (
+                    what, rname, err, STEM_TOL, scale))
+            worst = max(worst, err)
+            line += " max |diff| to %s %g <= %g;" % (rname, err, tol)
+        ref = refs["vgg_stem_plain"]
+        tol = STEM_TOL * ref.float().abs().max().item() + 1e-6
+        leak_err = max_err(leak, ref)
         if not leak_err > tol:
-            raise AssertionError("stem %s: a relu(b1) halo would pass the "
-                                 "check (%g <= %g)" % (name, leak_err, tol))
-        worst = max(worst, err)
-        line = ("stem %s %s: max |diff| %g, max |ref| %g; a relu(b1) halo "
-                "would be off by %g" % (name, tuple(x.shape), err, scale,
-                                        leak_err))
-        if name != "narrow":
+            raise AssertionError("%s: a relu(b1) halo would pass the check "
+                                 "(%g <= %g)" % (what, leak_err, tol))
+        line += " a relu(b1) halo would be off by %g" % leak_err
+        if name in ("bev", "image"):
             x1 = x[:1]
             with torch.inference_mode():
                 k = cuda_ms(lambda: vgg_stem_cuda(x1, *w), iters=10)
@@ -373,11 +396,16 @@ def phase_stem(params):
             _, H, W, cin = x1.shape
             parts.append((nbytes(x1, *w) + (H // 2) * (W // 2) * 64 * 2,
                           2 * H * W * 64 * 9 * (cin + 64)))
-            line += "; one frame: kernel %.4f ms, plain %.4f ms" % (k, p)
+            line += "; one frame: kernel %.4f ms, cuDNN %.4f ms" % (k, p)
         print(line)
     # the plain version is the library path: two cuDNN convs and the pool
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            **bound(parts, BF16_PER_S), "library_ms": plain_ms}
+    stats = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+             **bound(parts, BF16_PER_S), "library_ms": plain_ms}
+    print("vgg_stem: one frame's two stems: kernel %.4f ms, cuDNN conv pair "
+          "+ pool %.4f ms (kernel / cuDNN %.3f), bound %.4f ms (%s), on [%s]"
+          % (ms, plain_ms, ms / plain_ms, stats["bound_ms"],
+             stats["bound_by"], smi))
+    return stats
 
 
 def s2d_mask_leak(x, w1, b1, w2, b2, dtype):
@@ -1090,48 +1118,81 @@ def s8_case(gen, B, H, W, C, N, taps):
 
 
 def conv_work(x, w, out):
-    """(bytes read and written once, operations) of one s8 conv."""
+    """(bytes read and written once, operations) of one s8 conv, at the
+    real channel count."""
     taps2, C, N = w.shape[0] * w.shape[1], w.shape[2], w.shape[3]
     return (nbytes(x, w, out) + 8 * N, 2 * out.numel() * taps2 * C)
 
 
+def check_conv(name, taps, x, w, k, b, out_dtype):
+    """The s8 conv kernel against its plain version, torch.equal: a 3x3
+    through both conv3x3_s8_nk_cuda (on the prepared weight) and
+    conv3x3_s8_cuda, a 2x2 through conv2x2_s8_cuda. Returns the kernel's
+    output and its max |diff| (0 when equal)."""
+    if taps == 3:
+        ref = S8.conv3x3_s8_plain(x, w, k, b, out_dtype)
+        outs = {"conv3x3_s8_nk_cuda": conv3x3_s8_nk_cuda(
+                    x, S8.prepare_s8_conv_weight(w), k, b, out_dtype),
+                "conv3x3_s8_cuda": conv3x3_s8_cuda(x, w, k, b, out_dtype)}
+    else:
+        ref = S8.conv2x2_s8_plain(x, w, k, b, out_dtype)
+        outs = {"conv2x2_s8_cuda": conv2x2_s8_cuda(x, w, k, b, out_dtype)}
+    for wrapper, got in outs.items():
+        if got.dtype != out_dtype or not torch.equal(got, ref):
+            raise AssertionError(
+                "s8 conv %s %s through %s: kernel != plain (%s of %d differ)"
+                % (name, out_dtype, wrapper,
+                   int((got != ref).sum()) if got.shape == ref.shape
+                   else "shape %s vs %s" % (tuple(got.shape),
+                                            tuple(ref.shape)),
+                   ref.numel()))
+    return got, ref
+
+
 def phase_conv_s8(smi):
-    """The s8 conv kernel against its plain version, torch.equal, at B=2 at
-    every shape of the int8 path: each view's trunk layers, its packed
+    """The s8 conv kernels against their plain versions, torch.equal, at B=2
+    at every shape of the int8 path: each view's trunk layers, its packed
     conv1_2, the RPN conv in float32 output; a ragged 3x3 (H odd, W no
-    multiple of 8) in both outputs, a ragged 2x2, and a 9-channel input.
-    A replay of the float32 epilogue with two roundings (acc * k, then + b)
-    must differ from the kernel. Then kernel and plain times at B=8, summed
-    over one int8 detector call's convs. Returns the 3x3 and 2x2 stats."""
+    multiple of 8, C=96 padded to 128) in both outputs, a ragged 2x2, a
+    9-channel input; then an M below one 128-pixel tile, H = 1 and W = 1
+    maps and C = 192 (the kernel's 64-channel slabs at the 256-wide tile).
+    Each 3x3 case runs through both conv3x3_s8_nk_cuda on the prepared
+    weight and conv3x3_s8_cuda. A replay of the float32 epilogue with two
+    roundings (acc * k, then + b) must differ from the kernel. Then kernel
+    and plain times at B=8 per shape of one int8 detector call (TOP/s and
+    the fraction of the bound) and summed over its convs; the cost of the
+    zero-padded channels. Returns the 3x3 and 2x2 stats."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
-    fns = {3: (conv3x3_s8_cuda, S8.conv3x3_s8_plain),
-           2: (conv2x2_s8_cuda, S8.conv2x2_s8_plain)}
     cases = []
     for view, (H, W) in S8_VIEWS.items():
-        cases += [("%s conv %dx%dx%d->%d" % (view, h, w, c, n), 3, h, w, c, n,
-                   torch.int8) for _, h, w, c, n in trunk_convs(H, W)]
-        cases.append(("%s packed conv1_2" % view, 2, H + 1, W + 1, 256, 256,
-                      torch.int8))
-    cases += [("rpn conv", 3, 75, 75, 512, 512, torch.float32),
-              ("ragged 3x3", 3, 37, 45, 96, 64, torch.int8),
-              ("ragged 3x3", 3, 37, 45, 96, 64, torch.float32),
-              ("ragged 2x2", 2, 38, 47, 96, 48, torch.int8),
-              ("9-channel input", 3, 41, 43, 9, 64, torch.int8)]
+        cases += [("%s conv %dx%dx%d->%d" % (view, h, w, c, n), 3, PLAIN_B,
+                   h, w, c, n, torch.int8)
+                  for _, h, w, c, n in trunk_convs(H, W)]
+        cases.append(("%s packed conv1_2" % view, 2, PLAIN_B, H + 1, W + 1,
+                      256, 256, torch.int8))
+    cases += [("rpn conv", 3, PLAIN_B, 75, 75, 512, 512, torch.float32),
+              ("ragged 3x3", 3, PLAIN_B, 37, 45, 96, 64, torch.int8),
+              ("ragged 3x3", 3, PLAIN_B, 37, 45, 96, 64, torch.float32),
+              ("ragged 2x2", 2, PLAIN_B, 38, 47, 96, 48, torch.int8),
+              ("9-channel input", 3, PLAIN_B, 41, 43, 9, 64, torch.int8),
+              ("M = 126, below one tile", 3, PLAIN_B, 7, 9, 128, 256,
+               torch.int8),
+              ("M = 1 pixel", 3, 1, 1, 1, 64, 128, torch.float32),
+              ("H = 1 map", 3, PLAIN_B, 1, 300, 64, 128, torch.int8),
+              ("W = 1 map", 3, PLAIN_B, 45, 1, 256, 512, torch.int8),
+              ("W = 1 map", 3, 3, 75, 1, 512, 256, torch.float32),
+              ("C = 192", 3, PLAIN_B, 20, 30, 192, 256, torch.int8),
+              ("C = 192", 3, PLAIN_B, 20, 30, 192, 256, torch.float32)]
     replay_seen = False
     worst = {3: 0.0, 2: 0.0}
-    for name, taps, H, W, C, N, out_dtype in cases:
-        x, w, k, b = s8_case(gen, PLAIN_B, H, W, C, N, taps)
-        kernel, plain = fns[taps]
-        got = kernel(x, w, k, b, out_dtype)
-        ref = plain(x, w, k, b, out_dtype)
+    for name, taps, B, H, W, C, N, out_dtype in cases:
+        x, w, k, b = s8_case(gen, B, H, W, C, N, taps)
+        got, ref = check_conv(name, taps, x, w, k, b, out_dtype)
         worst[taps] = max(worst[taps], max_err(got, ref))
-        if got.dtype != out_dtype or not torch.equal(got, ref):
-            raise AssertionError("s8 conv %s %s: kernel != plain (%d of %d "
-                                 "differ)" % (name, out_dtype,
-                                              int((got != ref).sum()),
-                                              ref.numel()))
-        line = "conv_s8 %s %s B=%d: bit-identical to plain" % (
-            name, str(out_dtype).split(".")[-1], PLAIN_B)
+        line = "conv_s8 %dx%d %s %s B=%d: bit-identical to plain" % (
+            taps, taps, name, str(out_dtype).split(".")[-1], B)
+        if taps == 3:
+            line += " through both wrappers"
         if out_dtype == torch.int8:
             inside = ((ref > 0) & (ref < 127)).float().mean().item()
             line += " (%.3f of codes inside (0, 127))" % inside
@@ -1139,10 +1200,10 @@ def phase_conv_s8(smi):
             acc = S8.conv_acc_plain(x, w, 1 if taps == 3 else 0)
             two = (acc.float() * k + b).clamp_min(0.0)
             moved = int((two != got).sum())
-            if not moved:
+            if not moved and got.numel() > 1000:
                 raise AssertionError("s8 conv %s: a two-rounding epilogue "
                                      "would pass the check" % name)
-            replay_seen = True
+            replay_seen = replay_seen or moved > 0
             line += ("; a two-rounding epilogue differs in %d of %d values"
                      % (moved, got.numel()))
         print(line)
@@ -1150,7 +1211,8 @@ def phase_conv_s8(smi):
         raise AssertionError("no two-rounding replay ran")
 
     # one B=8 int8 detector call: 22 trunk convs and the RPN conv, two packed
-    # conv1_2; each distinct shape timed once and weighted by its count
+    # conv1_2; each distinct shape timed once and weighted by its count. The
+    # 3x3 convs run on prepared weights, as the detector's trunks do.
     sums = {3: [0.0, 0.0, []], 2: [0.0, 0.0, []]}
     timed_cases = [(2, 1, H + 1, W + 1, 256, 256, torch.int8)
                    for H, W in S8_VIEWS.values()]
@@ -1160,19 +1222,30 @@ def phase_conv_s8(smi):
     timed_cases.append((3, 1, 75, 75, 512, 512, torch.float32))
     for taps, count, H, W, C, N, out_dtype in timed_cases:
         x, w, k, b = s8_case(gen, INT8_B, H, W, C, N, taps)
-        kernel, plain = fns[taps]
-        out = kernel(x, w, k, b, out_dtype)
-        km = cuda_ms(lambda: kernel(x, w, k, b, out_dtype), iters=5, warmup=1)
-        pm = cuda_ms(lambda: plain(x, w, k, b, out_dtype), iters=1, warmup=1)
+        if taps == 3:
+            w_nk = S8.prepare_s8_conv_weight(w)
+            kernel = lambda: conv3x3_s8_nk_cuda(  # noqa: E731
+                x, w_nk, k, b, out_dtype)
+            plain = lambda: S8.conv3x3_s8_plain(  # noqa: E731
+                x, w, k, b, out_dtype)
+        else:
+            kernel = lambda: conv2x2_s8_cuda(  # noqa: E731
+                x, w, k, b, out_dtype)
+            plain = lambda: S8.conv2x2_s8_plain(  # noqa: E731
+                x, w, k, b, out_dtype)
+        out = kernel()
+        km = cuda_ms(kernel, iters=5, warmup=1)
+        pm = cuda_ms(plain, iters=1, warmup=1)
         work = conv_work(x, w, out)
+        floor = bound([work], INT8_PER_S)["bound_ms"]
         sums[taps][0] += count * km
         sums[taps][1] += count * pm
         sums[taps][2] += [work] * count
         print("conv_s8 time %dx%d B=%d %dx%dx%d->%d %s x%d: kernel %.4f ms "
-              "(%.1f TOP/s), plain %.4f ms" % (
+              "(%.1f TOP/s, %.3f of the bound %.4f ms), plain %.4f ms" % (
                   taps, taps, INT8_B, H, W, C, N,
                   str(out_dtype).split(".")[-1], count, km,
-                  work[1] / km / 1e9, pm))
+                  work[1] / km / 1e9, floor / km, floor, pm))
         del x, w, out
     stats = {}
     for taps, (km, pm, parts) in sums.items():
@@ -1180,9 +1253,30 @@ def phase_conv_s8(smi):
         stats[taps] = {"max_abs_err": worst[taps], "ms": km, "plain_ms": pm,
                        **bound(parts, INT8_PER_S), "library_ms": None}
         print("conv_s8 %dx%d: one B=%d detector call's %d convs: kernel %.4f "
-              "ms, bound %.4f ms (%s), plain %.4f ms, on [%s]" % (
+              "ms, bound %.4f ms (%s, %.3f of it), plain %.4f ms, on [%s]" % (
                   taps, taps, INT8_B, len(parts), km,
-                  stats[taps]["bound_ms"], stats[taps]["bound_by"], pm, smi))
+                  stats[taps]["bound_ms"], stats[taps]["bound_by"],
+                  stats[taps]["bound_ms"] / km, pm, smi))
+
+    # channels the kernel pads: the "int8" stem's conv1_1 (9 and 3 channels
+    # to 64) and a C = 96 map (to 128), each beside the same shape at the
+    # padded C; and the one-time preparation of the largest weight
+    for B, H, W, C, N in ((1, 601, 601, 9, 64), (1, 384, 1248, 3, 64),
+                          (INT8_B, 150, 150, 96, 256)):
+        times = []
+        for c in (C, S8.conv_channels(C)):
+            x, w, k, b = s8_case(gen, B, H, W, c, N, 3)
+            w_nk = S8.prepare_s8_conv_weight(w)
+            times.append(cuda_ms(lambda: conv3x3_s8_nk_cuda(x, w_nk, k, b),
+                                 iters=5, warmup=1))
+        print("conv_s8 padded channels %dx%dx%d->%d B=%d: kernel %.4f ms at "
+              "C=%d, %.4f ms at C=%d; the padding multiplies the "
+              "multiply-adds by %.2f" % (H, W, C, N, B, times[0], C,
+                                         times[1], S8.conv_channels(C),
+                                         S8.conv_channels(C) / C))
+    w = s8_case(gen, 1, 1, 1, 512, 512, 3)[1]
+    print("conv_s8: preparing a 3x3x512x512 weight, once per weight: %.4f ms"
+          % cuda_ms(lambda: S8.prepare_s8_conv_weight(w), iters=3, warmup=1))
     probe = torch.randint(0, 128, (1, 8, 6, 6), dtype=torch.int8,
                           device="cuda")
     try:
@@ -1273,7 +1367,10 @@ class plain_routes:
     """Within the block, the int8 path's kernel wrappers run their plain
     versions on the card instead: for the kernel-vs-plain detector check."""
 
-    SWAPS = ((conv_s8_cuda, "conv3x3_s8_cuda",
+    SWAPS = ((conv_s8_cuda, "conv3x3_s8_nk_cuda",
+              lambda x, w_nk, k, b, out_dtype=torch.int8:
+              S8.conv3x3_s8_nk_plain(x, w_nk, k, b, out_dtype)),
+             (conv_s8_cuda, "conv3x3_s8_cuda",
               lambda x, w, k, b, out_dtype=torch.int8:
               S8.conv3x3_s8_plain(x, w, k, b, out_dtype)),
              (conv_s8_cuda, "conv2x2_s8_cuda",
@@ -1342,10 +1439,14 @@ def device_busy(fn):
 
 def int8_stages(params, state, bev, image, calib, stem="s2d_int8"):
     """One int8 detector call (eval._detect_int8 with the INT8_KW options,
-    the stem named by ``stem``: "s2d_int8" or "s2d_fused") with a
-    synchronize after each stage: ms per stage."""
+    the stem named by ``stem``: "s2d_int8" or "s2d_fused"; trunk and head
+    weights prepared once beforehand) with a synchronize after each stage:
+    ms per stage."""
     ms = {}
-    head_nk = Q.prepare_head_weights(state["head"])   # as the detector does
+    # laid out once, as the built detector does
+    trunk_w = {key: Q.prepare_trunk_weights(state[key])
+               for key in ("trunk_bv", "trunk_img")}
+    head_nk = Q.prepare_head_weights(state["head"])
 
     def clock(stage, fn, *args):
         torch.cuda.synchronize()
@@ -1371,8 +1472,10 @@ def int8_stages(params, state, bev, image, calib, stem="s2d_int8"):
             stem_im = clock("s2d fused stems", Q._float_stem, params, image,
                             "_2", stem)
             tail = Q.trunk_apply_int8_from_stem
-        fbv, s_bv = clock("int8 trunk tails", tail, q_bv, stem_bv)
-        fim, s_im = clock("int8 trunk tails", tail, q_im, stem_im)
+        fbv, s_bv = clock("int8 trunk tails", tail, q_bv, stem_bv,
+                          trunk_w["trunk_bv"])
+        fim, s_im = clock("int8 trunk tails", tail, q_im, stem_im,
+                          trunk_w["trunk_img"])
         rpn_cls, rpn_box = clock("int8 rpn head", Q.rpn_head_int8, params,
                                  fbv, s_bv)
         rois, flat_bv, flat_img = clock(
@@ -1689,7 +1792,7 @@ def main():
     roi = phase_roi_pool(gen)
     np_params = he_normal_params(SEED)
     params = params_from_jax(np_params, device="cuda")
-    stem = phase_stem(params)
+    stem = phase_stem(params, smi)
     t0 = time.perf_counter()
     s2d = phase_stem_s2d_fused(params, smi)
     new_phases_s = time.perf_counter() - t0
@@ -1730,7 +1833,7 @@ def main():
          "launches": launches["roi_pool"] + train_launches["roi_pool"]
          + scan_launches["roi_pool"] + int8["roi_pool"]
          + new_paths["roi_pool"], **roi},
-        {"name": "vgg_stem", "route": "cuda", "source": STEM_SOURCE,
+        {"name": "vgg_stem", "route": "cuda", "source": S2D_SOURCE,
          "replaces": "mv3d_tf_tpu/ops/vgg_stem_pallas.py:106",
          "launches": launches["vgg_stem"] + scan_launches["vgg_stem"]
          + new_paths["vgg_stem"], **stem},

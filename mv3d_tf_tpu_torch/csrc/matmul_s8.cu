@@ -48,11 +48,11 @@
 // cuTensorMapEncodeTiled, fetched once through cudaGetDriverEntryPoint, so
 // the library links without -lcuda.
 
-#include <cuda.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "sm90_s8.cuh"
 
 namespace {
+
+using namespace sm90;
 
 constexpr int BM = 128;             // output rows of a block: 2 x m64
 constexpr int BN = 160;             // output columns of a block
@@ -67,101 +67,6 @@ constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 2 * STAGES * 8 + 1024;
 
 static_assert(A_BYTES % 1024 == 0 && B_BYTES % 1024 == 0,
               "swizzled tiles must start 1024-byte aligned");
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(smem_u32(bar)), "r"(count));
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               :: "r"(smem_u32(bar)) : "memory");
-}
-
-// spin until the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred done;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
-      "@!done bra WAIT;\n"
-      "}\n"
-      :: "r"(smem_u32(bar)), "r"(parity) : "memory");
-}
-
-// one 2-D TMA tile load: box at (inner k, outer row) -> dst, counted on bar
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         uint64_t* bar, int k, int row) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];\n"
-      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
-         "r"(smem_u32(bar)), "r"(k), "r"(row)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor of a K-major tile with the 128-byte
-// swizzle: 8-row core groups 1024 bytes apart (SBO), the leading offset
-// unused by swizzled K-major layouts, layout type 1 (SWIZZLE_128B) in bits
-// 62-63. Moving along K inside the 128-byte row adds bytes / 16 to the
-// start address field; the hardware applies the swizzle to the address.
-__device__ __forceinline__ uint64_t sw128_desc(const void* tile) {
-  return (uint64_t)((smem_u32(tile) & 0x3FFFF) >> 4) |
-         ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
-         ((uint64_t)1 << 62);
-}
-
-__device__ __forceinline__ void fence_acc(int* d) {
-#pragma unroll
-  for (int i = 0; i < ACC; ++i) asm volatile("" : "+r"(d[i]) :: "memory");
-}
-
-// d (64 x 160 s32, the warpgroup's fragment) += A (64 x 32) * B (160 x 32)^T
-__device__ __forceinline__ void wgmma_s8(int* d, uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %82, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n160k32.s32.s8.s8 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
-      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
-      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
-      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, "
-      "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79}, "
-      "%80, %81, p;\n"
-      "}\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
-        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
-        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
-        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
-        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
-        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
-        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
-        "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
-        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]),
-        "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
-        "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]),
-        "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
-        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]), "+r"(d[64]),
-        "+r"(d[65]), "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]),
-        "+r"(d[70]), "+r"(d[71]), "+r"(d[72]), "+r"(d[73]), "+r"(d[74]),
-        "+r"(d[75]), "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79])
-      : "l"(da), "l"(db), "r"(1));
-}
 
 __global__ void __launch_bounds__(THREADS, 1)
 matmul_s8_wgmma(const __grid_constant__ CUtensorMap map_a,
@@ -212,22 +117,22 @@ matmul_s8_wgmma(const __grid_constant__ CUtensorMap map_a,
     for (int kt = 0; kt < ktiles; ++kt) {
       const int s = kt % STAGES;
       mbar_wait(&full[s], (kt / STAGES) & 1);
-      const uint64_t da = sw128_desc(sa + s * A_BYTES + c * 64 * BK);
-      const uint64_t db = sw128_desc(sb + s * B_BYTES);
-      fence_acc(d);
-      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+      const uint64_t da = kmajor_desc<BK>(sa + s * A_BYTES + c * 64 * BK);
+      const uint64_t db = kmajor_desc<BK>(sb + s * B_BYTES);
+      fence_acc<ACC>(d);
+      wgmma_fence();
 #pragma unroll
       for (int k = 0; k < BK / 32; ++k)          // 32 bytes of K each
-        wgmma_s8(d, da + 2 * k, db + 2 * k);
-      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+        wgmma_s8<BN>(d, da + 2 * k, db + 2 * k);
+      wgmma_commit();
       // the group before this one has retired: its slab is free
-      asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
-      fence_acc(d);
+      wgmma_wait<1>();
+      fence_acc<ACC>(d);
       if (kt > 0 && threadIdx.x % 128 == 0)
         mbar_arrive(&empty[(kt - 1) % STAGES]);
     }
-    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-    fence_acc(d);
+    wgmma_wait<0>();
+    fence_acc<ACC>(d);
 
     // fragment layout of m64nN: warp w of the group holds rows 16w + l/4
     // and 16w + l/4 + 8; register 4j + e holds column 8j + 2(l%4) + (e&1)
@@ -254,40 +159,6 @@ matmul_s8_wgmma(const __grid_constant__ CUtensorMap map_a,
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_fn() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &found) == cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// (rows, K) int8 row-major at ptr, boxes of box_rows x BK, 128-byte swizzle,
-// zeros past the edges
-CUresult encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int rows,
-                int K, int box_rows) {
-  const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)K};
-  const cuuint32_t box[2] = {(cuuint32_t)BK, (cuuint32_t)box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(ptr),
-            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-}
-
 }  // namespace
 
 // a (M,K) int8 row-major, bt (N,K) int8 row-major -> out (M,N) int32.
@@ -295,11 +166,11 @@ CUresult encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int rows,
 // could not be encoded (-999 if the driver entry point was not found).
 extern "C" int mv3d_matmul_s8(const void* a, const void* bt, void* out, int M,
                               int K, int N, void* stream) {
-  const EncodeTiled fn = encode_fn();
+  const EncodeTiled fn = encode_tiled_fn();
   if (fn == nullptr) return -999;
   CUtensorMap map_a, map_b;
-  CUresult r = encode(fn, &map_a, a, M, K, BM);
-  if (r == CUDA_SUCCESS) r = encode(fn, &map_b, bt, N, K, BN);
+  CUresult r = encode_kmajor(fn, &map_a, a, M, K, BM, BK);
+  if (r == CUDA_SUCCESS) r = encode_kmajor(fn, &map_b, bt, N, K, BN, BK);
   if (r != CUDA_SUCCESS) return -(int)r;
   cudaError_t err = cudaFuncSetAttribute(
       matmul_s8_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -1,12 +1,11 @@
-// Implicit-GEMM s8 x s8 -> s32 on the tensor cores. It serves the s8
-// convolutions only (conv_s8.cu); the s8 GEMM has its own kernel.
+// Implicit-GEMM s8 x s8 -> s32 on the tensor cores (mma.sync). It serves
+// the 2x2 VALID s8 convolution (conv_s8.cu: the packed conv1_2 of the s2d
+// int8 stem); the 3x3 conv and the s8 GEMM have wgmma kernels of their own.
 //
 // One output row m is one output pixel (b, h, w) of an NHWC map; one output
 // column n is one output channel. The reduction runs over the taps (dy, dx)
 // of a KH x KW window and, inside each tap, over the input channels c, the
 // (dy, dx, c) order of the JAX package's im2col (quant.py:_conv_s8_im2col).
-// A GEMM is the 1 x 1 case on a (1, 1, M, K) "map" (OUT_S32; no source
-// instantiates it).
 //
 //   x    (B, H, W, C) int8 NHWC, C % 16 == 0, 16-byte aligned
 //   w    (N, KH*KW*C) int8: output channel major, reduction contiguous
@@ -22,14 +21,13 @@
 // which makes the 32-bit fragment loads of a warp hit 32 distinct banks.
 //
 // The s32 sums are exact: |acc| <= 128 * 127 * K, under 2^31 for
-// K <= 132,000 (the trunk's 4608, the fc6 GEMM's 25088).
+// K <= 132,000.
 //
 // The epilogue is the JAX package's requant (quant.py:_conv_requant), done
 // as ONE fused multiply-add, the rounding XLA gives it under jit:
 //   y = fma(float(acc), k[n], b[n])            (__fmaf_rn: one rounding)
 //   int8 out:    clip(rint(y), 0, 127)          (rint: half to even)
 //   float32 out: max(y, 0)
-// or, for the GEMM, the raw s32 sums.
 
 #pragma once
 
@@ -47,7 +45,7 @@ constexpr int THREADS = 256;     // 8 warps: 2 along M x 4 along N
 constexpr int WM = 64;           // warp tile rows
 constexpr int WN = 32;           // warp tile columns
 
-enum OutKind { OUT_S8 = 0, OUT_F32 = 1, OUT_S32 = 2 };
+enum OutKind { OUT_S8 = 0, OUT_F32 = 1 };
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool valid) {
@@ -193,13 +191,8 @@ igemm_s8_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
   for (int j = 0; j < 4; ++j) {
     const int n = n0 + wn + j * 8 + t4 * 2;
     if (n >= N) continue;
-    float k0 = 0.f, k1 = 0.f, b0 = 0.f, b1 = 0.f;
-    if (OUT != OUT_S32) {
-      k0 = kscale[n];
-      k1 = kscale[n + 1];
-      b0 = bias[n];
-      b1 = bias[n + 1];
-    }
+    const float k0 = kscale[n], k1 = kscale[n + 1];
+    const float b0 = bias[n], b1 = bias[n + 1];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
 #pragma unroll
@@ -209,23 +202,18 @@ igemm_s8_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
         const int v0 = acc[i][j][2 * half];
         const int v1 = acc[i][j][2 * half + 1];
         const long long o = m * N + n;
-        if (OUT == OUT_S32) {
-          *reinterpret_cast<int2*>(static_cast<int*>(out) + o) =
-              make_int2(v0, v1);
+        const float y0 = __fmaf_rn(__int2float_rn(v0), k0, b0);
+        const float y1 = __fmaf_rn(__int2float_rn(v1), k1, b1);
+        if (OUT == OUT_F32) {
+          *reinterpret_cast<float2*>(static_cast<float*>(out) + o) =
+              make_float2(fmaxf(y0, 0.f), fmaxf(y1, 0.f));
         } else {
-          const float y0 = __fmaf_rn(__int2float_rn(v0), k0, b0);
-          const float y1 = __fmaf_rn(__int2float_rn(v1), k1, b1);
-          if (OUT == OUT_F32) {
-            *reinterpret_cast<float2*>(static_cast<float*>(out) + o) =
-                make_float2(fmaxf(y0, 0.f), fmaxf(y1, 0.f));
-          } else {
-            const float q0 = fminf(fmaxf(rintf(y0), 0.f), 127.f);
-            const float q1 = fminf(fmaxf(rintf(y1), 0.f), 127.f);
-            char2 q;
-            q.x = (signed char)(int)q0;
-            q.y = (signed char)(int)q1;
-            *reinterpret_cast<char2*>(static_cast<int8_t*>(out) + o) = q;
-          }
+          const float q0 = fminf(fmaxf(rintf(y0), 0.f), 127.f);
+          const float q1 = fminf(fmaxf(rintf(y1), 0.f), 127.f);
+          char2 q;
+          q.x = (signed char)(int)q0;
+          q.y = (signed char)(int)q1;
+          *reinterpret_cast<char2*>(static_cast<int8_t*>(out) + o) = q;
         }
       }
     }

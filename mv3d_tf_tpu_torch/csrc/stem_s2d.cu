@@ -1,13 +1,18 @@
 // Fused space-to-depth VGG stem: conv1_1 + ReLU + conv1_2 + ReLU + pool1 in
 // one pass, NHWC, float32 or bf16 operands, float32 sums and biases.
 //
-// Replaces the TPU kernel mv3d_tf_tpu/ops/stem_s2d_pallas.py:stem_s2d_fused
-// (pl.pallas_call at :224). Same function, with its rounding rule: the
-// intermediate y = relu(conv1_1(x) + b1) is summed and biased in float32,
-// zeroed where it falls outside the image (conv1_2's SAME padding, the edge
-// mask at :171-184), and rounded ONCE to the io type; then
+// Replaces two TPU kernels, which compute one function:
+//   mv3d_tf_tpu/ops/stem_s2d_pallas.py:stem_s2d_fused (pl.pallas_call at
+//     :224), through ops/stem_s2d_cuda.py, in float32 and bf16;
+//   mv3d_tf_tpu/ops/vgg_stem_pallas.py:vgg_stem_pallas (:106), the literal
+//     stem of the bf16 detectors, through ops/vgg_stem_cuda.py, bf16.
+// Both follow one rounding rule: the intermediate y = relu(conv1_1(x) + b1)
+// is summed and biased in float32, zeroed where it falls outside the image
+// (conv1_2's SAME padding: stem_s2d_pallas.py:171-184,
+// vgg_stem_pallas.py:131-147), and rounded ONCE to the io type; then
 // z = conv1_2(y) is summed in float32, relu(z + b2) taken with b2 in float32
-// and the 2x2 max pool rounded once to the io type.
+// and the 2x2 VALID max pool (an odd last row or column dropped) rounded
+// once to the io type. Both take NHWC x with Cin <= 16 and 64-wide convs.
 //
 // The TPU kernel packs 2x2 pixel blocks into 256 channels so that conv1_1
 // becomes a 4x4 stride-2 dot and conv1_2 four shifted 256x256 dots, which
@@ -22,7 +27,8 @@
 // per full-resolution pixel (13.3 G per 601x601 frame), against ~0.3 bytes
 // of input and output per multiply-add.
 //
-// bf16 instance (the one on the detectors' path), on the tensor cores:
+// bf16 instance (both TPU kernels' bf16 path: every bf16 detector's stem),
+// on the tensor cores:
 //   * mma.sync m16n8k16 bf16 with float32 accumulators, operands from
 //     shared memory by ldmatrix (the pattern of s8_igemm.cuh). The earlier
 //     design ran float32 FMAs on the CUDA cores, 2.6x behind cuDNN.
@@ -288,7 +294,8 @@ __device__ __forceinline__ int yslot(int row, int col) {
 }
 
 // x (B,H,W,Cin) bf16; w1 (3,3,kCinP,64) bf16 HWIO, zero past Cin; w2
-// (3,3,64,64) bf16 HWIO; b1, b2 (64,) float32; out (B,H/2,W/2,64) bf16.
+// (3,3,64,64) bf16 HWIO; b1, b2 (64,) float32; out (B,H/2,W/2,64) bf16;
+// w1 and w2 16-byte aligned.
 template <int KS>
 __global__ void __launch_bounds__(kTCThreads, 1)
     stem_s2d_bf16_kernel(const bf16* __restrict__ x,
@@ -312,14 +319,27 @@ __global__ void __launch_bounds__(kTCThreads, 1)
   const int g = lane >> 2, t4 = lane & 3;
   const int K1 = 9 * Cin;
 
-  // weights, once per block, output channel major with K contiguous
-  for (int i = t; i < kW2K * kC; i += kTCThreads)   // i = k * 64 + n
-    w2s[(i % kC) * kW2S + i / kC] = w2[i];
-  for (int i = t; i < L::K1 * kC; i += kTCThreads) {
-    const int k = i / kC, n = i % kC;
-    bf16 v = __float2bfloat16_rn(0.0f);
-    if (k < K1) v = w1[((k / Cin) * kCinP + k % Cin) * kC + n];
-    w1s[n * L::W1S + k] = v;
+  // weights, once per block, output channel major with K contiguous: one
+  // 16-byte load brings eight output channels of one k, and the loop keeps
+  // several loads in flight (a block at B=1 walks only 6-8 tiles)
+#pragma unroll 6
+  for (int i = t; i < kW2K * kC / 8; i += kTCThreads) {  // i = k * 8 + n / 8
+    const uint4 v = reinterpret_cast<const uint4*>(w2)[i];
+    const bf16* e = reinterpret_cast<const bf16*>(&v);
+    const int k = i >> 3, n = (i & 7) * 8;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) w2s[(n + j) * kW2S + k] = e[j];
+  }
+#pragma unroll 4
+  for (int i = t; i < L::K1 * kC / 8; i += kTCThreads) {
+    const int k = i >> 3, n = (i & 7) * 8;
+    uint4 v = make_uint4(0, 0, 0, 0);
+    if (k < K1)
+      v = *reinterpret_cast<const uint4*>(
+          w1 + ((k / Cin) * kCinP + k % Cin) * kC + n);
+    const bf16* e = reinterpret_cast<const bf16*>(&v);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) w1s[(n + j) * L::W1S + k] = e[j];
   }
   // input-tile offset of each (tap, channel) of conv1_1's K; padding K
   // points at the pixel's own first value, times a zero weight
@@ -356,6 +376,7 @@ __global__ void __launch_bounds__(kTCThreads, 1)
     // input tile, zero outside the image (conv1_1's SAME padding); the
     // previous tile's conv1_1 is done with it (barrier after conv1_1)
     const bf16* xn = x + (size_t)n * H * W * Cin;
+#pragma unroll 4
     for (int i = t; i < kXY * kXX * Cin; i += kTCThreads) {
       const int p = i / Cin, c = i - p * Cin;
       const int gy = gy0 + p / kXX, gx = gx0 + p % kXX;

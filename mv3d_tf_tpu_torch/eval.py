@@ -12,8 +12,9 @@ Parity notes, as in the JAX package:
     corners are returned alongside.
 In bfloat16 the trunks run the fused conv1 stem (ops/vgg_stem_cuda.py)
 unless the batched detector is given another stem (the fused s2d stem of
-ops/stem_s2d_cuda.py among them), and on a card the ROI pooling runs the
-CUDA kernel (ops/roi_pool.py).
+ops/stem_s2d_cuda.py among them); on a card both run the one bf16 kernel
+of csrc/stem_s2d.cu, and the ROI pooling runs the CUDA kernel
+(ops/roi_pool.py).
 Given an int8 quant state (quant.py), the batched detector runs the int8
 trunks, RPN conv, ROI pool and fc6/fc7 through the s8 kernels
 (ops/conv_s8.py).
@@ -126,15 +127,16 @@ def _dequant(q, s):
 @torch.inference_mode()
 def _detect_int8(params, qstate, bev, image, calib, stem_impl, conv_impl,
                  quant_rpn, quant_pool, feat_h, feat_w, pre_nms_top_n,
-                 post_nms_top_n, rpn_nms_thresh, head_nk):
-    """The int8 batched detector (eval.py:137-291): int8 trunks, the int8
-    RPN conv with quant_rpn, the ROI pool on the int8 maps with quant_pool
-    (on dequantized bf16 maps without), the int8 head when the state has
-    one (its GEMMs on head_nk, quant.prepare_head_weights' dict); bf16
-    heads otherwise."""
+                 post_nms_top_n, rpn_nms_thresh, trunk_w, head_nk):
+    """The int8 batched detector (eval.py:137-291): int8 trunks (their convs
+    on trunk_w, quant.prepare_trunk_weights' dict per trunk), the int8 RPN
+    conv with quant_rpn, the ROI pool on the int8 maps with quant_pool (on
+    dequantized bf16 maps without), the int8 head when the state has one
+    (its GEMMs on head_nk, quant.prepare_head_weights' dict); bf16 heads
+    otherwise."""
     bev, image, calib = _inputs(params, bev, image, calib)
     fbv, s_bv, fim, s_im = Q.extract_features_int8(
-        params, qstate, bev, image, stem=stem_impl or "bf16",
+        params, qstate, bev, image, trunk_w, stem=stem_impl or "bf16",
         conv_impl=conv_impl)
     if quant_rpn:
         rpn_cls, rpn_box = Q.rpn_head_int8(params, fbv, s_bv,
@@ -208,8 +210,9 @@ def build_detect_batch_fn(feat_h=75, feat_w=75, pre_nms_top_n=6000,
     utils.weights.quant_state_from_jax) runs the int8 detector: stem_impl
     picks its stem (quant.extract_features_int8, "bf16" by default),
     quant_rpn the int8 RPN conv, quant_pool the ROI pool on int8 maps;
-    heads run in bf16, the fc6/fc7 in int8 when the state has a head, on
-    weights laid out for the GEMM once, here (the state is left as it is).
+    heads run in bf16, the fc6/fc7 in int8 when the state has a head; the
+    trunks' conv weights (with their folded requant) and the fc weights are
+    laid out for the kernels once, here (the state is left as it is).
     quant_conv_impl is checked and names the same integers for every value;
     rois_per_step, a TPU tiling, is accepted and unused. With quant=None the
     float detector runs in compute_dtype with the stem stem_impl names
@@ -226,11 +229,13 @@ def build_detect_batch_fn(feat_h=75, feat_w=75, pre_nms_top_n=6000,
             p, b, i, c, compute_dtype, stem_impl, **kw)
     else:
         Q._check_impl(quant_conv_impl)
+        trunk_w = {key: Q.prepare_trunk_weights(quant[key])
+                   for key in ("trunk_bv", "trunk_img")}
         head_nk = (None if quant.get("head") is None
                    else Q.prepare_head_weights(quant["head"]))
         run = lambda p, b, i, c: _detect_int8(  # noqa: E731
             p, quant, b, i, c, stem_impl, quant_conv_impl, quant_rpn,
-            quant_pool, head_nk=head_nk, **kw)
+            quant_pool, trunk_w=trunk_w, head_nk=head_nk, **kw)
 
     def detect_batch(params, bev, image, calib):
         out = run(params, bev, image, calib)

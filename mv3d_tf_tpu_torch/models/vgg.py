@@ -97,9 +97,10 @@ def trunk_apply(params, x, suffix="", dtype=None, stem_impl=None):
     stem_impl selects how conv1_1 + conv1_2 + pool1 run (vgg.py:76-126):
       None / "literal"   — two conv2d calls and the pool;
       "fused" / "pallas" — ops/vgg_stem_cuda.vgg_stem: the hand-written CUDA
-                           kernel on a CUDA tensor, its plain version on the
-                           CPU; bfloat16 output ("pallas" is the JAX
-                           package's name for it);
+                           kernel (csrc/stem_s2d.cu's bf16 instance) on a
+                           CUDA tensor, its plain version on the CPU;
+                           bfloat16 output ("pallas" is the JAX package's
+                           name for it);
       "s2d"              — ops/stem_s2d.stem_s2d in dtype: the space-to-depth
                            packed convs, differentiable;
       "s2d_fused"        — ops/stem_s2d_cuda.stem_s2d_fused in dtype, float32

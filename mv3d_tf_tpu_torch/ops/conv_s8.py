@@ -3,6 +3,8 @@ requant epilogue they share with the CUDA kernels, and the dispatch between
 them (mv3d_tf_tpu/ops/conv_s8_pallas.py, quant.py:_conv_requant).
 
     conv3x3_s8(x, w, k, b)  3x3 SAME, (B,H,W,C) int8 -> (B,H,W,N)
+    conv3x3_s8_nk(x, w_nk, k, b)  the same on w_nk, the (N, 9*Cp) operand
+                            prepare_s8_conv_weight makes once
     conv2x2_s8(x, w, k, b)  2x2 VALID, (B,H,W,C) int8 -> (B,H-1,W-1,N)
     matmul_s8(a, b)         (M,K) int8 @ (K,N) int8 -> (M,N) int32
     matmul_s8_nk(a, bt)     (M,K) int8 @ bt.T -> (M,N) int32, bt the (N,Kp)
@@ -25,6 +27,8 @@ import torch
 import torch.nn.functional as F
 
 GEMM_K_ALIGN = 16   # bytes: the prepared GEMM operand's K padding
+CONV_C_ALIGN = 64   # channels: the prepared 3x3 operand's C padding, one
+                    # K slab of the 3x3 kernel (csrc/conv_s8.cu)
 
 
 def fma_f32(a, k, b):
@@ -68,6 +72,19 @@ def _exact_mm(a, b):
     return (a.double() @ b.double()).to(torch.int32)
 
 
+def _im2col(x, kh, kw, pad):
+    """x (B,H,W,C) zero-padded by ``pad`` on each side -> (B*Ho*Wo,
+    kh*kw*C) rows in the (dy, dx, c) order of quant.py:_conv_s8_im2col,
+    and (B, Ho, Wo)."""
+    if pad:
+        x = F.pad(x, (0, 0, pad, pad, pad, pad))
+    B, H, W, C = x.shape
+    Ho, Wo = H - kh + 1, W - kw + 1
+    cols = torch.cat([x[:, dy:dy + Ho, dx:dx + Wo, :]
+                      for dy in range(kh) for dx in range(kw)], dim=-1)
+    return cols.reshape(B * Ho * Wo, kh * kw * C), (B, Ho, Wo)
+
+
 def conv_acc_plain(x, w, pad):
     """The s32 sums of an s8 conv, stride 1: x (B,H,W,C) int8 zero-padded by
     ``pad`` on each side, w (kh,kw,C,N) int8 HWIO. im2col in the (dy, dx, c)
@@ -77,14 +94,8 @@ def conv_acc_plain(x, w, pad):
         raise TypeError("s8 conv: x and w must be int8")
     if x.shape[-1] != C:
         raise ValueError("s8 conv: x has %d channels, w %d" % (x.shape[-1], C))
-    if pad:
-        x = F.pad(x, (0, 0, pad, pad, pad, pad))
-    B, H, W, _ = x.shape
-    Ho, Wo = H - kh + 1, W - kw + 1
-    cols = torch.cat([x[:, dy:dy + Ho, dx:dx + Wo, :]
-                      for dy in range(kh) for dx in range(kw)], dim=-1)
-    return _exact_mm(cols.reshape(B * Ho * Wo, kh * kw * C),
-                     w.reshape(kh * kw * C, N)).reshape(B, Ho, Wo, N)
+    cols, lead = _im2col(x, kh, kw, pad)
+    return _exact_mm(cols, w.reshape(kh * kw * C, N)).reshape(*lead, N)
 
 
 def conv3x3_s8_plain(x, w, k, b, out_dtype=torch.int8):
@@ -113,6 +124,50 @@ def prepare_s8_gemm_weight(b):
     extra = (-b.shape[0]) % GEMM_K_ALIGN
     return F.pad(b, (0, 0, 0, extra)).t().clone(
         memory_format=torch.contiguous_format)
+
+
+def conv_channels(c):
+    """The channel count Cp of the prepared 3x3 operand for c input
+    channels: c rounded up to CONV_C_ALIGN."""
+    return -(-c // CONV_C_ALIGN) * CONV_C_ALIGN
+
+
+def prepare_s8_conv_weight(w):
+    """The 3x3 kernel's operand for a (3,3,C,N) int8 HWIO weight, made once:
+    (N, 9*Cp) int8, output channel major with the reduction contiguous in
+    (dy, dx, c) order, C zero-padded to Cp = conv_channels(C). Zeros add
+    zero to every sum."""
+    if w.dtype != torch.int8 or w.dim() != 4 or tuple(w.shape[:2]) != (3, 3):
+        raise TypeError("prepare_s8_conv_weight: w must be a (3,3,C,N) int8 "
+                        "tensor")
+    C, N = w.shape[2], w.shape[3]
+    cp = conv_channels(C)
+    return F.pad(w, (0, 0, 0, cp - C)).reshape(9 * cp, N).t().clone(
+        memory_format=torch.contiguous_format)
+
+
+def check_conv_nk(x, w_nk, name):
+    """Raise unless w_nk is the (N, 9*Cp) operand of a (B,H,W,C) int8 x."""
+    if x.dtype != torch.int8 or w_nk.dtype != torch.int8:
+        raise TypeError("%s: x and w_nk must be int8" % name)
+    if x.dim() != 4 or w_nk.dim() != 2:
+        raise ValueError("%s: x must be (B,H,W,C) and w_nk (N, 9*Cp)" % name)
+    kp = 9 * conv_channels(x.shape[3])
+    if w_nk.shape[1] != kp:
+        raise ValueError("%s: w_nk %s is not the (N, %d) operand of x %s "
+                         "(prepare_s8_conv_weight makes it)"
+                         % (name, tuple(w_nk.shape), kp, tuple(x.shape)))
+
+
+def conv3x3_s8_nk_plain(x, w_nk, k, b, out_dtype=torch.int8):
+    """The plain 3x3 SAME s8 conv + requant on a prepared weight: x
+    (B,H,W,C) int8, w_nk the (N, 9*Cp) operand of prepare_s8_conv_weight;
+    x's channels zero-padded to Cp, then im2col and one exact matmul."""
+    check_conv_nk(x, w_nk, "conv3x3_s8_nk")
+    cp = w_nk.shape[1] // 9
+    cols, lead = _im2col(F.pad(x, (0, cp - x.shape[3])), 3, 3, 1)
+    acc = _exact_mm(cols, w_nk.t()).reshape(*lead, w_nk.shape[0])
+    return requant(acc, k, b, out_dtype)
 
 
 def check_nk(a, bt, name):
@@ -147,6 +202,12 @@ def _dispatch(name, x):
 def conv3x3_s8(x, w, k, b, out_dtype=torch.int8):
     """3x3 SAME s8 conv + requant: the kernel on a card, plain on the CPU."""
     return _dispatch("conv3x3_s8", x)(x, w, k, b, out_dtype)
+
+
+def conv3x3_s8_nk(x, w_nk, k, b, out_dtype=torch.int8):
+    """3x3 SAME s8 conv + requant on a prepared (N, 9*Cp) weight: the
+    kernel on a card, plain on the CPU."""
+    return _dispatch("conv3x3_s8_nk", x)(x, w_nk, k, b, out_dtype)
 
 
 def conv2x2_s8(x, w, k, b, out_dtype=torch.int8):

@@ -1,10 +1,22 @@
-"""Fused VGG stem: the CUDA kernel (csrc/vgg_stem.cu), its plain PyTorch
-version and the dispatch between them. The kernel replaces
+"""Fused VGG stem: the wrapper of its CUDA kernel, its plain PyTorch version
+and the dispatch between them. The kernel replaces
 mv3d_tf_tpu/ops/vgg_stem_pallas.py:vgg_stem_pallas.
 
 All three compute pool2x2_valid(relu(conv1_2(relu(conv1_1(x))))) with bf16
 operands: (B,H,W,Cin) NHWC, Cin <= 16 -> (B,H/2,W/2,64) bfloat16. Weights
 are OIHW as the port stores them.
+
+The kernel is the bf16 tensor-core instance of csrc/stem_s2d.cu (entry
+mv3d_stem_s2d_bf16), which also replaces stem_s2d_pallas.py:stem_s2d_fused:
+the two TPU kernels compute one function. Both sum conv1_1 in float32 with
+a float32 b1, zero the intermediate outside the image (conv1_2's SAME
+padding), round it once to bf16, then sum conv1_2 in float32 with a float32
+b2, apply ReLU, pool and round once (vgg_stem_pallas.py:73-82, :131-147;
+stem_s2d_pallas.py:171-184); the s2d kernel sums the literal 3x3 products.
+Its own plain version, ops/stem_s2d_cuda.stem_s2d_fused_plain in bf16,
+follows that rounding; vgg_stem_plain below is the literal bf16 conv pair
+(cuDNN on a card, JAX's CPU XLA stem's twin), which rounds after each bias
+and stays within one bf16 ulp of the max.
 """
 
 import torch
@@ -24,9 +36,11 @@ def vgg_stem_plain(x, w1, b1, w2, b2):
 
 
 def vgg_stem_cuda(x, w1, b1, w2, b2):
-    """The fused stem on the card. x (B,H,W,Cin) float32 or bfloat16 on a
-    CUDA device (cast to bf16, as the TPU kernel does); w1 (64,Cin,3,3),
-    w2 (64,64,3,3), biases (64,), on the same device."""
+    """The fused stem on the card, through the bf16 kernel of
+    csrc/stem_s2d.cu. x (B,H,W,Cin) float32 or bfloat16 on a CUDA device
+    (cast to bf16, as the TPU kernel does); w1 (64,Cin,3,3), w2
+    (64,64,3,3), biases (64,), on the same device. Its launches are counted
+    here, apart from the s2d stem's."""
     if not x.is_cuda or any(t.device != x.device for t in (w1, b1, w2, b2)):
         raise ValueError("vgg_stem_cuda: all inputs must be on one CUDA device")
     if x.dim() != 4:
@@ -56,7 +70,7 @@ def vgg_stem_cuda(x, w1, b1, w2, b2):
     lib = kernels.library()
     with torch.cuda.device(x.device):
         vgg_stem_cuda.launches += 1
-        err = lib.mv3d_vgg_stem_bf16(
+        err = lib.mv3d_stem_s2d_bf16(
             xb.data_ptr(), w1k.data_ptr(), b1k.data_ptr(), w2k.data_ptr(),
             b2k.data_ptr(), out.data_ptr(), B, H, W, cin,
             torch.cuda.current_stream().cuda_stream)

@@ -6,7 +6,9 @@ mv3d_tf_tpu/quant.py.
     over a few frames); every trunk activation is post-ReLU, so [0, 127];
   * conv: s8 x s8 -> s32, then the folded requant epilogue
     clip(round(fma(acc, s_in*s_w/s_out, bias/s_out)), 0, 127), fused into
-    the conv kernel (ops/conv_s8.py, csrc/conv_s8.cu);
+    the conv kernel (ops/conv_s8.py, csrc/conv_s8.cu). A built detector
+    prepares each trunk once (prepare_trunk_weights: the (N, 9*Cp) weight
+    operand and the folded k and b) and keeps that copy itself;
   * 2x2 max pools run on int8 directly (max commutes with the monotone
     quantization map);
   * the fusion head's fc6/fc7 run as s8 GEMMs (csrc/matmul_s8.cu) on the
@@ -131,42 +133,57 @@ def quantize_trunk(params, act_scales, suffix=""):
     return q
 
 
-def _conv_requant(x, p):
-    """One int8 3x3 conv with the folded requant epilogue:
-    k = s_in*s_w/s_out, b = bias/s_out, as quant.py:172-173 computes them."""
-    k = p["s_in"] * p["s_w"] / p["s_out"]
-    return S8.conv3x3_s8(x, p["w_q"], k, p["bias"] / p["s_out"])
+def prepare_trunk_weights(qtrunk):
+    """One int8 trunk's 13 convs as the 3x3 kernel takes them, made once:
+    {layer: {"w_nk": the (N, 9*Cp) operand of
+    ops/conv_s8.prepare_s8_conv_weight, "k": s_in*s_w/s_out, "b":
+    bias/s_out}}, the folded requant of quant.py:172-173, computed on the
+    state's device as the per-call epilogue computed it. A new dict; qtrunk
+    is left as it is."""
+    return {name: {"w_nk": S8.prepare_s8_conv_weight(p["w_q"]),
+                   "k": p["s_in"] * p["s_w"] / p["s_out"],
+                   "b": p["bias"] / p["s_out"]}
+            for name, p in qtrunk.items()}
 
 
-def trunk_apply_int8(qtrunk, x):
+def _conv_requant(x, pw):
+    """One int8 3x3 conv with the folded requant epilogue, on pw, one layer
+    of prepare_trunk_weights' dict."""
+    return S8.conv3x3_s8_nk(x, pw["w_nk"], pw["k"], pw["b"])
+
+
+def trunk_apply_int8(qtrunk, x, trunk_w):
     """The 13-conv trunk in int8 from the input: float x is quantized at
-    conv1_1's input scale (an int8 x is taken as it is). Returns
-    (feat int8 (B,h,w,512), s_feat)."""
+    conv1_1's input scale (an int8 x is taken as it is); the convs run on
+    trunk_w, prepare_trunk_weights(qtrunk). Returns (feat int8 (B,h,w,512),
+    s_feat)."""
     if x.dtype != torch.int8:
         x = _quantize(x, qtrunk["conv1_1"]["s_in"], -127)
     for name, _, pool in vgg.VGG_LAYERS:
-        x = _conv_requant(x, qtrunk[name])
+        x = _conv_requant(x, trunk_w[name])
         if pool:
             x = _max_pool_s8(x)
     return x, qtrunk["conv5_3"]["s_out"]
 
 
-def trunk_apply_int8_from_stem(qtrunk, stem_out, conv_impl="xla"):
-    """conv2_1 .. conv5_3 in int8 after a float stem output (conv1_2 and
-    pool1 done), quantized at conv1_2's output scale."""
+def trunk_apply_int8_from_stem(qtrunk, stem_out, trunk_w, conv_impl="xla"):
+    """conv2_1 .. conv5_3 in int8 on trunk_w (prepare_trunk_weights) after
+    a float stem output (conv1_2 and pool1 done), quantized at conv1_2's
+    output scale."""
     x = _quantize(stem_out, qtrunk["conv1_2"]["s_out"], 0)
-    return _trunk_tail_int8(qtrunk, x, conv_impl)
+    return _trunk_tail_int8(qtrunk, x, trunk_w, conv_impl)
 
 
-def trunk_apply_int8_from_stem_q(qtrunk, stem_q, conv_impl="xla"):
-    """conv2_1 .. conv5_3 from an int8 stem output at conv1_2's scale."""
-    return _trunk_tail_int8(qtrunk, stem_q, conv_impl)
+def trunk_apply_int8_from_stem_q(qtrunk, stem_q, trunk_w, conv_impl="xla"):
+    """conv2_1 .. conv5_3 on trunk_w (prepare_trunk_weights) from an int8
+    stem output at conv1_2's scale."""
+    return _trunk_tail_int8(qtrunk, stem_q, trunk_w, conv_impl)
 
 
-def _trunk_tail_int8(qtrunk, x, conv_impl):
+def _trunk_tail_int8(qtrunk, x, trunk_w, conv_impl):
     _check_impl(conv_impl)
     for name, _, pool in vgg.VGG_LAYERS[2:]:
-        x = _conv_requant(x, qtrunk[name])
+        x = _conv_requant(x, trunk_w[name])
         if pool:
             x = _max_pool_s8(x)
     return x, qtrunk["conv5_3"]["s_out"]
@@ -377,9 +394,11 @@ def _float_stem(params, x, suffix, stem):
     return _bf16_stem(params, x, suffix)
 
 
-def extract_features_int8(params, quant, bev, image, fused_stem=False,
-                          stem="bf16", conv_impl="xla"):
-    """Quantized twin of mv3d.extract_features (quant.py:610-689). stem:
+def extract_features_int8(params, quant, bev, image, trunk_w,
+                          fused_stem=False, stem="bf16", conv_impl="xla"):
+    """Quantized twin of mv3d.extract_features (quant.py:610-689), the
+    trunks' convs on trunk_w = {key: prepare_trunk_weights(quant[key])} for
+    "trunk_bv" and "trunk_img". stem:
       "bf16"     — literal bf16 conv1 pair and pool, then int8;
       "s2d"      — the space-to-depth bf16 stem (ops/stem_s2d.py);
       "s2d_fused" — the s2d stem as one kernel in bf16
@@ -397,15 +416,15 @@ def extract_features_int8(params, quant, bev, image, fused_stem=False,
         raise ValueError("unknown stem {!r}".format(stem))
     out = []
     for key, x, suffix in (("trunk_bv", bev, ""), ("trunk_img", image, "_2")):
-        qt = quant[key]
+        qt, tw = quant[key], trunk_w[key]
         if stem == "s2d_int8":
             stem_q, _ = _s2d_stem_int8(params, qt, x, suffix, conv_impl)
-            out += trunk_apply_int8_from_stem_q(qt, stem_q, conv_impl)
+            out += trunk_apply_int8_from_stem_q(qt, stem_q, tw, conv_impl)
         elif stem == "int8":
-            out += trunk_apply_int8(qt, x)
+            out += trunk_apply_int8(qt, x, tw)
         else:
             out += trunk_apply_int8_from_stem(
-                qt, _float_stem(params, x, suffix, stem), conv_impl)
+                qt, _float_stem(params, x, suffix, stem), tw, conv_impl)
     return tuple(out)
 
 

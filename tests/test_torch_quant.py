@@ -142,8 +142,9 @@ def test_trunk_from_stem_q_bit_identical(case, key, suffix, frames):
     stem_q, _ = _j_stem(case, key, suffix, frames)
     want, s_want = jax.jit(JQ.trunk_apply_int8_from_stem_q)(
         case["jstate"][key], stem_q)
-    got, s_got = Q.trunk_apply_int8_from_stem_q(case["state"][key],
-                                                _T(np.array(stem_q)))
+    qt = case["state"][key]
+    got, s_got = Q.trunk_apply_int8_from_stem_q(qt, _T(np.array(stem_q)),
+                                                Q.prepare_trunk_weights(qt))
     assert got.dtype == torch.int8 and float(s_got) == float(s_want)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     assert 0 < (got.numpy() > 0).mean() < 1
@@ -155,7 +156,9 @@ def test_trunk_apply_int8_from_the_input_bit_identical(case, key, suffix,
     """The "int8" stem: the float input quantized at conv1_1's input scale,
     all 13 convs in s8 (conv1_1's 9 or 3 channels included): bit for bit."""
     want, _ = jax.jit(JQ.trunk_apply_int8)(case["jstate"][key], case[frames])
-    got, _ = Q.trunk_apply_int8(case["state"][key], _T(case[frames]))
+    qt = case["state"][key]
+    got, _ = Q.trunk_apply_int8(qt, _T(case[frames]),
+                                Q.prepare_trunk_weights(qt))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
@@ -165,8 +168,9 @@ def test_trunk_from_bf16_stem_bit_identical(case):
     q = case["jstate"]["trunk_bv"]
     stem = jax.jit(lambda x: JQ._bf16_stem(case["P"], x))(case["bev"])
     want, _ = jax.jit(JQ.trunk_apply_int8_from_stem)(q, stem)
-    got, _ = Q.trunk_apply_int8_from_stem(case["state"]["trunk_bv"],
-                                          _T(_np(stem)).to(torch.bfloat16))
+    qt = case["state"]["trunk_bv"]
+    got, _ = Q.trunk_apply_int8_from_stem(qt, _T(_np(stem)).to(torch.bfloat16),
+                                          Q.prepare_trunk_weights(qt))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 

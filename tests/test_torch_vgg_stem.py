@@ -1,7 +1,9 @@
-"""The port's VGG trunk and plain fused-stem version against mv3d_tf_tpu:
-the stem against vgg_stem_pallas(interpret=True) within bf16 tolerance,
-the float32 trunk against the JAX trunk. The CUDA stem kernel is compared
-with this plain version on the card by chip_smoke.py."""
+"""The port's VGG trunk and plain fused-stem versions against mv3d_tf_tpu:
+the literal stem and the fused s2d stem's plain version in bf16 against
+vgg_stem_pallas(interpret=True) within bf16 tolerance, the float32 trunk
+against the JAX trunk. The CUDA stem kernel (csrc/stem_s2d.cu's bf16
+instance) is compared with both plain versions on the card by
+chip_smoke.py."""
 
 import numpy as np
 import pytest
@@ -14,6 +16,8 @@ from mv3d_tf_tpu.models import vgg as J  # noqa: E402
 from mv3d_tf_tpu.ops.vgg_stem_pallas import vgg_stem_pallas  # noqa: E402
 from mv3d_tf_tpu_torch.models import vgg as T  # noqa: E402
 from mv3d_tf_tpu_torch.ops import vgg_stem_cuda as S  # noqa: E402
+from mv3d_tf_tpu_torch.ops.stem_s2d_cuda import (  # noqa: E402
+    stem_s2d_fused_plain)
 from mv3d_tf_tpu_torch.utils.weights import (he_normal_params,  # noqa: E402
                                              params_from_jax)
 
@@ -41,6 +45,35 @@ def test_plain_stem_matches_pallas_interpret(rng, B, H, W, Cin, tr):
     assert out.dtype == torch.bfloat16 and out.shape == ref.shape
     # accumulation and bias rounding differ -> one-ulp bf16 tolerance
     # (tests/test_vgg_stem.py:37-38)
+    err = np.abs(out.float().numpy() - ref).max()
+    assert err <= 2 ** -7 * np.abs(ref).max() + 1e-6
+
+
+@pytest.mark.parametrize("B,H,W,Cin,tr", [
+    (1, 21, 131, 9, 2),    # odd H and W: the last row and column dropped
+    (2, 24, 34, 3, 4),     # image-like channels, even extents
+    (1, 17, 19, 9, 8),     # odd, pooled extents off the kernel's 8 x 16 tile
+])
+def test_s2d_fused_plain_bf16_matches_vgg_stem_pallas(rng, B, H, W, Cin, tr):
+    """The literal stem and the fused s2d stem are one function with one
+    rounding rule (float32 sums and biases, the intermediate masked and
+    rounded once to bf16, one rounding of the pooled output), which lets
+    the bf16 kernel of csrc/stem_s2d.cu serve both TPU kernels: the s2d
+    stem's plain version in bf16 stays within one bf16 ulp of the max of
+    vgg_stem_pallas(interpret=True), nonzero biases included."""
+    x = rng.rand(B, H, W, Cin).astype(np.float32)
+    w1 = (rng.rand(3, 3, Cin, 64).astype(np.float32) - 0.5) * 0.2
+    b1 = 0.5 + 0.5 * rng.rand(64).astype(np.float32)
+    w2 = (rng.rand(3, 3, 64, 64).astype(np.float32) - 0.5) * 0.2
+    b2 = (rng.rand(64).astype(np.float32) - 0.5) * 0.2
+    ref = np.asarray(vgg_stem_pallas(
+        jnp.asarray(x), jnp.asarray(w1), jnp.asarray(b1), jnp.asarray(w2),
+        jnp.asarray(b2), tile_rows=tr, interpret=True), np.float32)
+    out = stem_s2d_fused_plain(torch.from_numpy(x), _oihw(w1),
+                               torch.from_numpy(b1), _oihw(w2),
+                               torch.from_numpy(b2), torch.bfloat16)
+    assert out.dtype == torch.bfloat16 and out.shape == ref.shape
+    # summation order differs; one bf16 ulp of the max covers it
     err = np.abs(out.float().numpy() - ref).max()
     assert err <= 2 ** -7 * np.abs(ref).max() + 1e-6
 
