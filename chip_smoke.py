@@ -76,7 +76,8 @@ from mv3d_tf_tpu_torch.ops.conv_s8_cuda import (conv2x2_s8_cuda,
                                                 conv3x3_s8_nk_cuda,
                                                 matmul_s8_cuda,
                                                 matmul_s8_nk_cuda)
-from mv3d_tf_tpu_torch.ops.roi_pool import (bin_bounds, bin_cells, roi_pool,
+from mv3d_tf_tpu_torch.ops.roi_pool import (bin_bounds, bin_cells,
+                                            boundary_rois, roi_pool,
                                             roi_pool_bwd, roi_pool_fast,
                                             roi_pool_train)
 from mv3d_tf_tpu_torch.ops.roi_pool_cuda import roi_pool_bwd_cuda, roi_pool_cuda
@@ -234,16 +235,100 @@ def make_rois(gen, n, in_h, in_w, frames):
     return torch.cat([rois, edge]).cuda()
 
 
+# the round boundaries of both ROI kernels: a block's 2 slices take a bin's
+# cells in turn, 4 loads a lane a round, so bins of 2, 8, 16 and 32 cells
+# end a round exactly and one cell more starts another
+SPLIT_CELLS = (2, 3, 8, 9, 16, 17, 32, 33)
+
+
+def stress_rois(in_h, in_w, frame):
+    """64 whole-map and beyond-map rois (up to 84 px past every edge) on one
+    frame, then rois whose 7x7 bins hold exactly SPLIT_CELLS cells each
+    (a roi of 7*bh x 7*bw cells from the map's corner), as far as the map
+    has room for them."""
+    k = torch.arange(64, dtype=torch.float32)
+    a, b = (k % 8) * 12, (k // 8) * 12
+    rois = [torch.stack([torch.full_like(k, frame), -a, -b, in_w - 1 + b,
+                         in_h - 1 + a], 1)]
+    H, W = in_h // 8, in_w // 8
+    for n in SPLIT_CELLS:
+        for bh in range(1, n + 1):
+            bw = n // bh
+            if bh * bw == n and 7 * bh <= H and 7 * bw <= W:
+                rois.append(torch.tensor([[frame, 0, 0, 8 * (7 * bw - 1),
+                                           8 * (7 * bh - 1)]],
+                                         dtype=torch.float32))
+    return torch.cat(rois).cuda()
+
+
+def check_rois(gen, n, in_h, in_w, frames):
+    """The check set: make_rois' random and edge rois, the boundary rois
+    that the CPU tests hold bin_bounds and the plain pool to JAX on, and
+    the stress rois on the last frame."""
+    return torch.cat([make_rois(gen, n, in_h, in_w, frames),
+                      boundary_rois(in_h, in_w, frames).cuda(),
+                      stress_rois(in_h, in_w, frames - 1)])
+
+
+def roi_entry(feat, rois, out):
+    """One launch of the forward kernel's C entry point, without the
+    wrapper (no checks, no allocation, no count): the kernel alone."""
+    fn = getattr(kernels.library(), roi_pool_cuda_mod._ENTRY[feat.dtype])
+    B, H, W, C = feat.shape
+    args = (feat.data_ptr(), rois.data_ptr(), out.data_ptr(), B, H, W, C,
+            rois.shape[0], 7, 1.0 / 8, torch.cuda.current_stream().cuda_stream)
+    # the default argument keeps the tensors behind the pointers alive
+    return lambda keep=(feat, rois, out): kernels.check(fn(*args),
+                                                        "roi_pool entry")
+
+
+def roi_bwd_entry(feat, rois, out, dy, dfeat):
+    """One launch of the backward kernel's C entry point, without the
+    wrapper: the kernel alone, adding into dfeat."""
+    fn = getattr(kernels.library(), roi_pool_cuda_mod._BWD_ENTRY[feat.dtype])
+    H, W, C = feat.shape
+    args = (feat.data_ptr(), rois.data_ptr(), out.data_ptr(), dy.data_ptr(),
+            dfeat.data_ptr(), H, W, C, rois.shape[0], 7, 1.0 / 8,
+            torch.cuda.current_stream().cuda_stream)
+    return lambda keep=(feat, rois, out, dy, dfeat): kernels.check(
+        fn(*args), "roi_pool_bwd entry")
+
+
+def time_roi_pool(name, feat, rois, what):
+    """The kernel alone (20 raw launches), the same without make_rois' six
+    edge rois, the wrapper and the plain pool; the bytes the bins read and
+    the rate over them. Returns (kernel ms, plain ms, bound part)."""
+    out = roi_pool_cuda(feat, rois)
+    k = cuda_ms(roi_entry(feat, rois, out))
+    core = rois[:-6]
+    k_core = cuda_ms(roi_entry(feat, core, out))
+    wrapper = cuda_ms(lambda: roi_pool_cuda(feat, rois))
+    p = cuda_ms(lambda: roi_pool(feat, rois), iters=3, warmup=1)
+    # each bin reads its cells once; the output is written once
+    moved = (bin_cells_total(rois, *feat.shape[1:3]) * feat.shape[3]
+             * feat.element_size() + nbytes(out))
+    print("roi_pool time %s %s %s rois=%d: kernel alone %.4f ms (%.4f "
+          "without the 6 edge rois), wrapper %.4f ms, plain %.4f ms; bins "
+          "read %.1f MB + out %.1f MB, %.0f GB/s" % (
+              name, what, tuple(feat.shape), rois.shape[0], k, k_core,
+              wrapper, p, (moved - nbytes(out)) / 1e6, nbytes(out) / 1e6,
+              moved / k / 1e6))
+    # one max per covered cell and channel
+    return k, p, (nbytes(feat, rois, out),
+                  bin_cells_total(rois, *feat.shape[1:3]) * feat.shape[3])
+
+
 def phase_roi_pool(gen):
     """Kernel vs plain on the card: bit-identical in float32 and bf16, on
-    BEV (2,75,75,512) and image (2,48,156,512) maps with ~600 rois; then the
-    time of one batched-detector call's pools (B=4, 1200 rois a view)."""
+    BEV (2,75,75,512) and image (2,48,156,512) maps with ~600 random and
+    edge rois, the boundary rois and the stress rois; then the time of one
+    batched-detector call's pools (B=4, 1200 rois a view)."""
     maps = {"bev": ((2, 75, 75, 512), 600, 600),
             "image": ((2, 48, 156, 512), 384, 1248)}
     worst = 0.0
     for name, (shape, in_h, in_w) in maps.items():
         feat32 = torch.randn(shape, generator=gen).cuda()
-        rois = make_rois(gen, 594, in_h, in_w, shape[0])
+        rois = check_rois(gen, 594, in_h, in_w, shape[0])
         for dtype in (torch.float32, torch.bfloat16):
             feat = feat32.to(dtype)
             got = roi_pool_cuda(feat, rois)
@@ -267,29 +352,65 @@ def phase_roi_pool(gen):
                                      "NaN cells" % (name, dtype))
             print("roi_pool %s %s with NaN cells: equal to plain, NaN in the "
                   "same %d outputs" % (name, dtype, int(nan.sum())))
+        hs, he, ws, we = bin_bounds(rois, 7, 1.0 / 8, *shape[1:3]).unbind(1)
+        cells = ((he - hs).clamp(min=0)[:, :, None]
+                 * (we - ws).clamp(min=0)[:, None, :])
+        print("roi_pool %s check set: bins of %s cells present, largest %d"
+              % (name, [n for n in SPLIT_CELLS if (cells == n).any()],
+                 int(cells.max())))
     roi_pool_s8_check()
+    roi_unpacked_check(gen)
     ms = plain_ms = 0.0
     parts = []
     for name, shape, in_h, in_w in (("bev", (4, 75, 75, 512), 600, 600),
                                     ("image", (4, 48, 156, 512), 384, 1248)):
         feat = torch.randn(shape, generator=gen).cuda().to(torch.bfloat16)
         rois = make_rois(gen, 1194, in_h, in_w, 4)
-        k = cuda_ms(lambda: roi_pool_cuda(feat, rois))
-        p = cuda_ms(lambda: roi_pool(feat, rois), iters=5)
-        # one max per covered cell and channel
-        parts.append((nbytes(feat, rois, roi_pool_cuda(feat, rois)),
-                      bin_cells_total(rois, *shape[1:3]) * shape[3]))
-        print("roi_pool time %s bf16 %s rois=%d: kernel %.4f ms, plain %.4f ms"
-              % (name, shape, rois.shape[0], k, p))
+        k, p, part = time_roi_pool(name, feat, rois, "bf16")
+        parts.append(part)
         ms, plain_ms = ms + k, plain_ms + p
     # no single PyTorch call pools rois with these integer bins
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
             **bound(parts, F32_PER_S), "library_ms": None}
 
 
+def roi_unpacked_check(gen):
+    """Both kernels one channel a lane, where 16-byte loads do not fit: C
+    not a multiple of the pack (18 float32, 20 bf16 and int8 channels) and
+    a float32 map 4 bytes off a 16-byte boundary; forward bit for bit,
+    backward within its tolerance."""
+    for dtype, C, offset in ((torch.float32, 18, 0), (torch.bfloat16, 20, 0),
+                             (torch.int8, 20, 0), (torch.float32, 512, 1)):
+        shape = (2, 11, 15, C)
+        n = int(np.prod(shape))
+        x = torch.randn(n + offset, generator=gen).cuda()[offset:].view(shape)
+        # float32 at offset 1 stays the view, 4 bytes past its storage
+        feat = (x * 40).clamp(-128, 127).to(dtype) if dtype == torch.int8 \
+            else x.to(dtype)
+        rois = check_rois(gen, 40, 88, 120, 2)
+        if not torch.equal(roi_pool_cuda(feat, rois), roi_pool(feat, rois)):
+            raise AssertionError("roi_pool_cuda != plain, %s C=%d offset %d"
+                                 % (dtype, C, offset))
+        if dtype != torch.int8:
+            one, rs = feat[1], rois.clone()
+            rs[:, 0] = 0
+            out = roi_pool_cuda(one, rs)
+            dy = torch.rand(out.shape, generator=gen).cuda()
+            got = roi_pool_bwd_cuda(one, rs, out, dy)
+            ref = roi_pool_bwd(one, rs, out, dy)
+            err = (got - ref).abs().max().item()
+            if not err <= BWD_RTOL * ref.abs().max().item() + BWD_ATOL:
+                raise AssertionError("roi_pool_bwd_cuda != plain, %s C=%d "
+                                     "offset %d: %g" % (dtype, C, offset, err))
+        print("roi_pool unpacked %s C=%d, map %d bytes off 16: forward "
+              "bit-identical%s" % (dtype, C, 4 * offset,
+                                   "" if dtype == torch.int8
+                                   else ", backward within tolerance"))
+
+
 def roi_pool_s8_check():
     """The int8 kernel against the plain pool on int8 maps of both signs
-    (the int8 detector pools its trunk codes), edge rois included,
+    (the int8 detector pools its trunk codes), on the check set,
     bit-identical; then its time at the int8 detector's shapes (B=8, 2400
     rois a view), printed beside the plain pool's."""
     gen = torch.Generator().manual_seed(SEED + 8)
@@ -297,7 +418,7 @@ def roi_pool_s8_check():
                                     ("image", (2, 48, 156, 512), 384, 1248)):
         feat = torch.randint(-128, 128, shape, generator=gen,
                              dtype=torch.int8).cuda()
-        rois = make_rois(gen, 594, in_h, in_w, shape[0])
+        rois = check_rois(gen, 594, in_h, in_w, shape[0])
         got = roi_pool_cuda(feat, rois)
         ref = roi_pool(feat, rois)
         if got.dtype != torch.int8 or not torch.equal(got, ref):
@@ -311,10 +432,7 @@ def roi_pool_s8_check():
         feat = torch.randint(0, 128, shape, generator=gen,
                              dtype=torch.int8).cuda()
         rois = make_rois(gen, INT8_B * POST_NMS - 6, in_h, in_w, INT8_B)
-        k = cuda_ms(lambda: roi_pool_cuda(feat, rois))
-        p = cuda_ms(lambda: roi_pool(feat, rois), iters=3, warmup=1)
-        print("roi_pool time %s int8 %s rois=%d: kernel %.4f ms, plain %.4f ms"
-              % (name, shape, rois.shape[0], k, p))
+        time_roi_pool(name, feat, rois, "int8")
 
 
 def stem_halo_leak(x, w1, b1, w2, b2):
@@ -646,12 +764,14 @@ def replay_trap(feat, rois, out, dy, rule):
 
 def phase_roi_bwd(gen):
     """Backward kernel vs plain on the card, within BWD_RTOL * max|ref| +
-    BWD_ATOL, at the train pools' shapes (BEV 75x75x512, image 48x156x512,
-    128 rois with a duplicate and the edge rois), float32 and bf16, on
-    distinct, post-ReLU sparse and few-level maps. dfeat's total equals the
-    dy of the non-empty bins; on maps with ties, a replay that gives every
-    tying cell the whole dy, and one that gives it to the first tying cell,
-    both miss the tolerance. Then the kernel and plain times."""
+    BWD_ATOL, at the train pools' shapes (BEV 75x75x512, image 48x156x512),
+    on two roi sets: 128 rois with a duplicate and the edge rois, and the
+    stress rois; float32 and bf16, on distinct, post-ReLU sparse and
+    few-level maps. dfeat's total equals the dy of the non-empty bins; on
+    maps with ties, a replay that gives every tying cell the whole dy, and
+    one that gives it to the first tying cell, both miss the tolerance.
+    Then, on the 128 rois, the kernel alone (raw launches), the same
+    without the six edge rois, the wrapper and the plain version."""
     worst = 0.0
     timing, parts = {}, {}
     for name, (shape, in_h, in_w) in BWD_VIEWS.items():
@@ -660,58 +780,80 @@ def phase_roi_bwd(gen):
                 "levels": (x * 2).round().clamp(0, 4) / 2}
         rois = make_rois(gen, 121, in_h, in_w, 1)
         rois = torch.cat([rois, rois[:1]])           # a duplicated roi
-        hs, he, ws, we = bin_bounds(rois, 7, 1.0 / 8, *shape[:2]).unbind(1)
-        nonempty = ((he > hs)[:, :, None] & (we > ws)[:, None, :])[..., None]
-        for dtype in (torch.float32, torch.bfloat16):
-            for kind, m in maps.items():
-                feat = m.to(dtype)
-                out = roi_pool_cuda(feat, rois)
-                dy = torch.rand(out.shape, generator=gen).cuda()
-                got = roi_pool_bwd_cuda(feat, rois, out, dy)
-                ref = roi_pool_bwd(feat, rois, out, dy)
-                torch.cuda.synchronize()
-                err = (got - ref).abs().max().item()
-                tol = BWD_RTOL * ref.abs().max().item() + BWD_ATOL
-                what = "roi_pool_bwd %s %s %s" % (name, dtype, kind)
-                if not err <= tol:
-                    raise AssertionError("%s: max |diff| %g > %g"
-                                         % (what, err, tol))
-                mass = got.double().sum().item()
-                want = (dy.double() * nonempty).sum().item()
-                if not abs(mass - want) <= 1e-5 * abs(want):
-                    raise AssertionError("%s: dfeat sums to %r, the non-empty "
-                                         "bins' dy to %r" % (what, mass, want))
-                line = "%s: max |diff| %g <= %g, mass %.6f of %.6f" % (
-                    what, err, tol, mass, want)
-                if kind != "distinct" or dtype == torch.bfloat16:
-                    traps = {rule: (replay_trap(feat, rois, out, dy, rule)
-                                    - ref).abs().max().item()
-                             for rule in ("all", "first")}
-                    if not min(traps.values()) > tol:
-                        raise AssertionError("%s: a wrong tie rule would pass "
-                                             "the check: %s" % (what, traps))
-                    line += "; whole-dy replay off by %g, first-argmax by %g" % (
-                        traps["all"], traps["first"])
-                worst = max(worst, err)
-                print(line)
-                if kind == "sparse":
-                    timing[(name, dtype)] = (
-                        cuda_ms(lambda: roi_pool_bwd_cuda(feat, rois, out, dy)),
-                        cuda_ms(lambda: roi_pool_bwd(feat, rois, out, dy),
-                                iters=3, warmup=1))
-                    # a compare and, for a tie, an add per covered cell
-                    parts[(name, dtype)] = (
-                        nbytes(feat, rois, out, dy, got),
-                        2 * bin_cells_total(rois, *shape[:2]) * shape[2])
-    for (name, dtype), (k, p) in timing.items():
-        print("roi_pool_bwd time %s %s rois=128: kernel %.4f ms, plain %.4f ms"
-              % (name, dtype, k, p))
+        for set_name, rs in (("rois=128", rois),
+                             ("stress", stress_rois(in_h, in_w, 0))):
+            hs, he, ws, we = bin_bounds(rs, 7, 1.0 / 8, *shape[:2]).unbind(1)
+            nonempty = ((he > hs)[:, :, None] & (we > ws)[:, None, :])[..., None]
+            for dtype in (torch.float32, torch.bfloat16):
+                for kind, m in maps.items():
+                    feat = m.to(dtype)
+                    out = roi_pool_cuda(feat, rs)
+                    dy = torch.rand(out.shape, generator=gen).cuda()
+                    got = roi_pool_bwd_cuda(feat, rs, out, dy)
+                    ref = roi_pool_bwd(feat, rs, out, dy)
+                    torch.cuda.synchronize()
+                    err = (got - ref).abs().max().item()
+                    tol = BWD_RTOL * ref.abs().max().item() + BWD_ATOL
+                    what = "roi_pool_bwd %s %s %s %s" % (name, set_name, dtype,
+                                                         kind)
+                    if not err <= tol:
+                        raise AssertionError("%s: max |diff| %g > %g"
+                                             % (what, err, tol))
+                    mass = got.double().sum().item()
+                    want = (dy.double() * nonempty).sum().item()
+                    if not abs(mass - want) <= 1e-5 * abs(want):
+                        raise AssertionError("%s: dfeat sums to %r, the "
+                                             "non-empty bins' dy to %r"
+                                             % (what, mass, want))
+                    line = "%s: max |diff| %g <= %g, mass %.6f of %.6f" % (
+                        what, err, tol, mass, want)
+                    if kind != "distinct" or dtype == torch.bfloat16:
+                        traps = {rule: (replay_trap(feat, rs, out, dy, rule)
+                                        - ref).abs().max().item()
+                                 for rule in ("all", "first")}
+                        if not min(traps.values()) > tol:
+                            raise AssertionError("%s: a wrong tie rule would "
+                                                 "pass the check: %s"
+                                                 % (what, traps))
+                        line += ("; whole-dy replay off by %g, first-argmax "
+                                 "by %g" % (traps["all"], traps["first"]))
+                    worst = max(worst, err)
+                    print(line)
+                    if kind == "sparse" and rs is rois:
+                        timing[(name, dtype)] = time_roi_bwd(feat, rois, out,
+                                                             dy)
+                        # a compare and, for a tie, an add per covered cell
+                        parts[(name, dtype)] = (
+                            nbytes(feat, rois, out, dy, got),
+                            2 * bin_cells_total(rois, *shape[:2]) * shape[2])
+    for (name, dtype), (k, k_core, wrapper, p, moved) in timing.items():
+        print("roi_pool_bwd time %s %s rois=128: kernel alone %.4f ms (%.4f "
+              "without the 6 edge rois), wrapper %.4f ms, plain %.4f ms; bins "
+              "read, out, dy and dfeat %.1f MB, %.0f GB/s"
+              % (name, dtype, k, k_core, wrapper, p, moved / 1e6,
+                 moved / k / 1e6))
     f32 = [timing[(name, torch.float32)] for name in BWD_VIEWS]
     # no single PyTorch call replays the max and splits dy among ties
-    return {"max_abs_err": worst, "ms": sum(k for k, _ in f32),
-            "plain_ms": sum(p for _, p in f32),
+    return {"max_abs_err": worst, "ms": sum(t[0] for t in f32),
+            "plain_ms": sum(t[3] for t in f32),
             **bound([parts[(name, torch.float32)] for name in BWD_VIEWS],
                     F32_PER_S), "library_ms": None}
+
+
+def time_roi_bwd(feat, rois, out, dy):
+    """(kernel alone, the same without make_rois' six edge rois (rows
+    121-126 of the set), wrapper, plain ms, bytes moved) for one map."""
+    scratch = torch.zeros(feat.shape, device=feat.device)
+    k = cuda_ms(roi_bwd_entry(feat, rois, out, dy, scratch))
+    keep = torch.cat([torch.arange(121), torch.arange(127, rois.shape[0])])
+    keep = keep.cuda()
+    k_core = cuda_ms(roi_bwd_entry(feat, rois[keep], out[keep], dy[keep],
+                                   scratch))
+    wrapper = cuda_ms(lambda: roi_pool_bwd_cuda(feat, rois, out, dy))
+    p = cuda_ms(lambda: roi_pool_bwd(feat, rois, out, dy), iters=3, warmup=1)
+    moved = (bin_cells_total(rois, *feat.shape[:2]) * feat.shape[2]
+             * feat.element_size() + nbytes(out, dy, scratch))
+    return k, k_core, wrapper, p, moved
 
 
 def train_batch(rng):
@@ -767,7 +909,8 @@ def phase_train(np_params, smi):
     He-scaled params with draws from a seeded generator: one warm-up step,
     TRAIN_STEPS timed steps, then one step with the proposal layer timed
     between synchronizes (kept out of the timed steps, whose clock the
-    probe would perturb). Checks finite metrics and a positive loss on
+    probe would perturb), then one under torch.profiler for its device busy
+    time. Checks finite metrics and a positive loss on
     every step, moved rpn_conv/3x3 and fc6_1 weights, and the ROI launch
     counts (zeroed just before, read just after: 2 forward and 2 backward
     per step, no stem). Then, in float32, one step's loss and gradients
@@ -816,6 +959,8 @@ def phase_train(np_params, smi):
             _, probed_ms = checked_step(name, step, params, opt, gen)
         finally:
             train_mod.proposal_layer_3d = proposal_layer
+        traced = device_busy(lambda: checked_step(name, step, params, opt,
+                                                  gen))
         still = [k for k, w in watch.items()
                  if torch.equal(params[module_key(k)].weight, w)]
         if still:
@@ -824,16 +969,17 @@ def phase_train(np_params, smi):
         print("train step %s: p50 %.3f ms/step over %d steps (%s) after a "
               "%.3f ms warm-up, loss %.5f then %s, %d gt cars; probed step "
               "%.3f ms, its proposal layer %.3f ms = %.3f of that step; "
-              "on [%s]" % (name, p50, TRAIN_STEPS,
-                           ", ".join("%.3f" % t for t in times), warm_ms,
-                           warm_loss, ", ".join("%.5f" % v for v in losses),
-                           n_gt, probed_ms, proposal_ms[0],
-                           proposal_ms[0] / probed_ms, smi))
+              "a traced step: %s; on [%s]" % (
+                  name, p50, TRAIN_STEPS, ", ".join("%.3f" % t for t in times),
+                  warm_ms, warm_loss, ", ".join("%.5f" % v for v in losses),
+                  n_gt, probed_ms, proposal_ms[0], proposal_ms[0] / probed_ms,
+                  traced, smi))
         del params, opt, step
     launches = {"roi_pool": roi_pool_cuda.launches,
                 "roi_pool_bwd": roi_pool_bwd_cuda.launches,
                 "vgg_stem": vgg_stem_cuda.launches}
-    steps = 2 * (TRAIN_STEPS + 2)   # both dtypes; warm-up and probed steps
+    # both dtypes; the warm-up, probed and traced steps
+    steps = 2 * (TRAIN_STEPS + 3)
     expected = {"roi_pool": 2 * steps, "roi_pool_bwd": 2 * steps,
                 "vgg_stem": 0}
     print("train-path launches: %s (expected %s)" % (launches, expected))

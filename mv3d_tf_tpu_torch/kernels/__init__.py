@@ -31,13 +31,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_int64
+_F = ctypes.c_float
 # C entry points: name -> argument types (all return a cudaError_t as int)
 _SIGNATURES = {
-    "mv3d_roi_pool_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "mv3d_roi_pool_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "mv3d_roi_pool_s8": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "mv3d_roi_pool_bwd_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    "mv3d_roi_pool_bwd_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "mv3d_roi_pool_f32": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
+    "mv3d_roi_pool_bf16": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
+    "mv3d_roi_pool_s8": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
+    "mv3d_roi_pool_bwd_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                              _P),
+    "mv3d_roi_pool_bwd_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                               _P),
     "mv3d_stem_s2d_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "mv3d_stem_s2d_bf16": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "mv3d_bev_place_f32": (_P, _P, _P, _P, _L, _L, _I, _I, _P),

@@ -6,10 +6,13 @@ defines them:
   * roi corners scaled by spatial_scale, then C round() (half away from
     zero); malformed rois are forced to 1x1;
   * bin [start, end) bounds in exact integer arithmetic, clipped to the
-    feature extent (``bin_bounds``, shared with the kernel's wrapper, so
-    kernel and plain version agree by construction);
+    feature extent (``bin_bounds``; the kernels carry the same formula in
+    csrc/roi_bin.cuh, held to this one on the card by chip_smoke.py);
   * empty bins give 0.
 A batched feature map (B,H,W,C) is indexed by each roi's frame column.
+``boundary_rois`` gives rois on every rounding and clipping case of the
+formula: the CPU tests hold ``bin_bounds`` and the plain pool to the JAX
+package on them, chip_smoke.py the kernels to the plain versions.
 
 The train path's pool (``roi_pool_train``) is single-frame, and its
 gradient is the TPU kernel's even-split equality replay (``roi_pool_bwd``).
@@ -45,6 +48,32 @@ def bin_bounds(rois, pooled, spatial_scale, H, W):
         ((p * roi_w) // pooled + xs[:, None]).clamp(0, W),
         (((p + 1) * roi_w + pooled - 1) // pooled + xs[:, None]).clamp(0, W),
     ], dim=1)
+
+
+def boundary_rois(in_h, in_w, frames=1):
+    """(R,5) float32 rois, on the CPU, for a map of in_h x in_w input pixels
+    at the 1/8 scale: corners on exact +-k.5 cells (round half away from
+    zero) and just off them, whole-map and beyond-map rois, rois wholly
+    outside the map, malformed rois (x2 < x1, y2 < y1) and 1-cell rois.
+    With frames > 1 the frame columns cycle through 0.9, 1.0, 2.7 and
+    `frames` (one past the last frame), which truncate and clamp."""
+    w, h = float(in_w), float(in_h)
+    rows = [[8 * k + 4, 8 * k - 4, 8 * k + 108, 8 * k + 156]
+            for k in (-3, -1, 0, 2, 5)]                  # corners at k.5
+    rows += [[8 * k + 3.99, 8 * k - 4.01, 8 * k + 107.9, 8 * k + 156.1]
+             for k in (-1, 2)]                           # just off k.5
+    rows += [[0, 0, w - 1, h - 1], [0, 0, w, h], [4, 4, w - 4, h - 4],
+             [-40, -40, w + 40, h + 40], [-1000, -1000, w + 1000, h + 1000],
+             [w - 20, h - 20, w + 60, h + 60],           # beyond the map
+             [w + 100, h + 100, w + 300, h + 300], [-300, -300, -100, -100],
+             [w / 2, h / 4, w / 4, h / 2], [w / 4, h / 2, w / 2, h / 4],
+             [20, 20, 20, 20], [20, 20, 23, 23], [-4, -4, -4, -4],
+             [w - 1, h - 1, w - 1, h - 1]]               # 1 cell or none
+    rois = torch.tensor(rows, dtype=torch.float32)
+    cycle = torch.tensor([0.9, 1.0, 2.7, frames])
+    frame = (cycle[torch.arange(len(rows)) % 4] if frames > 1
+             else torch.zeros(len(rows)))
+    return torch.cat([frame[:, None], rois], 1)
 
 
 def _as_batch(feat, rois):

@@ -3,15 +3,16 @@ mv3d_tf_tpu/ops/roi_pool_pallas.py: the forward (csrc/roi_pool.cu,
 roi_pool_pallas) and its gradient (csrc/roi_pool_bwd.cu,
 roi_pool_pallas_bwd).
 
-The plain PyTorch versions are ops/roi_pool.py:roi_pool and roi_pool_bwd;
-kernels and plain versions take their bin bounds from
-ops/roi_pool.py:bin_bounds.
+The plain PyTorch versions are ops/roi_pool.py:roi_pool and roi_pool_bwd,
+which take their bin bounds from ops/roi_pool.py:bin_bounds; the kernels
+compute the same bounds, and each roi's frame, from the rois themselves
+(csrc/roi_bin.cuh), so a wrapper allocates its output and makes one
+launch.
 """
 
 import torch
 
 from mv3d_tf_tpu_torch import kernels
-from mv3d_tf_tpu_torch.ops.roi_pool import _as_batch, bin_bounds
 
 _ENTRY = {torch.float32: "mv3d_roi_pool_f32",
           torch.bfloat16: "mv3d_roi_pool_bf16",
@@ -33,10 +34,8 @@ def roi_pool_cuda(feat, rois, pooled=7, spatial_scale=1.0 / 8):
         raise ValueError("roi_pool_cuda: feat must be (H,W,C) or (B,H,W,C)")
     if not (feat.is_contiguous() and rois.is_contiguous()):
         raise ValueError("roi_pool_cuda: inputs must be contiguous")
-    f, frame = _as_batch(feat, rois)
-    _, H, W, C = f.shape
+    B, H, W, C = feat.shape if feat.dim() == 4 else (1, *feat.shape)
     R = rois.shape[0]
-    bounds = bin_bounds(rois, pooled, spatial_scale, H, W).contiguous()
     out = torch.empty((R, pooled, pooled, C), dtype=feat.dtype,
                       device=feat.device)
     if R == 0 or C == 0:
@@ -45,8 +44,8 @@ def roi_pool_cuda(feat, rois, pooled=7, spatial_scale=1.0 / 8):
     with torch.cuda.device(feat.device):
         roi_pool_cuda.launches += 1
         err = getattr(lib, _ENTRY[feat.dtype])(
-            f.data_ptr(), bounds.data_ptr(), frame.data_ptr(), out.data_ptr(),
-            H, W, C, R, pooled, torch.cuda.current_stream().cuda_stream)
+            feat.data_ptr(), rois.data_ptr(), out.data_ptr(), B, H, W, C, R,
+            pooled, spatial_scale, torch.cuda.current_stream().cuda_stream)
     kernels.check(err, "roi_pool_cuda")
     return out
 
@@ -87,7 +86,6 @@ def roi_pool_bwd_cuda(feat, rois, out, dy, pooled=7, spatial_scale=1.0 / 8):
                                      tuple(dy.shape)))
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("roi_pool_bwd_cuda: inputs must be contiguous")
-    bounds = bin_bounds(rois, pooled, spatial_scale, H, W).contiguous()
     dfeat = torch.zeros((H, W, C), dtype=torch.float32, device=feat.device)
     if R == 0 or C == 0:
         return dfeat
@@ -95,8 +93,8 @@ def roi_pool_bwd_cuda(feat, rois, out, dy, pooled=7, spatial_scale=1.0 / 8):
     with torch.cuda.device(feat.device):
         roi_pool_bwd_cuda.launches += 1
         err = getattr(lib, _BWD_ENTRY[feat.dtype])(
-            feat.data_ptr(), bounds.data_ptr(), out.data_ptr(), dy.data_ptr(),
-            dfeat.data_ptr(), W, C, R, pooled,
+            feat.data_ptr(), rois.data_ptr(), out.data_ptr(), dy.data_ptr(),
+            dfeat.data_ptr(), H, W, C, R, pooled, spatial_scale,
             torch.cuda.current_stream().cuda_stream)
     kernels.check(err, "roi_pool_bwd_cuda")
     return dfeat

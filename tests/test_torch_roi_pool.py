@@ -89,3 +89,43 @@ def test_fast_dispatch_cpu_uses_plain_and_other_devices_raise(rng):
         T.roi_pool_fast(feat.to("meta"), rois.to("meta"))
     with pytest.raises(ValueError):    # the kernel wrapper takes no CPU tensor
         roi_pool_cuda(feat, rois)
+
+
+@pytest.mark.parametrize("in_h,in_w,H,W", [(600, 600, 75, 75),
+                                           (384, 1248, 48, 156),
+                                           (88, 120, 11, 15)])
+def test_bin_bounds_on_boundary_rois_match_jax(in_h, in_w, H, W):
+    """The formula the kernels carry (csrc/roi_bin.cuh), pinned through
+    bin_bounds on rois at every rounding and clipping case: corners on
+    exact k.5 cells after the 1/8 scale and just off them, whole-map,
+    beyond-map, outside, malformed and 1-cell rois."""
+    rois = T.boundary_rois(in_h, in_w)
+    ref = _bin_bounds(jnp.asarray(rois.numpy()), 7, 1.0 / 8, H, W)
+    got = T.bin_bounds(rois, 7, 1.0 / 8, H, W)
+    for i, r in enumerate(ref):
+        np.testing.assert_array_equal(got[:, i].numpy(), np.asarray(r))
+    # every case is there: bins clipped at both edges, empty bins, 1-cell bins
+    hs, he, ws, we = got.unbind(1)
+    assert (hs == 0).any() and (he == H).any() and (we == W).any()
+    assert (he <= hs).any() and ((he - hs == 1) & (we - ws == 1)).any()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_boundary_rois_pool_matches_pallas(rng, dtype):
+    """The plain pool on the boundary rois over three frames, against
+    roi_pool_pallas(interpret=True), bit for bit; frame columns 0.9, 1.0,
+    2.7 and 3 truncate and clamp to frames 0, 1, 2 and 2."""
+    if dtype == "int8":
+        feat = rng.randint(-128, 128, (3, 11, 15, 16)).astype(np.int8)
+    else:
+        feat = rng.randn(3, 11, 15, 16).astype(np.float32)
+    rois = T.boundary_rois(88, 120, frames=3)
+    jfeat = jnp.asarray(feat).astype(dtype)
+    ref = roi_pool_pallas(jfeat, jnp.asarray(rois.numpy()), interpret=True)
+    tfeat = torch.from_numpy(feat).to(getattr(torch, dtype))
+    got = T.roi_pool(tfeat, rois)
+    assert got.dtype == tfeat.dtype
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(ref, np.float32))
+    frame = T._as_batch(tfeat, rois)[1]
+    assert frame[:4].tolist() == [0, 1, 2, 2]
