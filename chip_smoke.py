@@ -69,9 +69,10 @@ from mv3d_tf_tpu_torch.models.vgg import (conv2d, layer, max_pool_2x2_valid,
 from mv3d_tf_tpu_torch.ops import bev, conv_s8_cuda
 from mv3d_tf_tpu_torch.ops import conv_s8 as S8
 from mv3d_tf_tpu_torch.ops import roi_pool_cuda as roi_pool_cuda_mod
-from mv3d_tf_tpu_torch.ops.bev_cuda import (N_FLAT, bev_place_cuda,
-                                            bev_place_plain)
+from mv3d_tf_tpu_torch.ops.bev_cuda import (CHUNK_CELLS, N_FLAT,
+                                            bev_place_cuda, bev_place_plain)
 from mv3d_tf_tpu_torch.ops.conv_s8_cuda import (conv2x2_s8_cuda,
+                                                conv2x2_s8_nk_cuda,
                                                 conv3x3_s8_cuda,
                                                 conv3x3_s8_nk_cuda,
                                                 matmul_s8_cuda,
@@ -1078,10 +1079,14 @@ def division_rules():
 def phase_bev_kernel(smi):
     """The placement kernel against its plain version (torch.equal) on the
     sorted KITTI-scale traffic, a heavy-duplicate batch, the 16 boundary
-    points, an all-invalid scan and a scan with NaN rows; the whole
-    point_cloud_2_top_batch on the card against the numpy twin on every
-    scan. Then the kernel's and the plain placement's CUDA-event means at
-    B=8, and the whole front end per scan."""
+    points, an all-invalid scan, a scan with NaN rows, the chunk-edge scans
+    of ops/bev.py:chunk_edge_points and a B=5 batch (scans 1-3 start off a
+    16-byte line); the whole point_cloud_2_top_batch on the card against
+    the numpy twin on every scan of those; then the kernel alone on
+    chunk_edge_slots (the raster's first and last elements spliced in).
+    Then at B=8: the kernel's and the plain placement's CUDA-event means, a
+    torch.zeros of the raster alone (what the earlier design paid before
+    its first winner), the bound, and the whole front end per scan."""
     rng = np.random.RandomState(SEED + 5)
     kitti = scan_traffic(rng, SCANS)
     dup = scan_traffic(rng, 2)
@@ -1096,23 +1101,34 @@ def phase_bev_kernel(smi):
              "heavy duplicates": (dup, rng.rand(2, SCAN_POINTS) > 0.05),
              "slice boundaries": boundary_scan(),
              "all invalid": (kitti[:1], np.zeros((1, SCAN_POINTS), bool)),
-             "NaN rows": (nan, ones(nan))}
+             "NaN rows": (nan, ones(nan)),
+             "chunk edges": bev.chunk_edge_points(),
+             "B=5, scans off 16-byte lines": (kitti[:5], ones(kitti[:5]))}
     worst = 0.0
-    for what, (pts, val) in cases.items():
-        p, v = torch.from_numpy(pts).cuda(), torch.from_numpy(val).cuda()
-        sorted_ = bev.sort_slots(p, v)
+
+    def check(what, sorted_):
         got = bev_place_cuda(*sorted_)
         ref = bev_place_plain(*sorted_)
-        worst = max(worst, max_err(got, ref))
         if not torch.equal(got, ref):
             raise AssertionError("bev_place_cuda != plain on %s: %d entries "
                                  "differ" % (what, int((got != ref).sum())))
+        return max_err(got, ref)
+
+    for what, (pts, val) in cases.items():
+        p, v = torch.from_numpy(pts).cuda(), torch.from_numpy(val).cuda()
+        sorted_ = bev.sort_slots(p, v)
+        worst = max(worst, check(what, sorted_))
         tops = bev.point_cloud_2_top_batch(p, v).cpu().numpy()
         check_twin(tops, pts, val, what)
         live = int((sorted_[0] < N_FLAT).sum())
         print("bev_place %s %s: bit-identical to plain; the front end equals "
               "the numpy twin on every scan (%d points placed, %d nonzero)"
               % (what, tuple(pts.shape[:2]), live, np.count_nonzero(tops)))
+    edge = [t.cuda() for t in bev.chunk_edge_slots()]
+    worst = max(worst, check("chunk-edge slots", edge))
+    print("bev_place chunk-edge slots %s (slots 0 and N_FLAT - 2 spliced "
+          "in, scan 1 empty): bit-identical to plain"
+          % (tuple(edge[0].shape),))
 
     p = torch.from_numpy(kitti).cuda()
     v = torch.from_numpy(ones(kitti)).cuda()
@@ -1120,6 +1136,7 @@ def phase_bev_kernel(smi):
     seg_s, zs, rs = bev.sort_slots(p, v)
     ms = cuda_ms(lambda: bev_place_cuda(seg_s, zs, rs))
     plain_ms = cuda_ms(lambda: bev_place_plain(seg_s, zs, rs), iters=10)
+    zeros_ms = cuda_ms(lambda: torch.zeros((SCANS, N_FLAT), device="cuda"))
     sort_ms = cuda_ms(lambda: bev.sort_slots(p, v), iters=10)
     front_ms = cuda_ms(lambda: bev.point_cloud_2_top_batch(p, v), iters=10)
     t0 = time.perf_counter()
@@ -1131,12 +1148,14 @@ def phase_bev_kernel(smi):
                      F32_PER_S),
              # no single PyTorch call finds the run ends and places them
              "library_ms": None}
-    print("bev_place time B=%d N=%d: kernel %.4f ms (bound %.4f ms, %s), "
-          "plain %.4f ms; prep + stable sort %.4f ms; whole front end %.4f "
-          "ms = %.4f ms/scan, %.1f scans/s on device-resident points; from "
-          "numpy with the copy to the card %.3f ms; on [%s]" % (
+    print("bev_place time B=%d N=%d: kernel %.4f ms (bound %.4f ms, %s, "
+          "%.3f of it), plain %.4f ms; torch.zeros of the raster alone %.4f "
+          "ms; %d cells a chunk; prep + stable sort %.4f ms; whole front end %.4f ms = %.4f ms/scan, "
+          "%.1f scans/s on device-resident points; from numpy with the copy "
+          "to the card %.3f ms; on [%s]" % (
               SCANS, SCAN_POINTS, ms, stats["bound_ms"], stats["bound_by"],
-              plain_ms, sort_ms, front_ms, front_ms / SCANS,
+              stats["bound_ms"] / ms, plain_ms, zeros_ms,
+              CHUNK_CELLS, sort_ms, front_ms, front_ms / SCANS,
               SCANS * 1e3 / front_ms, host_ms, smi))
     return stats
 
@@ -1273,8 +1292,8 @@ def conv_work(x, w, out):
 def check_conv(name, taps, x, w, k, b, out_dtype):
     """The s8 conv kernel against its plain version, torch.equal: a 3x3
     through both conv3x3_s8_nk_cuda (on the prepared weight) and
-    conv3x3_s8_cuda, a 2x2 through conv2x2_s8_cuda. Returns the kernel's
-    output and its max |diff| (0 when equal)."""
+    conv3x3_s8_cuda, a 2x2 through both conv2x2_s8_nk_cuda and
+    conv2x2_s8_cuda. Returns the kernel's output and the plain one."""
     if taps == 3:
         ref = S8.conv3x3_s8_plain(x, w, k, b, out_dtype)
         outs = {"conv3x3_s8_nk_cuda": conv3x3_s8_nk_cuda(
@@ -1282,7 +1301,9 @@ def check_conv(name, taps, x, w, k, b, out_dtype):
                 "conv3x3_s8_cuda": conv3x3_s8_cuda(x, w, k, b, out_dtype)}
     else:
         ref = S8.conv2x2_s8_plain(x, w, k, b, out_dtype)
-        outs = {"conv2x2_s8_cuda": conv2x2_s8_cuda(x, w, k, b, out_dtype)}
+        outs = {"conv2x2_s8_nk_cuda": conv2x2_s8_nk_cuda(
+                    x, S8.prepare_s8_conv2x2_weight(w), k, b, out_dtype),
+                "conv2x2_s8_cuda": conv2x2_s8_cuda(x, w, k, b, out_dtype)}
     for wrapper, got in outs.items():
         if got.dtype != out_dtype or not torch.equal(got, ref):
             raise AssertionError(
@@ -1299,15 +1320,20 @@ def phase_conv_s8(smi):
     """The s8 conv kernels against their plain versions, torch.equal, at B=2
     at every shape of the int8 path: each view's trunk layers, its packed
     conv1_2, the RPN conv in float32 output; a ragged 3x3 (H odd, W no
-    multiple of 8, C=96 padded to 128) in both outputs, a ragged 2x2, a
-    9-channel input; then an M below one 128-pixel tile, H = 1 and W = 1
-    maps and C = 192 (the kernel's 64-channel slabs at the 256-wide tile).
-    Each 3x3 case runs through both conv3x3_s8_nk_cuda on the prepared
-    weight and conv3x3_s8_cuda. A replay of the float32 epilogue with two
-    roundings (acc * k, then + b) must differ from the kernel. Then kernel
-    and plain times at B=8 per shape of one int8 detector call (TOP/s and
-    the fraction of the bound) and summed over its convs; the cost of the
-    zero-padded channels. Returns the 3x3 and 2x2 stats."""
+    multiple of 8, C=96 padded to 128) in both outputs, a ragged 2x2 (C=96
+    padded to 128, N=48 under one tile) in both, a 9-channel input; then
+    an M below one 128-pixel tile, H = 1 and W = 1 maps and C = 192 (the
+    kernel's 64-channel slabs at the 256-wide tile); for the 2x2, H = 2 and
+    W = 2 maps (one output row, one column), an M below one tile and the
+    tiny (1, 9, 9, 128) map of the CPU tests. Each case runs through both
+    wrappers of its window (the prepared weight and the per-call one). A
+    replay of the float32 epilogue with two roundings (acc * k, then + b)
+    must differ from the kernel. Then kernel and plain times at B=8 per
+    shape of one int8 detector call (TOP/s and the fraction of the bound)
+    and summed over its convs, both windows on prepared weights; beside the
+    2x2, torch._int_mm on its GEMM, from an im2col made outside the timed
+    window; the cost of the zero-padded channels. Returns the 3x3 and 2x2
+    stats."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
     cases = []
     for view, (H, W) in S8_VIEWS.items():
@@ -1320,6 +1346,11 @@ def phase_conv_s8(smi):
               ("ragged 3x3", 3, PLAIN_B, 37, 45, 96, 64, torch.int8),
               ("ragged 3x3", 3, PLAIN_B, 37, 45, 96, 64, torch.float32),
               ("ragged 2x2", 2, PLAIN_B, 38, 47, 96, 48, torch.int8),
+              ("ragged 2x2", 2, PLAIN_B, 38, 47, 96, 48, torch.float32),
+              ("H = 2 map", 2, PLAIN_B, 2, 301, 256, 256, torch.int8),
+              ("W = 2 map", 2, PLAIN_B, 45, 2, 128, 128, torch.float32),
+              ("M = 40, below one tile", 2, 1, 5, 11, 256, 256, torch.int8),
+              ("(1, 9, 9, 128) map", 2, 1, 9, 9, 128, 128, torch.int8),
               ("9-channel input", 3, PLAIN_B, 41, 43, 9, 64, torch.int8),
               ("M = 126, below one tile", 3, PLAIN_B, 7, 9, 128, 256,
                torch.int8),
@@ -1335,10 +1366,9 @@ def phase_conv_s8(smi):
         x, w, k, b = s8_case(gen, B, H, W, C, N, taps)
         got, ref = check_conv(name, taps, x, w, k, b, out_dtype)
         worst[taps] = max(worst[taps], max_err(got, ref))
-        line = "conv_s8 %dx%d %s %s B=%d: bit-identical to plain" % (
-            taps, taps, name, str(out_dtype).split(".")[-1], B)
-        if taps == 3:
-            line += " through both wrappers"
+        line = ("conv_s8 %dx%d %s %s B=%d: bit-identical to plain through "
+                "both wrappers" % (taps, taps, name,
+                                   str(out_dtype).split(".")[-1], B))
         if out_dtype == torch.int8:
             inside = ((ref > 0) & (ref < 127)).float().mean().item()
             line += " (%.3f of codes inside (0, 127))" % inside
@@ -1357,8 +1387,8 @@ def phase_conv_s8(smi):
         raise AssertionError("no two-rounding replay ran")
 
     # one B=8 int8 detector call: 22 trunk convs and the RPN conv, two packed
-    # conv1_2; each distinct shape timed once and weighted by its count. The
-    # 3x3 convs run on prepared weights, as the detector's trunks do.
+    # conv1_2; each distinct shape timed once and weighted by its count. Both
+    # windows run on prepared weights, as the detector's do.
     sums = {3: [0.0, 0.0, []], 2: [0.0, 0.0, []]}
     timed_cases = [(2, 1, H + 1, W + 1, 256, 256, torch.int8)
                    for H, W in S8_VIEWS.values()]
@@ -1375,8 +1405,9 @@ def phase_conv_s8(smi):
             plain = lambda: S8.conv3x3_s8_plain(  # noqa: E731
                 x, w, k, b, out_dtype)
         else:
-            kernel = lambda: conv2x2_s8_cuda(  # noqa: E731
-                x, w, k, b, out_dtype)
+            w_nk = S8.prepare_s8_conv2x2_weight(w)
+            kernel = lambda: conv2x2_s8_nk_cuda(  # noqa: E731
+                x, w_nk, k, b, out_dtype)
             plain = lambda: S8.conv2x2_s8_plain(  # noqa: E731
                 x, w, k, b, out_dtype)
         out = kernel()
@@ -1387,11 +1418,25 @@ def phase_conv_s8(smi):
         sums[taps][0] += count * km
         sums[taps][1] += count * pm
         sums[taps][2] += [work] * count
-        print("conv_s8 time %dx%d B=%d %dx%dx%d->%d %s x%d: kernel %.4f ms "
-              "(%.1f TOP/s, %.3f of the bound %.4f ms), plain %.4f ms" % (
-                  taps, taps, INT8_B, H, W, C, N,
-                  str(out_dtype).split(".")[-1], count, km,
-                  work[1] / km / 1e9, floor / km, floor, pm))
+        line = ("conv_s8 time %dx%d B=%d %dx%dx%d->%d %s x%d: kernel %.4f ms "
+                "(%.1f TOP/s, %.3f of the bound %.4f ms), plain %.4f ms" % (
+                    taps, taps, INT8_B, H, W, C, N,
+                    str(out_dtype).split(".")[-1], count, km,
+                    work[1] / km / 1e9, floor / km, floor, pm))
+        if taps == 2:
+            # the yardstick of the product alone: torch._int_mm on the
+            # conv's GEMM (B*Ho*Wo, 4*C) x (4*C, N), the im2col made first;
+            # the port never calls it, and it computes no conv
+            cols, _ = S8._im2col(x, 2, 2, 0)
+            w_cm = w.reshape(4 * C, N).t().contiguous().t()
+            lm = cuda_ms(lambda: torch._int_mm(cols, w_cm), iters=5,
+                         warmup=1)
+            line += ("; torch._int_mm on its GEMM (%d, %d) x (%d, %d), "
+                     "product only: %.4f ms (%.1f TOP/s)" % (
+                         cols.shape[0], 4 * C, 4 * C, N, lm,
+                         work[1] / lm / 1e9))
+            del cols
+        print(line)
         del x, w, out
     stats = {}
     for taps, (km, pm, parts) in sums.items():
@@ -1522,6 +1567,9 @@ class plain_routes:
              (conv_s8_cuda, "conv2x2_s8_cuda",
               lambda x, w, k, b, out_dtype=torch.int8:
               S8.conv2x2_s8_plain(x, w, k, b, out_dtype)),
+             (conv_s8_cuda, "conv2x2_s8_nk_cuda",
+              lambda x, w_nk, k, b, out_dtype=torch.int8:
+              S8.conv2x2_s8_nk_plain(x, w_nk, k, b, out_dtype)),
              (conv_s8_cuda, "matmul_s8_nk_cuda", S8.matmul_s8_nk_plain),
              (roi_pool_cuda_mod, "roi_pool_cuda",
               lambda f, r, pooled=7, spatial_scale=1.0 / 8:
@@ -1583,16 +1631,40 @@ def device_busy(fn):
             % (len(dev), busy / 1e3, span / 1e3, 1 - busy / span))
 
 
+def stem_prep(params, state):
+    """quant.prepare_s2d_stem_int8 for both views, the work that the built
+    int8 detector's stem cache takes off each call: ms of its second run
+    (the first warms the allocator), with a synchronize before and after,
+    and a third run traced (device_busy)."""
+    def prep():
+        with torch.inference_mode():
+            for key, suffix in (("trunk_bv", ""), ("trunk_img", "_2")):
+                Q.prepare_s2d_stem_int8(params, state[key], suffix)
+
+    prep()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prep()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, device_busy(prep)
+
+
 def int8_stages(params, state, bev, image, calib, stem="s2d_int8"):
     """One int8 detector call (eval._detect_int8 with the INT8_KW options,
-    the stem named by ``stem``: "s2d_int8" or "s2d_fused"; trunk and head
-    weights prepared once beforehand) with a synchronize after each stage:
-    ms per stage."""
+    the stem named by ``stem``: "s2d_int8" or "s2d_fused"; trunk, head and
+    s2d_int8 stem weights prepared once beforehand) with a synchronize
+    after each stage: ms per stage. The s2d_int8 stem is split into its
+    weights' lookup in the cache the built detector keeps
+    (quant.s2d_stem_weights) and the stages of quant.s2d_stem_int8_stages,
+    the generator the detector's stem runs, timed between its yields."""
     ms = {}
     # laid out once, as the built detector does
     trunk_w = {key: Q.prepare_trunk_weights(state[key])
                for key in ("trunk_bv", "trunk_img")}
     head_nk = Q.prepare_head_weights(state["head"])
+    stem_cache = {"trunk_bv": {}, "trunk_img": {}}
+    for key, suffix in (("trunk_bv", ""), ("trunk_img", "_2")):
+        Q.s2d_stem_weights(stem_cache[key], params, state[key], suffix)
 
     def clock(stage, fn, *args):
         torch.cuda.synchronize()
@@ -1602,15 +1674,27 @@ def int8_stages(params, state, bev, image, calib, stem="s2d_int8"):
         ms[stage] = ms.get(stage, 0.0) + (time.perf_counter() - t0) * 1e3
         return out
 
+    def s2d_int8_stem(qtrunk, x, suffix, cache):
+        sw = clock("s2d int8 stems: weight preparation", Q.s2d_stem_weights,
+                   cache, params, qtrunk, suffix)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for stage, out in Q.s2d_stem_int8_stages(qtrunk, x, sw):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            stage = "s2d int8 stems: " + stage
+            ms[stage] = ms.get(stage, 0.0) + (t1 - t0) * 1e3
+            t0 = t1
+        return out
+
     with torch.inference_mode():
         bev, image, calib = clock("inputs", eval_mod._inputs, params, bev,
                                   image, calib)
         q_bv, q_im = state["trunk_bv"], state["trunk_img"]
         if stem == "s2d_int8":
-            stem_bv, _ = clock("s2d int8 stems", Q._s2d_stem_int8, params,
-                               q_bv, bev, "")
-            stem_im, _ = clock("s2d int8 stems", Q._s2d_stem_int8, params,
-                               q_im, image, "_2")
+            stem_bv = s2d_int8_stem(q_bv, bev, "", stem_cache["trunk_bv"])
+            stem_im = s2d_int8_stem(q_im, image, "_2",
+                                    stem_cache["trunk_img"])
             tail = Q.trunk_apply_int8_from_stem_q
         else:
             stem_bv = clock("s2d fused stems", Q._float_stem, params, bev, "",
@@ -1709,6 +1793,10 @@ def phase_int8_detector(np_params, smi):
           "total %.3f" % (INT8_B, ", ".join("%s %.3f" % kv
                                             for kv in stages.items()),
                           sum(stages.values())))
+    print("s2d_int8 stem weights of both views prepared per call, as "
+          "before the built detector kept them: %.3f ms (the split's weight "
+          "preparation is the cache's lookup); traced: %s; on [%s]"
+          % (*stem_prep(params, state), smi))
     print("int8 detector B=%d traced: %s" % (
         INT8_B, device_busy(lambda: detect(params, bev_, image, calib))))
 

@@ -1,4 +1,5 @@
-// s8 convolutions with the fused requant epilogue: 3x3 SAME and 2x2 VALID.
+// s8 convolutions with the fused requant epilogue: 3x3 SAME and 2x2 VALID,
+// one kernel templated over the window.
 //
 // Replace the TPU kernels of mv3d_tf_tpu/ops/conv_s8_pallas.py:
 //   conv3x3_s8_pallas_v2 (:155) and conv3x3_s8_pallas (:46), which compute
@@ -7,25 +8,29 @@
 //     weights prepared once per detector) and, with float32 output, the int8
 //     RPN conv (quant.py:rpn_conv_int8);
 //   conv2x2_s8_pallas (:260), the packed conv1_2 of the s2d int8 stem
-//     (quant.py:s2d_conv1_2_int8), on the mma.sync implicit GEMM of
-//     s8_igemm.cuh.
-// Plain versions: ops/conv_s8.py:conv3x3_s8_nk_plain (the prepared operand
-// this kernel reads), conv3x3_s8_plain and conv2x2_s8_plain.
+//     (quant.py:s2d_conv1_2_int8, on a weight prepared once per view).
+// Plain versions: ops/conv_s8.py:conv3x3_s8_nk_plain and conv2x2_s8_nk_plain
+// (the prepared operands this kernel reads), conv3x3_s8_plain and
+// conv2x2_s8_plain.
 //
-// What bounds the 3x3 conv on Hopper: operations. A trunk conv does 2 * 9 * C
-// multiply-adds per output byte it writes (C = 64..512), above the card's
-// ~590 int8 operations per byte of HBM, so the s8 tensor cores are the
-// limit. The design is the implicit GEMM M = B*H*W output pixels, N =
-// output channels, K = 9 taps x Cp input channels, on the machinery of the
-// s8 GEMM (matmul_s8.cu, sm90_s8.cuh):
+// What bounds them on Hopper: operations. A trunk 3x3 conv does 2 * 9 * C
+// multiply-adds per output byte it writes (C = 64..512), far above the
+// card's ~590 int8 operations per byte of HBM. The stem's 2x2 (Cp = N =
+// 256, K = 4 * 256) does ~1,000 per byte of its input and output: still
+// above the ridge but close to it, so how well the epilogue overlaps the
+// MMAs counts for more there. Either conv's 128 x 256 tile does ~170
+// operations per byte it reads from L2. The design is the implicit GEMM
+// M = B*Ho*Wo output pixels, N = output channels, K = KH*KW taps x Cp input
+// channels, on the machinery of the s8 GEMM (matmul_s8.cu, sm90_s8.cuh):
 //   * wgmma.mma_async m64nBNk32 s8 with s32 accumulators in registers, both
 //     operands K-major in shared memory, as 8-bit wgmma requires; two
 //     consumer warpgroups own 64 rows each of a 128 x BN tile (BN = 256
 //     where N >= 256, else 128);
 //   * a K slab is one tap's BK channels (BK = 128, or 64 where Cp is no
-//     multiple of 128), so the 9 * Cp / BK slabs walk (dy, dx, c) in the
-//     order of the prepared weight (N, 9 * Cp) (ops/conv_s8.py:
-//     prepare_s8_conv_weight, laid out once per weight);
+//     multiple of 128), so the KH * KW * Cp / BK slabs walk (dy, dx, c) in
+//     the order of the prepared weight (N, KH*KW*Cp) (ops/conv_s8.py:
+//     prepare_s8_conv_weight and prepare_s8_conv2x2_weight, laid out once
+//     per weight);
 //   * both operands arrive by TMA with the BK-byte swizzle that the wgmma
 //     descriptors name, into a ring of 4-8 stages (~192 KB) counted on
 //     mbarriers; one producer thread keeps the ring full, and a consumer
@@ -34,21 +39,25 @@
 //   * the A operand (the im2col rows) is one TMA load per slab in im2col
 //     mode: the 128 pixels m0 .. m0 + 127 of the tile, each shifted by the
 //     tap (dx, dy), BK channels each. The tensor map's bounding box runs
-//     the window origin over (-1 .. W-2) x (-1 .. H-2), so the hardware
-//     walks the tile across rows and images by itself, and a tap that
-//     falls in the SAME padding (or a pixel past B*H*W) reads zeros, which
-//     add zero to an integer sum: no address math, no bounds tests and no
-//     per-pixel division in the kernel. A producer warpgroup gathering A
-//     with cp.async (the other choice) would spend 128 threads on
-//     addresses and need a generic-to-async proxy fence before each wgmma;
-//     TMA needs one thread and writes in the async proxy that wgmma reads;
+//     the window origin over (-PAD .. W+PAD-KW) x (-PAD .. H+PAD-KH): for
+//     the 3x3 SAME (-1 .. W-2) x (-1 .. H-2), for the 2x2 VALID
+//     (0 .. W-2) x (0 .. H-2). So the hardware walks the Ho x Wo output
+//     pixels of each image in NHWC order, across rows and images by
+//     itself, and a tap that falls in the SAME padding (or a pixel past M)
+//     reads zeros, which add zero to an integer sum: no address math, no
+//     bounds tests and no per-pixel division in the kernel. A producer
+//     warpgroup gathering A with cp.async (the other choice) would spend
+//     128 threads on addresses and need a generic-to-async proxy fence
+//     before each wgmma; TMA needs one thread and writes in the async
+//     proxy that wgmma reads;
 //   * the weights arrive by tiled TMA, zero past N; the N tiles of one M
 //     tile run next to each other, so a tile of x comes from device memory
 //     about once; the weights (<= 2.4 MB) stay in L2;
 //   * persistent blocks, one per SM, walk the tiles with one ring for all
 //     of them: the producer loads the next tile's first slabs while the
 //     consumers store the last tile, so neither a block launch nor the
-//     ring's fill is paid per tile (a C=64 tile has only nine slabs);
+//     ring's fill is paid per tile (a C=64 3x3 tile has only nine slabs,
+//     the stem's 2x2 tile eight);
 //   * the epilogue is the JAX package's requant (quant.py:_conv_requant),
 //     done as ONE fused multiply-add, the rounding XLA gives it under jit:
 //       y = fma(float(acc), k[n], b[n])            (__fmaf_rn: one rounding)
@@ -63,7 +72,6 @@
 // are no multiple of 64 are zero-padded by the wrapper (exact for integer
 // sums).
 
-#include "s8_igemm.cuh"
 #include "sm90_s8.cuh"
 
 namespace {
@@ -93,15 +101,17 @@ struct Tile {
                 "swizzled tiles must start 1024-byte aligned");
 };
 
-// map_x: im2col map of x (B,H,W,C) int8; map_w: tiled map of the prepared
-// weight (N, 9*C); k, b (N,) float32; out (B*H*W, N) int8 or float32.
-template <int BK, int BN, int OUT>
+// A KH x KW window with PAD pixels of zero padding on each side, stride 1:
+// map_x: im2col map of x (B,H,W,C) int8 (encode_im2col with the window's
+// corners); map_w: tiled map of the prepared weight (N, KH*KW*C); k, b (N,)
+// float32; out (B*Ho*Wo, N) int8 or float32, M = B*Ho*Wo.
+template <int KH, int KW, int PAD, int BK, int BN, int OUT>
 __global__ void __launch_bounds__(THREADS, 1)
-conv3x3_s8_wgmma(const __grid_constant__ CUtensorMap map_x,
-                 const __grid_constant__ CUtensorMap map_w,
-                 const float* __restrict__ kscale,
-                 const float* __restrict__ bias, void* __restrict__ out,
-                 int M, int H, int W, int C, int N) {
+conv_s8_wgmma(const __grid_constant__ CUtensorMap map_x,
+              const __grid_constant__ CUtensorMap map_w,
+              const float* __restrict__ kscale,
+              const float* __restrict__ bias, void* __restrict__ out, int M,
+              int Ho, int Wo, int C, int N) {
   using namespace sm90;
   typedef Tile<BK, BN> T;
   extern __shared__ uint8_t smem_raw[];
@@ -117,7 +127,7 @@ conv3x3_s8_wgmma(const __grid_constant__ CUtensorMap map_x,
   const int ntiles = (N + BN - 1) / BN;
   const int tiles = (M + BM - 1) / BM * ntiles;
   const int cslabs = C / BK;
-  const int ktiles = 9 * cslabs;
+  const int ktiles = KH * KW * cslabs;
   const int wg = threadIdx.x / 128;
 
   if (threadIdx.x == 0) {
@@ -141,20 +151,20 @@ conv3x3_s8_wgmma(const __grid_constant__ CUtensorMap map_x,
       for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
         const int n0 = (tile % ntiles) * BN;
         const int m0 = (tile / ntiles) * BM;
-        // the tile's first output pixel; its 3x3 window starts one pixel
-        // up and left
-        const int hw = H * W;
+        // the tile's first output pixel; its window starts PAD pixels up
+        // and left
+        const int hw = Ho * Wo;
         const int img = m0 / hw;
-        const int oh = (m0 - img * hw) / W;
-        const int ow = m0 - img * hw - oh * W;
+        const int oh = (m0 - img * hw) / Wo;
+        const int ow = m0 - img * hw - oh * Wo;
         for (int kt = 0; kt < ktiles; ++kt, ++it) {
           const int s = it % T::STAGES;
           const int tap = kt / cslabs;
           mbar_wait(&empty[s], ((it / T::STAGES) & 1) ^ 1);
           mbar_expect_tx(&full[s], T::STAGE_BYTES);
           tma_load_im2col(sa + s * T::A_BYTES, &map_x, &full[s],
-                          (kt - tap * cslabs) * BK, ow - 1, oh - 1, img,
-                          (uint16_t)(tap % 3), (uint16_t)(tap / 3));
+                          (kt - tap * cslabs) * BK, ow - PAD, oh - PAD, img,
+                          (uint16_t)(tap % KW), (uint16_t)(tap / KW));
           tma_load(sb + s * T::B_BYTES, &map_w, &full[s], kt * BK, n0);
         }
       }
@@ -255,16 +265,19 @@ conv3x3_s8_wgmma(const __grid_constant__ CUtensorMap map_x,
 }
 
 // x (B,H,W,C) int8 NHWC: 128-pixel columns of BK channels, window origins
-// over (-1 .. W-2) x (-1 .. H-2) (SAME padding of a 3x3 filter), zeros
-// outside the tensor
+// over (-PAD .. W-1+PAD+1-KW) x (-PAD .. H-1+PAD+1-KH), zeros outside the
+// tensor: lower corner -PAD, upper corner PAD+1-K on each axis, (-1, -1)
+// and (-1, -1) for the 3x3 SAME, (0, 0) and (-1, -1) for the 2x2 VALID
+template <int KH, int KW, int PAD>
 CUresult encode_im2col(sm90::EncodeIm2col fn, CUtensorMap* map, const void* x,
                        int B, int H, int W, int C, int bk) {
   const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H,
                               (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)C, (cuuint64_t)W * C,
                                  (cuuint64_t)H * W * C};
-  const int lower[2] = {-1, -1};     // (w, h) of the first window origin
-  const int upper[2] = {-1, -1};     // the last: (W - 1 - 1, H - 1 - 1)
+  const int lower[2] = {-PAD, -PAD};  // (w, h) of the first window origin
+  // the last, relative to (W - 1, H - 1)
+  const int upper[2] = {PAD + 1 - KW, PAD + 1 - KH};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4,
                         const_cast<void*>(x), dims, strides, lower, upper,
@@ -282,13 +295,13 @@ CUresult encode_im2col(sm90::EncodeIm2col fn, CUtensorMap* map, const void* x,
   return r;
 }
 
-template <int BK, int BN, int OUT>
-int launch3x3(const CUtensorMap& map_x, const CUtensorMap& map_w,
-              const void* k, const void* b, void* out, int M, int H, int W,
-              int C, int N, void* stream) {
+template <int KH, int KW, int PAD, int BK, int BN, int OUT>
+int launch(const CUtensorMap& map_x, const CUtensorMap& map_w, const void* k,
+           const void* b, void* out, int M, int Ho, int Wo, int C, int N,
+           void* stream) {
   typedef Tile<BK, BN> T;
   cudaError_t err = cudaFuncSetAttribute(
-      conv3x3_s8_wgmma<BK, BN, OUT>,
+      conv_s8_wgmma<KH, KW, PAD, BK, BN, OUT>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
   if (err != cudaSuccess) return (int)err;
   int dev = 0, sms = 0;
@@ -299,21 +312,56 @@ int launch3x3(const CUtensorMap& map_x, const CUtensorMap& map_w,
   const long long tiles =
       (long long)((M + BM - 1) / BM) * ((N + BN - 1) / BN);
   const int grid = (int)(tiles < sms ? tiles : sms);   // one block per SM
-  conv3x3_s8_wgmma<BK, BN, OUT>
+  conv_s8_wgmma<KH, KW, PAD, BK, BN, OUT>
       <<<grid, THREADS, T::SMEM, (cudaStream_t)stream>>>(
-          map_x, map_w, (const float*)k, (const float*)b, out, M, H, W, C, N);
+          map_x, map_w, (const float*)k, (const float*)b, out, M, Ho, Wo, C,
+          N);
   return (int)cudaGetLastError();
 }
 
-template <int BK, int BN>
-int launch3x3(const CUtensorMap& map_x, const CUtensorMap& map_w,
-              const void* k, const void* b, void* out, int M, int H, int W,
-              int C, int N, int out_f32, void* stream) {
+template <int KH, int KW, int PAD, int BK, int BN>
+int launch(const CUtensorMap& map_x, const CUtensorMap& map_w, const void* k,
+           const void* b, void* out, int M, int Ho, int Wo, int C, int N,
+           int out_f32, void* stream) {
   if (out_f32)
-    return launch3x3<BK, BN, F32>(map_x, map_w, k, b, out, M, H, W, C, N,
-                                  stream);
-  return launch3x3<BK, BN, S8>(map_x, map_w, k, b, out, M, H, W, C, N,
-                               stream);
+    return launch<KH, KW, PAD, BK, BN, F32>(map_x, map_w, k, b, out, M, Ho,
+                                            Wo, C, N, stream);
+  return launch<KH, KW, PAD, BK, BN, S8>(map_x, map_w, k, b, out, M, Ho, Wo,
+                                         C, N, stream);
+}
+
+// x (B,H,W,C) int8, C % 64 == 0; w (N, KH*KW*C) int8 in (dy, dx, c) order
+// (the prepared weight), N % 16 == 0; k and b (N,) float32; all 16-byte
+// aligned -> out (B,Ho,Wo,N) int8, or float32 when out_f32 is nonzero.
+// The tile widths follow C and N; the tensor maps are encoded per call.
+template <int KH, int KW, int PAD>
+int conv_s8(const void* x, const void* w, const void* k, const void* b,
+            void* out, int B, int H, int W, int C, int N, int out_f32,
+            void* stream) {
+  if (C % 64 != 0) return (int)cudaErrorInvalidValue;
+  const sm90::EncodeTiled tiled = sm90::encode_tiled_fn();
+  const sm90::EncodeIm2col im2col = sm90::encode_im2col_fn();
+  if (tiled == nullptr || im2col == nullptr) return -999;
+  const int bk = C % 128 == 0 ? 128 : 64;
+  const int bn = N >= 256 ? 256 : 128;
+  CUtensorMap map_x, map_w;
+  CUresult r = encode_im2col<KH, KW, PAD>(im2col, &map_x, x, B, H, W, C, bk);
+  if (r == CUDA_SUCCESS)
+    r = sm90::encode_kmajor(tiled, &map_w, w, N, KH * KW * C, bn, bk);
+  if (r != CUDA_SUCCESS) return -(int)r;
+  const int Ho = H + 2 * PAD - KH + 1, Wo = W + 2 * PAD - KW + 1;
+  const int M = B * Ho * Wo;
+  if (bk == 128 && bn == 256)
+    return launch<KH, KW, PAD, 128, 256>(map_x, map_w, k, b, out, M, Ho, Wo,
+                                         C, N, out_f32, stream);
+  if (bk == 128)
+    return launch<KH, KW, PAD, 128, 128>(map_x, map_w, k, b, out, M, Ho, Wo,
+                                         C, N, out_f32, stream);
+  if (bn == 256)
+    return launch<KH, KW, PAD, 64, 256>(map_x, map_w, k, b, out, M, Ho, Wo,
+                                        C, N, out_f32, stream);
+  return launch<KH, KW, PAD, 64, 128>(map_x, map_w, k, b, out, M, Ho, Wo, C,
+                                      N, out_f32, stream);
 }
 
 }  // namespace
@@ -327,39 +375,14 @@ int launch3x3(const CUtensorMap& map_x, const CUtensorMap& map_w,
 extern "C" int mv3d_conv3x3_s8(const void* x, const void* w, const void* k,
                                const void* b, void* out, int B, int H, int W,
                                int C, int N, int out_f32, void* stream) {
-  if (C % 64 != 0) return (int)cudaErrorInvalidValue;
-  const sm90::EncodeTiled tiled = sm90::encode_tiled_fn();
-  const sm90::EncodeIm2col im2col = sm90::encode_im2col_fn();
-  if (tiled == nullptr || im2col == nullptr) return -999;
-  const int bk = C % 128 == 0 ? 128 : 64;
-  const int bn = N >= 256 ? 256 : 128;
-  CUtensorMap map_x, map_w;
-  CUresult r = encode_im2col(im2col, &map_x, x, B, H, W, C, bk);
-  if (r == CUDA_SUCCESS)
-    r = sm90::encode_kmajor(tiled, &map_w, w, N, 9 * C, bn, bk);
-  if (r != CUDA_SUCCESS) return -(int)r;
-  const int M = B * H * W;
-  if (bk == 128 && bn == 256)
-    return launch3x3<128, 256>(map_x, map_w, k, b, out, M, H, W, C, N,
-                               out_f32, stream);
-  if (bk == 128)
-    return launch3x3<128, 128>(map_x, map_w, k, b, out, M, H, W, C, N,
-                               out_f32, stream);
-  if (bn == 256)
-    return launch3x3<64, 256>(map_x, map_w, k, b, out, M, H, W, C, N,
-                              out_f32, stream);
-  return launch3x3<64, 128>(map_x, map_w, k, b, out, M, H, W, C, N, out_f32,
-                            stream);
+  return conv_s8<3, 3, 1>(x, w, k, b, out, B, H, W, C, N, out_f32, stream);
 }
 
-// x (B,H,W,C) int8, C % 16 == 0; w (N, 4*C) int8 -> out (B,H-1,W-1,N), on
-// the mma.sync implicit GEMM of s8_igemm.cuh
+// x (B,H,W,C) int8, C % 64 == 0, H and W >= 2; w (N, 4*C) int8 in
+// (dy, dx, c) order (the prepared weight) -> out (B,H-1,W-1,N); otherwise
+// as mv3d_conv3x3_s8, return codes included
 extern "C" int mv3d_conv2x2_s8(const void* x, const void* w, const void* k,
                                const void* b, void* out, int B, int H, int W,
                                int C, int N, int out_f32, void* stream) {
-  if (out_f32)
-    return s8igemm::launch<2, 2, 0, s8igemm::OUT_F32>(x, w, k, b, out, B, H,
-                                                      W, C, N, stream);
-  return s8igemm::launch<2, 2, 0, s8igemm::OUT_S8>(x, w, k, b, out, B, H, W,
-                                                   C, N, stream);
+  return conv_s8<2, 2, 0>(x, w, k, b, out, B, H, W, C, N, out_f32, stream);
 }

@@ -14,8 +14,8 @@
 // What bounds it on this card: operations. The head's products (M = 2400
 // rois at B=8, N = 2048, K = 25088 for fc6 and 2048 for fc7) do ~2400
 // operations per unique byte, far above the card's ~590 int8 operations per
-// HBM byte. The earlier kernel (the 1x1 instance of s8_igemm.cuh: mma.sync
-// m16n8k32, 2-stage cp.async, 64 bytes of K a stage) reached ~11% of the
+// HBM byte. The earlier kernel (an implicit GEMM on mma.sync m16n8k32,
+// 2-stage cp.async, 64 bytes of K a stage) reached ~11% of the
 // int8 peak: every warp spent its issue slots on shared-memory fragment
 // loads, and fc6's 392 barrier-separated stages exposed each load's latency.
 //

@@ -1,5 +1,5 @@
 // Hopper building blocks shared by the s8 kernels on the warpgroup tensor
-// cores (matmul_s8.cu, conv_s8.cu's 3x3 instance): shared-memory addresses,
+// cores (matmul_s8.cu, conv_s8.cu's 3x3 and 2x2): shared-memory addresses,
 // mbarriers, TMA loads (tiled and im2col), the wgmma shared-memory
 // descriptor of a K-major swizzled tile, wgmma s8 at the widths the kernels
 // use, and the host-side encoding of tensor maps through the driver entry

@@ -30,8 +30,8 @@
 // bf16 instance (both TPU kernels' bf16 path: every bf16 detector's stem),
 // on the tensor cores:
 //   * mma.sync m16n8k16 bf16 with float32 accumulators, operands from
-//     shared memory by ldmatrix (the pattern of s8_igemm.cuh). The earlier
-//     design ran float32 FMAs on the CUDA cores, 2.6x behind cuDNN.
+//     shared memory by ldmatrix. The earlier design ran float32 FMAs on
+//     the CUDA cores, 2.6x behind cuDNN.
 //   * Persistent blocks, one per SM, each holding all of conv1_2's weights
 //     (576 x 64 bf16, 72 KB, stored output-channel major with a 1168-byte
 //     row stride) and conv1_1's for the whole run, and walking over pooled

@@ -127,17 +127,19 @@ def _dequant(q, s):
 @torch.inference_mode()
 def _detect_int8(params, qstate, bev, image, calib, stem_impl, conv_impl,
                  quant_rpn, quant_pool, feat_h, feat_w, pre_nms_top_n,
-                 post_nms_top_n, rpn_nms_thresh, trunk_w, head_nk):
+                 post_nms_top_n, rpn_nms_thresh, trunk_w, head_nk,
+                 stem_cache):
     """The int8 batched detector (eval.py:137-291): int8 trunks (their convs
-    on trunk_w, quant.prepare_trunk_weights' dict per trunk), the int8 RPN
+    on trunk_w, quant.prepare_trunk_weights' dict per trunk; the s2d_int8
+    stem's weights kept in stem_cache per view), the int8 RPN
     conv with quant_rpn, the ROI pool on the int8 maps with quant_pool (on
     dequantized bf16 maps without), the int8 head when the state has one
     (its GEMMs on head_nk, quant.prepare_head_weights' dict); bf16 heads
     otherwise."""
     bev, image, calib = _inputs(params, bev, image, calib)
     fbv, s_bv, fim, s_im = Q.extract_features_int8(
-        params, qstate, bev, image, trunk_w, stem=stem_impl or "bf16",
-        conv_impl=conv_impl)
+        params, qstate, bev, image, trunk_w, stem_cache,
+        stem=stem_impl or "bf16", conv_impl=conv_impl)
     if quant_rpn:
         rpn_cls, rpn_box = Q.rpn_head_int8(params, fbv, s_bv,
                                            conv_impl=conv_impl)
@@ -212,7 +214,10 @@ def build_detect_batch_fn(feat_h=75, feat_w=75, pre_nms_top_n=6000,
     quant_rpn the int8 RPN conv, quant_pool the ROI pool on int8 maps;
     heads run in bf16, the fc6/fc7 in int8 when the state has a head; the
     trunks' conv weights (with their folded requant) and the fc weights are
-    laid out for the kernels once, here (the state is left as it is).
+    laid out for the kernels once, here (the state is left as it is); the
+    s2d_int8 stem's weights, which come from params, on the first call and
+    again only when the params' conv1 tensors or the state's conv1 scales
+    change (quant.s2d_stem_weights).
     quant_conv_impl is checked and names the same integers for every value;
     rois_per_step, a TPU tiling, is accepted and unused. With quant=None the
     float detector runs in compute_dtype with the stem stem_impl names
@@ -233,9 +238,11 @@ def build_detect_batch_fn(feat_h=75, feat_w=75, pre_nms_top_n=6000,
                    for key in ("trunk_bv", "trunk_img")}
         head_nk = (None if quant.get("head") is None
                    else Q.prepare_head_weights(quant["head"]))
+        stem_cache = {"trunk_bv": {}, "trunk_img": {}}
         run = lambda p, b, i, c: _detect_int8(  # noqa: E731
             p, quant, b, i, c, stem_impl, quant_conv_impl, quant_rpn,
-            quant_pool, trunk_w=trunk_w, head_nk=head_nk, **kw)
+            quant_pool, trunk_w=trunk_w, head_nk=head_nk,
+            stem_cache=stem_cache, **kw)
 
     def detect_batch(params, bev, image, calib):
         out = run(params, bev, image, calib)

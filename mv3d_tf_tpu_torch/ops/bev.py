@@ -40,7 +40,7 @@ import torch
 from mv3d_tf_tpu_torch.geometry import (BEV_C, BEV_H, BEV_W, HEIGHT_MAX,
                                         HEIGHT_MIN, N_SLICES, RES, TOP_X_MAX,
                                         TOP_X_MIN, TOP_Y_MAX, ZRES)
-from mv3d_tf_tpu_torch.ops.bev_cuda import N_FLAT, bev_place
+from mv3d_tf_tpu_torch.ops.bev_cuda import CHUNK_CELLS, N_FLAT, bev_place
 
 # the slice starts the reference enumerates (read_lidar.py:80), and the
 # float32 bounds every formulation compares z with
@@ -171,6 +171,101 @@ def point_cloud_2_top_batch(points, valid, device="cuda"):
                             for p, v in zip(points, valid)])
     raise ValueError("point_cloud_2_top_batch: no rasterizer for device "
                      + str(points.device))
+
+
+def _points_in(cells, slices, rng):
+    """One point inside each (cell, slice): x, y a fraction 0.2-0.8 into
+    the pixel that float32 division and truncation give the cell, z as far
+    into the slice; the reflectance random. Cells must be reachable by
+    points: pixel row 1..600, column 1..599 (the strict range filters)."""
+    cells, slices = np.asarray(cells), np.asarray(slices)
+    k = cells % BEV_W - _X_SHIFT                # trunc(-y / RES)
+    m = cells // BEV_W - _Y_SHIFT               # trunc(-x / RES), <= 0
+    u = rng.uniform(0.2, 0.8, (3, cells.size))
+    v = np.where(k >= 0, k + u[0], k - u[0])
+    lo = np.array([b[0] for b in _SLICE_BOUNDS])[slices]
+    return np.stack([(-m + u[1]) * RES, -v * RES, lo + u[2] * ZRES,
+                     rng.rand(cells.size)], 1).astype(np.float32)
+
+
+def chunk_edge_points(n=4096, seed=0):
+    """Three scans of n points whose sorted slots meet the placement
+    kernel's chunk edges (a block owns CHUNK_CELLS whole cells, ops/
+    bev_cuda.py): points (3, n, 4) float32 and valid (3, n) bool.
+
+    Scans 0 and 2 hold, at every chunk edge whose cells points can reach,
+    two points in the last height slot of the chunk's last cell (a run
+    that ends on the chunk's last slot; its intensity is the chunk's last
+    element), one in a lower slice of that cell, and two in the first slot
+    of the next chunk; one point in the first and one in the last cell
+    points can reach; a cell of 96 points over all slices whose run spans
+    sorted entry 1024; then dead points: rows on live cells with valid
+    False, rows out of range, above the last slice and NaN rows. File
+    order is shuffled, so each run's winner is drawn at random. Scan 1 is
+    empty (every row invalid) between the two."""
+    rng = np.random.RandomState(seed)
+    n_cells = BEV_H * BEV_W
+    reach = lambda c: 1 <= c % BEV_W <= BEV_W - 2 and c // BEV_W >= 1  # noqa
+    runs = []                                   # (cell, slice, count)
+    for e in range(CHUNK_CELLS, n_cells, CHUNK_CELLS):
+        if reach(e - 1) and reach(e):
+            runs += [(e - 1, 3, 1), (e - 1, N_SLICES - 1, 2), (e, 0, 2)]
+    runs += [(BEV_W + 1, 0, 1), (n_cells - 2, N_SLICES - 1, 1)]
+    runs.sort(key=lambda r: r[0] * BEV_C + r[1])
+    # a gap between two runs' cells where 96 entries starting there cross
+    # sorted entry 1024
+    before = np.cumsum([0] + [r[2] for r in runs])
+    gaps = [j for j in range(1, len(runs))
+            if 928 < before[j] <= 1023 and reach(runs[j - 1][0] + 1)
+            and runs[j - 1][0] + 1 < runs[j][0]]
+    if not gaps:
+        raise ValueError("chunk_edge_points: no room for the spanning run")
+    span = runs[gaps[0] - 1][0] + 1
+    runs += [(span, s, 12) for s in range(N_SLICES)]
+    cells = np.repeat([r[0] for r in runs], [r[2] for r in runs])
+    slices = np.repeat([r[1] for r in runs], [r[2] for r in runs])
+    dead = n - cells.size
+    if dead < 16:
+        raise ValueError("chunk_edge_points: n=%d leaves no dead points" % n)
+    scans, valids = [], []
+    for _ in range(2):
+        live = _points_in(cells, slices, rng)
+        junk = _points_in(rng.choice(cells, dead), np.zeros(dead, int), rng)
+        q = dead // 4
+        junk[q:2 * q, 0] = 70.0                 # out of range
+        junk[2 * q:3 * q, 2] = 5.0              # above the last slice
+        junk[3 * q::2, 0] = np.nan              # NaN rows: x or z
+        junk[3 * q + 1::2, 2] = np.nan
+        pts = np.concatenate([live, junk])
+        valid = np.ones(n, bool)
+        valid[cells.size:cells.size + q] = False    # on live cells
+        perm = rng.permutation(n)
+        scans.append(pts[perm])
+        valids.append(valid[perm])
+    points = np.stack([scans[0], scans[0], scans[1]])
+    valid = np.stack([valids[0], np.zeros(n, bool), valids[1]])
+    return points, valid
+
+
+def chunk_edge_slots(n=4096, seed=0):
+    """chunk_edge_points' three scans as the placement takes them (CPU
+    tensors from sort_slots), with the ends of the raster that no point can
+    reach spliced into scans 0 and 2: two entries at slot 0 first, two at
+    slot N_FLAT - 2 (the last cell's last slice; its intensity is element
+    N_FLAT - 1) after the live entries, four dead entries dropped from the
+    end. Returns (seg_s, zs, rs), each (3, n)."""
+    points, valid = chunk_edge_points(n, seed)
+    seg_s, zs, rs = sort_slots(torch.from_numpy(points),
+                               torch.from_numpy(valid))
+    ends = torch.tensor([0, 0, N_FLAT - 2, N_FLAT - 2], dtype=torch.int32)
+    vals = torch.tensor([0.25, 0.5, 0.75, 1.0])
+    for b in (0, 2):
+        live = int((seg_s[b] < N_FLAT).sum())
+        for t, first, last in ((seg_s, ends[:2], ends[2:]),
+                               (zs, vals[:2], vals[2:]),
+                               (rs, vals[2:] + 1, vals[:2] + 1)):
+            t[b] = torch.cat([first, t[b, :live], last, t[b, live:n - 4]])
+    return seg_s, zs, rs
 
 
 def pad_points(points, bucket=131072):

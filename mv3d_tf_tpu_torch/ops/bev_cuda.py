@@ -14,6 +14,11 @@ equal slots, so
     after slice).
 Every winner owns its output element, so the placement is a set of
 unique stores and its result is exact and deterministic.
+
+The kernel writes each raster element once: a block builds a chunk of
+CHUNK_CELLS whole cells of one scan in shared memory, zeros and winners,
+from the chunk's range of the sorted slots, and stores it; the wrapper
+allocates the raster with torch.empty and launches it.
 """
 
 import torch
@@ -22,6 +27,8 @@ from mv3d_tf_tpu_torch import kernels
 from mv3d_tf_tpu_torch.geometry import BEV_C, BEV_H, BEV_W, N_SLICES
 
 N_FLAT = BEV_H * BEV_W * BEV_C      # raster elements per scan
+# cells of a kernel block's chunk, csrc/bev_place.cu's constant of that name
+CHUNK_CELLS = 1024
 
 
 def bev_place_plain(seg_s, zs, rs):
@@ -45,7 +52,7 @@ def bev_place_plain(seg_s, zs, rs):
 def bev_place_cuda(seg_s, zs, rs):
     """The placement on the card: seg_s (B, N) int32, zs and rs (B, N)
     float32, contiguous, on one CUDA device. Returns (B, 601, 601, 9)
-    float32; the raster is zeroed inside the kernel's C entry point."""
+    float32, every element written by the one launch."""
     if not all(t.is_cuda and t.device == seg_s.device
                for t in (seg_s, zs, rs)):
         raise ValueError("bev_place_cuda: inputs must be on one CUDA device")
@@ -62,6 +69,9 @@ def bev_place_cuda(seg_s, zs, rs):
     if not all(t.is_contiguous() for t in (seg_s, zs, rs)):
         raise ValueError("bev_place_cuda: inputs must be contiguous")
     B, N = seg_s.shape
+    if N >= 2 ** 31:
+        raise ValueError("bev_place_cuda: %d points a scan is more than the "
+                         "kernel's 32-bit index takes" % N)
     out = torch.empty((B, BEV_H, BEV_W, BEV_C), dtype=torch.float32,
                       device=seg_s.device)
     if B == 0:
@@ -71,7 +81,8 @@ def bev_place_cuda(seg_s, zs, rs):
         bev_place_cuda.launches += 1
         err = lib.mv3d_bev_place_f32(
             seg_s.data_ptr(), zs.data_ptr(), rs.data_ptr(), out.data_ptr(),
-            B, N, N_FLAT, BEV_C, torch.cuda.current_stream().cuda_stream)
+            B, N, N_FLAT, BEV_C,
+            torch.cuda.current_stream().cuda_stream)
     kernels.check(err, "bev_place_cuda")
     return out
 

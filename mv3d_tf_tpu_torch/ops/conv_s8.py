@@ -6,6 +6,8 @@ them (mv3d_tf_tpu/ops/conv_s8_pallas.py, quant.py:_conv_requant).
     conv3x3_s8_nk(x, w_nk, k, b)  the same on w_nk, the (N, 9*Cp) operand
                             prepare_s8_conv_weight makes once
     conv2x2_s8(x, w, k, b)  2x2 VALID, (B,H,W,C) int8 -> (B,H-1,W-1,N)
+    conv2x2_s8_nk(x, w_nk, k, b)  the same on w_nk, the (N, 4*Cp) operand
+                            prepare_s8_conv2x2_weight makes once
     matmul_s8(a, b)         (M,K) int8 @ (K,N) int8 -> (M,N) int32
     matmul_s8_nk(a, bt)     (M,K) int8 @ bt.T -> (M,N) int32, bt the (N,Kp)
                             operand prepare_s8_gemm_weight makes once
@@ -27,8 +29,8 @@ import torch
 import torch.nn.functional as F
 
 GEMM_K_ALIGN = 16   # bytes: the prepared GEMM operand's K padding
-CONV_C_ALIGN = 64   # channels: the prepared 3x3 operand's C padding, one
-                    # K slab of the 3x3 kernel (csrc/conv_s8.cu)
+CONV_C_ALIGN = 64   # channels: the prepared conv operands' C padding, one
+                    # K slab of the conv kernel (csrc/conv_s8.cu)
 
 
 def fma_f32(a, k, b):
@@ -127,9 +129,23 @@ def prepare_s8_gemm_weight(b):
 
 
 def conv_channels(c):
-    """The channel count Cp of the prepared 3x3 operand for c input
+    """The channel count Cp of the prepared conv operands for c input
     channels: c rounded up to CONV_C_ALIGN."""
     return -(-c // CONV_C_ALIGN) * CONV_C_ALIGN
+
+
+def _prepare_conv(w, taps, name):
+    """A (taps,taps,C,N) int8 HWIO weight as the conv kernel's operand:
+    (N, taps*taps*Cp), output channel major with the reduction contiguous in
+    (dy, dx, c) order, C zero-padded to Cp = conv_channels(C)."""
+    if w.dtype != torch.int8 or w.dim() != 4 or tuple(w.shape[:2]) != (taps,
+                                                                       taps):
+        raise TypeError("%s: w must be a (%d,%d,C,N) int8 tensor"
+                        % (name, taps, taps))
+    C, N = w.shape[2], w.shape[3]
+    cp = conv_channels(C)
+    return F.pad(w, (0, 0, 0, cp - C)).reshape(taps * taps * cp, N).t().clone(
+        memory_format=torch.contiguous_format)
 
 
 def prepare_s8_conv_weight(w):
@@ -137,37 +153,55 @@ def prepare_s8_conv_weight(w):
     (N, 9*Cp) int8, output channel major with the reduction contiguous in
     (dy, dx, c) order, C zero-padded to Cp = conv_channels(C). Zeros add
     zero to every sum."""
-    if w.dtype != torch.int8 or w.dim() != 4 or tuple(w.shape[:2]) != (3, 3):
-        raise TypeError("prepare_s8_conv_weight: w must be a (3,3,C,N) int8 "
-                        "tensor")
-    C, N = w.shape[2], w.shape[3]
-    cp = conv_channels(C)
-    return F.pad(w, (0, 0, 0, cp - C)).reshape(9 * cp, N).t().clone(
-        memory_format=torch.contiguous_format)
+    return _prepare_conv(w, 3, "prepare_s8_conv_weight")
 
 
-def check_conv_nk(x, w_nk, name):
-    """Raise unless w_nk is the (N, 9*Cp) operand of a (B,H,W,C) int8 x."""
+def prepare_s8_conv2x2_weight(w):
+    """The 2x2 kernel's operand for a (2,2,C,N) int8 HWIO weight, made once:
+    (N, 4*Cp) int8, laid out as prepare_s8_conv_weight lays out a 3x3."""
+    return _prepare_conv(w, 2, "prepare_s8_conv2x2_weight")
+
+
+def check_conv_nk(x, w_nk, name, taps=3):
+    """Raise unless w_nk is the (N, taps*taps*Cp) operand of a (B,H,W,C)
+    int8 x for a taps x taps window."""
+    prepare = ("prepare_s8_conv_weight" if taps == 3
+               else "prepare_s8_conv2x2_weight")
     if x.dtype != torch.int8 or w_nk.dtype != torch.int8:
         raise TypeError("%s: x and w_nk must be int8" % name)
     if x.dim() != 4 or w_nk.dim() != 2:
-        raise ValueError("%s: x must be (B,H,W,C) and w_nk (N, 9*Cp)" % name)
-    kp = 9 * conv_channels(x.shape[3])
+        raise ValueError("%s: x must be (B,H,W,C) and w_nk (N, %d*Cp)"
+                         % (name, taps * taps))
+    kp = taps * taps * conv_channels(x.shape[3])
     if w_nk.shape[1] != kp:
         raise ValueError("%s: w_nk %s is not the (N, %d) operand of x %s "
-                         "(prepare_s8_conv_weight makes it)"
-                         % (name, tuple(w_nk.shape), kp, tuple(x.shape)))
+                         "(%s makes it)"
+                         % (name, tuple(w_nk.shape), kp, tuple(x.shape),
+                            prepare))
+
+
+def _conv_nk_plain(x, w_nk, k, b, out_dtype, taps, pad):
+    """x's channels zero-padded to the operand's Cp, then im2col and one
+    exact matmul against w_nk, then the requant."""
+    cp = w_nk.shape[1] // (taps * taps)
+    cols, lead = _im2col(F.pad(x, (0, cp - x.shape[3])), taps, taps, pad)
+    acc = _exact_mm(cols, w_nk.t()).reshape(*lead, w_nk.shape[0])
+    return requant(acc, k, b, out_dtype)
 
 
 def conv3x3_s8_nk_plain(x, w_nk, k, b, out_dtype=torch.int8):
     """The plain 3x3 SAME s8 conv + requant on a prepared weight: x
-    (B,H,W,C) int8, w_nk the (N, 9*Cp) operand of prepare_s8_conv_weight;
-    x's channels zero-padded to Cp, then im2col and one exact matmul."""
+    (B,H,W,C) int8, w_nk the (N, 9*Cp) operand of prepare_s8_conv_weight."""
     check_conv_nk(x, w_nk, "conv3x3_s8_nk")
-    cp = w_nk.shape[1] // 9
-    cols, lead = _im2col(F.pad(x, (0, cp - x.shape[3])), 3, 3, 1)
-    acc = _exact_mm(cols, w_nk.t()).reshape(*lead, w_nk.shape[0])
-    return requant(acc, k, b, out_dtype)
+    return _conv_nk_plain(x, w_nk, k, b, out_dtype, 3, 1)
+
+
+def conv2x2_s8_nk_plain(x, w_nk, k, b, out_dtype=torch.int8):
+    """The plain 2x2 VALID s8 conv + requant on a prepared weight: x
+    (B,H,W,C) int8, w_nk the (N, 4*Cp) operand of
+    prepare_s8_conv2x2_weight."""
+    check_conv_nk(x, w_nk, "conv2x2_s8_nk", taps=2)
+    return _conv_nk_plain(x, w_nk, k, b, out_dtype, 2, 0)
 
 
 def check_nk(a, bt, name):
@@ -213,6 +247,12 @@ def conv3x3_s8_nk(x, w_nk, k, b, out_dtype=torch.int8):
 def conv2x2_s8(x, w, k, b, out_dtype=torch.int8):
     """2x2 VALID s8 conv + requant: the kernel on a card, plain on the CPU."""
     return _dispatch("conv2x2_s8", x)(x, w, k, b, out_dtype)
+
+
+def conv2x2_s8_nk(x, w_nk, k, b, out_dtype=torch.int8):
+    """2x2 VALID s8 conv + requant on a prepared (N, 4*Cp) weight: the
+    kernel on a card, plain on the CPU."""
+    return _dispatch("conv2x2_s8_nk", x)(x, w_nk, k, b, out_dtype)
 
 
 def matmul_s8(a, b):

@@ -1,19 +1,21 @@
 """Wrappers of the CUDA s8 kernels, the Hopper replacements of
 mv3d_tf_tpu/ops/conv_s8_pallas.py: the s8 convolutions with the fused
-requant epilogue (csrc/conv_s8.cu: conv3x3_s8_pallas_v2 and its v1 twin
-conv3x3_s8_pallas on wgmma fed by TMA, conv2x2_s8_pallas on the implicit
-GEMM of csrc/s8_igemm.cuh) and the s8 GEMM (csrc/matmul_s8.cu,
+requant epilogue (csrc/conv_s8.cu, one wgmma kernel fed by TMA, im2col
+mode for the activations, templated over the window:
+conv3x3_s8_pallas_v2 and its v1 twin conv3x3_s8_pallas as the 3x3 SAME,
+conv2x2_s8_pallas as the 2x2 VALID) and the s8 GEMM (csrc/matmul_s8.cu,
 matmul_s8_pallas; wgmma fed by TMA).
 
 The plain PyTorch versions are ops/conv_s8.py:conv3x3_s8_nk_plain,
-conv3x3_s8_plain, conv2x2_s8_plain, matmul_s8_plain and
-matmul_s8_nk_plain. The wrappers take the same arguments: they zero-pad
-channels (and the GEMM's K) to the kernels' granularity, which adds zero to
-every integer sum, and lay the weights out output-channel major with the
-reduction contiguous. The 3x3 conv's and the GEMM's weights are laid out
-once (conv_s8.prepare_s8_conv_weight, prepare_s8_gemm_weight), and
-conv3x3_s8_nk_cuda and matmul_s8_nk_cuda take them as they are; the 2x2
-conv lays its weight out per call.
+conv3x3_s8_plain, conv2x2_s8_nk_plain, conv2x2_s8_plain, matmul_s8_plain
+and matmul_s8_nk_plain. The wrappers take the same arguments: they
+zero-pad channels (and the GEMM's K) to the kernels' granularity, which
+adds zero to every integer sum. The weights are laid out output-channel
+major with the reduction contiguous once per weight
+(conv_s8.prepare_s8_conv_weight, prepare_s8_conv2x2_weight,
+prepare_s8_gemm_weight): conv3x3_s8_nk_cuda, conv2x2_s8_nk_cuda and
+matmul_s8_nk_cuda take them as they are and refuse any other operand;
+conv3x3_s8_cuda, conv2x2_s8_cuda and matmul_s8_cuda prepare per call.
 """
 
 import torch
@@ -21,10 +23,13 @@ import torch.nn.functional as F
 
 from mv3d_tf_tpu_torch import kernels
 from mv3d_tf_tpu_torch.ops.conv_s8 import (CONV_C_ALIGN, check_conv_nk,
-                                           check_nk, prepare_s8_conv_weight,
+                                           check_nk,
+                                           prepare_s8_conv2x2_weight,
+                                           prepare_s8_conv_weight,
                                            prepare_s8_gemm_weight)
 
-_ALIGN = 16   # bytes of one cp.async or TMA row; channels pad to it
+_ALIGN = 16   # bytes: the alignment of every TMA operand, and the GEMM's
+              # K and every kernel's N granularity
 _NO_ENCODE_ENTRY = -999   # a TMA kernel: cudaGetDriverEntryPoint failed
 
 
@@ -71,36 +76,34 @@ def _check_requant(x, k, b, N, out_dtype, entry):
                          % (entry, N, _ALIGN))
 
 
-def conv3x3_s8_nk_cuda(x, w_nk, k, b, out_dtype=torch.int8):
-    """3x3 SAME s8 conv + requant on the card, on a prepared weight: x
-    (B,H,W,C) int8, w_nk the (N, 9*Cp) operand of
-    conv_s8.prepare_s8_conv_weight, taken as it is (no copy); k and b (N,)
-    float32, N % 16 == 0, all on one CUDA device. Returns (B,H,W,N) int8, or
-    float32 max(fma, 0). The one launch site of the 3x3 kernel; its
-    launches are counted on ``conv3x3_s8_cuda.launches``."""
-    entry = "mv3d_conv3x3_s8"
-    check_conv_nk(x, w_nk, "conv3x3_s8_nk_cuda")
+def _conv_nk_cuda(x, w_nk, k, b, out_dtype, taps, name, entry, counted):
+    """The one launch site of the conv kernel (a taps x taps window: 3 is
+    the SAME 3x3, 2 the VALID 2x2) on a prepared weight w_nk; counted is
+    the wrapper whose ``launches`` it adds to."""
+    check_conv_nk(x, w_nk, name, taps)
     if w_nk.device != x.device:
-        raise ValueError("conv3x3_s8_nk_cuda: all inputs must be on one CUDA "
-                         "device")
+        raise ValueError("%s: all inputs must be on one CUDA device" % name)
     N = w_nk.shape[0]
-    _check_requant(x, k, b, N, out_dtype, "conv3x3_s8_nk_cuda")
+    _check_requant(x, k, b, N, out_dtype, name)
     if not w_nk.is_contiguous() or w_nk.data_ptr() % _ALIGN:
-        raise ValueError("conv3x3_s8_nk_cuda: w_nk must be contiguous and "
-                         "16-byte aligned, as prepare_s8_conv_weight makes it")
+        raise ValueError("%s: w_nk must be contiguous and 16-byte aligned, "
+                         "as the weight preparation makes it" % name)
     B, H, W, _ = x.shape
     if B * H * W > 2 ** 31 - 128:      # M plus a 128-pixel tile in an int
-        raise ValueError("conv3x3_s8_nk_cuda: x %s is too large for the "
-                         "kernel's 32-bit pixel index" % (tuple(x.shape),))
-    out = torch.empty((B, H, W, N), dtype=out_dtype, device=x.device)
+        raise ValueError("%s: x %s is too large for the kernel's 32-bit "
+                         "pixel index" % (name, tuple(x.shape)))
+    pad = 1 if taps == 3 else 0
+    Ho, Wo = H + 2 * pad - taps + 1, W + 2 * pad - taps + 1
+    out = torch.empty((B, max(Ho, 0), max(Wo, 0), N), dtype=out_dtype,
+                      device=x.device)
     if out.numel() == 0:
         return out
     xk = _aligned(_pad_dim(x, 3, CONV_C_ALIGN))
     kk, bk = _aligned(k), _aligned(b)
     lib = kernels.library()
     with torch.cuda.device(x.device):
-        conv3x3_s8_cuda.launches += 1
-        err = lib.mv3d_conv3x3_s8(
+        counted.launches += 1
+        err = getattr(lib, entry)(
             xk.data_ptr(), w_nk.data_ptr(), kk.data_ptr(), bk.data_ptr(),
             out.data_ptr(), B, H, W, xk.shape[3], N,
             int(out_dtype == torch.float32),
@@ -109,60 +112,61 @@ def conv3x3_s8_nk_cuda(x, w_nk, k, b, out_dtype=torch.int8):
     return out
 
 
+def _check_conv_args(x, w, taps, name):
+    if not (x.is_cuda and w.device == x.device):
+        raise ValueError("%s: x and w must be on one CUDA device" % name)
+    if x.dtype != torch.int8 or w.dtype != torch.int8:
+        raise TypeError("%s: x and w must be int8" % name)
+    if x.dim() != 4 or w.dim() != 4 or tuple(w.shape[:3]) != (taps, taps,
+                                                              x.shape[3]):
+        raise ValueError("%s: x must be (B,H,W,C) and w (%d,%d,C,N), got %s "
+                         "and %s" % (name, taps, taps, tuple(x.shape),
+                                     tuple(w.shape)))
+
+
+def conv3x3_s8_nk_cuda(x, w_nk, k, b, out_dtype=torch.int8):
+    """3x3 SAME s8 conv + requant on the card, on a prepared weight: x
+    (B,H,W,C) int8, w_nk the (N, 9*Cp) operand of
+    conv_s8.prepare_s8_conv_weight, taken as it is (no copy); k and b (N,)
+    float32, N % 16 == 0, all on one CUDA device. Returns (B,H,W,N) int8, or
+    float32 max(fma, 0). Its launches are counted on
+    ``conv3x3_s8_cuda.launches``."""
+    return _conv_nk_cuda(x, w_nk, k, b, out_dtype, 3, "conv3x3_s8_nk_cuda",
+                         "mv3d_conv3x3_s8", conv3x3_s8_cuda)
+
+
 def conv3x3_s8_cuda(x, w, k, b, out_dtype=torch.int8):
     """3x3 SAME s8 conv + requant on the card: x (B,H,W,C) int8, w (3,3,C,N)
     int8 HWIO, laid out by prepare_s8_conv_weight on every call, then
     conv3x3_s8_nk_cuda. Callers that reuse a weight prepare it once.
     ``launches`` counts the kernel's launches through either wrapper."""
-    if not (x.is_cuda and w.device == x.device):
-        raise ValueError("conv3x3_s8_cuda: x and w must be on one CUDA device")
-    if x.dtype != torch.int8 or w.dtype != torch.int8:
-        raise TypeError("conv3x3_s8_cuda: x and w must be int8")
-    if x.dim() != 4 or w.dim() != 4 or tuple(w.shape[:3]) != (3, 3,
-                                                              x.shape[3]):
-        raise ValueError("conv3x3_s8_cuda: x must be (B,H,W,C) and w "
-                         "(3,3,C,N), got %s and %s"
-                         % (tuple(x.shape), tuple(w.shape)))
+    _check_conv_args(x, w, 3, "conv3x3_s8_cuda")
     return conv3x3_s8_nk_cuda(x, prepare_s8_conv_weight(w), k, b, out_dtype)
 
 
 conv3x3_s8_cuda.launches = 0
 
 
+def conv2x2_s8_nk_cuda(x, w_nk, k, b, out_dtype=torch.int8):
+    """2x2 VALID s8 conv + requant on the card, on a prepared weight: x
+    (B,H,W,C) int8, w_nk the (N, 4*Cp) operand of
+    conv_s8.prepare_s8_conv2x2_weight, taken as it is (no copy); k and b
+    (N,) float32, N % 16 == 0, all on one CUDA device. Returns
+    (B,H-1,W-1,N) int8, or float32 max(fma, 0). Its launches are counted on
+    ``conv2x2_s8_cuda.launches``."""
+    return _conv_nk_cuda(x, w_nk, k, b, out_dtype, 2, "conv2x2_s8_nk_cuda",
+                         "mv3d_conv2x2_s8", conv2x2_s8_cuda)
+
+
 def conv2x2_s8_cuda(x, w, k, b, out_dtype=torch.int8):
     """2x2 VALID s8 conv + requant on the card: x (B,H,W,C) int8, w
-    (2,2,C,N) int8 HWIO, k and b (N,) float32, N % 16 == 0, all on one CUDA
-    device -> (B,H-1,W-1,N) int8, or float32 max(fma, 0). Channels are
-    zero-padded to 16 and the weight laid out (N, 4*Cp) on every call."""
-    entry = "mv3d_conv2x2_s8"
-    if x.dtype != torch.int8 or w.dtype != torch.int8:
-        raise TypeError("%s: x and w must be int8" % entry)
-    if x.dim() != 4 or w.dim() != 4 or tuple(w.shape[:3]) != (2, 2,
-                                                              x.shape[3]):
-        raise ValueError("%s: x must be (B,H,W,C) and w (2,2,C,N), got %s "
-                         "and %s" % (entry, tuple(x.shape), tuple(w.shape)))
-    if w.device != x.device:
-        raise ValueError("%s: all inputs must be on one CUDA device" % entry)
-    B, H, W, _ = x.shape
-    N = w.shape[3]
-    _check_requant(x, k, b, N, out_dtype, entry)
-    out = torch.empty((B, H - 1, W - 1, N), dtype=out_dtype, device=x.device)
-    if out.numel() == 0:
-        return out
-    xk = _aligned(_pad_dim(x, 3, _ALIGN))
-    Cp = xk.shape[3]
-    # (N, 4*Cp): output channel major, reduction in (dy, dx, c) order
-    wk = _aligned(_pad_dim(w, 2, _ALIGN).reshape(4 * Cp, N).t())
-    kk, bk = _aligned(k), _aligned(b)
-    lib = kernels.library()
-    with torch.cuda.device(x.device):
-        conv2x2_s8_cuda.launches += 1
-        err = lib.mv3d_conv2x2_s8(
-            xk.data_ptr(), wk.data_ptr(), kk.data_ptr(), bk.data_ptr(),
-            out.data_ptr(), B, H, W, Cp, N, int(out_dtype == torch.float32),
-            torch.cuda.current_stream().cuda_stream)
-    kernels.check(err, entry)
-    return out
+    (2,2,C,N) int8 HWIO, laid out by prepare_s8_conv2x2_weight on every
+    call, then conv2x2_s8_nk_cuda. Callers that reuse a weight prepare it
+    once. ``launches`` counts the kernel's launches through either
+    wrapper."""
+    _check_conv_args(x, w, 2, "conv2x2_s8_cuda")
+    return conv2x2_s8_nk_cuda(x, prepare_s8_conv2x2_weight(w), k, b,
+                              out_dtype)
 
 
 conv2x2_s8_cuda.launches = 0

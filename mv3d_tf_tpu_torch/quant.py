@@ -9,6 +9,12 @@ mv3d_tf_tpu/quant.py.
     the conv kernel (ops/conv_s8.py, csrc/conv_s8.cu). A built detector
     prepares each trunk once (prepare_trunk_weights: the (N, 9*Cp) weight
     operand and the folded k and b) and keeps that copy itself;
+  * the s2d int8 stem's packed conv1_2 is the s8 2x2 kernel on the
+    quantized packed weight; a built detector prepares each view's stem
+    (prepare_s2d_stem_int8: packed conv1_1 in bf16, the (N, 4*Cp) operand
+    of conv1_2 and its folded k and b) on its first call and keeps it until
+    the params' conv1 tensors or the state's conv1 scales change
+    (s2d_stem_weights);
   * 2x2 max pools run on int8 directly (max commutes with the monotone
     quantization map);
   * the fusion head's fc6/fc7 run as s8 GEMMs (csrc/matmul_s8.cu) on the
@@ -325,29 +331,98 @@ def build_quant_state(params, bev_frames, image_frames, pooled_bv=None,
 # Stems and the int8 RPN
 # ---------------------------------------------------------------------------
 
+def _conv1_2_operand(K2, b2, s1, s2):
+    """The packed conv1_2 (K2 (2,2,4C1,4C2) float, bias b2 (C2,)) as the 2x2
+    kernel takes it: {"w_nk": the (4C2, 4*Cp) operand of the weight
+    quantized per output channel (quant.py:499-505), "k": s1*s_w/s2, "b":
+    tile(b2, 4)/s2} (quant.py:506-507), on the weight's device."""
+    K2q, s_w = _quantize_weights_t(K2.float())
+    return {"w_nk": S8.prepare_s8_conv2x2_weight(K2q), "k": s1 * s_w / s2,
+            "b": b2.float().repeat(4) / s2}
+
+
 def s2d_conv1_2_int8(y_q, K2, b2, s1, s2):
     """The s2d int8 stem after conv1_1 (quant.py:495-548): the packed
-    conv1_2 (K2 (2,2,4C1,4C2) float, bias b2 (C2,)) quantized in-graph,
-    as the s8 2x2 VALID conv on y_q (int8 at conv1_1's scale s1) with the
-    requant epilogue at conv1_2's scale s2, then pool1 as the max of the 4
-    subpixel groups on int8. Returns stem_q int8 (B,H/2,W/2,C2)."""
-    K2q, s_w = _quantize_weights_t(K2.float())
-    z_q = S8.conv2x2_s8(y_q, K2q, s1 * s_w / s2, b2.float().repeat(4) / s2)
-    return group_max(z_q, b2.shape[0])
+    conv1_2 (K2 (2,2,4C1,4C2) float, bias b2 (C2,)) quantized as the JAX
+    package quantizes it in-graph, as the s8 2x2 VALID conv on y_q (int8 at
+    conv1_1's scale s1) with the requant epilogue at conv1_2's scale s2,
+    then pool1 as the max of the 4 subpixel groups on int8. Returns stem_q
+    int8 (B,H/2,W/2,C2). The weight is prepared on every call; a built
+    detector prepares it once (prepare_s2d_stem_int8)."""
+    pw = _conv1_2_operand(K2, b2, s1, s2)
+    return group_max(S8.conv2x2_s8_nk(y_q, pw["w_nk"], pw["k"], pw["b"]),
+                     b2.shape[0])
 
 
-def _s2d_stem_int8(params, qtrunk, x, suffix="", conv_impl="pallas"):
-    """Space-to-depth stem with the packed conv1_1 in bf16 (quantized at
-    the literal conv1_1 scale) and the packed conv1_2 in int8. Returns
-    (stem_q int8, s_out) for trunk_apply_int8_from_stem_q."""
-    _check_impl(conv_impl)
+def prepare_s2d_stem_int8(params, qtrunk, suffix=""):
+    """One view's s2d int8 stem weights, made once: {"K1", "B1": the packed
+    conv1_1 in bf16, "C1", "C2": conv1_1's and conv1_2's widths, "conv1_2":
+    _conv1_2_operand of the packed conv1_2 at the scales of qtrunk}, the
+    bits that the per-call stem computes, detached from autograd."""
     w1, b1 = vgg.layer(params, "conv1_1" + suffix)
     w2, b2 = vgg.layer(params, "conv1_2" + suffix)
-    K1, B1, K2, _ = pack_stem_weights(hwio(w1), b1, hwio(w2), b2)
-    y = packed_conv1_1(x.to(_BF16), K1.to(_BF16), B1.to(_BF16), w1.shape[0])
-    s1 = qtrunk["conv1_1"]["s_out"]
-    s2 = qtrunk["conv1_2"]["s_out"]
-    return s2d_conv1_2_int8(_quantize(y, s1, 0), K2, b2, s1, s2), s2
+    with torch.no_grad():
+        K1, B1, K2, _ = pack_stem_weights(hwio(w1), b1, hwio(w2), b2)
+        return {"K1": K1.to(_BF16), "B1": B1.to(_BF16), "C1": w1.shape[0],
+                "C2": w2.shape[0],
+                "conv1_2": _conv1_2_operand(K2, b2,
+                                            qtrunk["conv1_1"]["s_out"],
+                                            qtrunk["conv1_2"]["s_out"])}
+
+
+def _version(t):
+    """t's in-place version counter (an inference tensor keeps none: -1)."""
+    return -1 if t.is_inference() else t._version
+
+
+def s2d_stem_weights(cache, params, qtrunk, suffix=""):
+    """prepare_s2d_stem_int8's dict for one view, kept in ``cache`` (a dict
+    the caller owns, one per view): made on the first call and again only
+    when the tensors it is made from (the params' conv1_1 and conv1_2
+    weights and biases, qtrunk's conv1_1 and conv1_2 s_out) are other
+    tensors, or were changed in place, since. An inference tensor keeps no
+    version counter, so an in-place change of one (possible only under
+    torch.inference_mode) is not seen; its replacement by another tensor
+    is. A built int8 detector keeps one cache per view, so the stem
+    weights are prepared once for a given set of params."""
+    src = [t for name in ("conv1_1", "conv1_2")
+           for t in vgg.layer(params, name + suffix)]
+    src += [qtrunk[name]["s_out"] for name in ("conv1_1", "conv1_2")]
+    seen = cache.get("source")
+    if seen is None or any(a is not t or v != _version(t)
+                           for (a, v), t in zip(seen, src)):
+        cache["weights"] = prepare_s2d_stem_int8(params, qtrunk, suffix)
+        cache["source"] = [(t, _version(t)) for t in src]
+    return cache["weights"]
+
+
+def s2d_stem_int8_stages(qtrunk, x, stem_w):
+    """The s2d int8 stem on stem_w (prepare_s2d_stem_int8's dict), one
+    stage at a time: yields (stage, output) after the packed conv1_1 in
+    bf16, its quantization at conv1_1's scale, the s8 2x2 packed conv1_2
+    with the requant at conv1_2's scale, and pool1 as the max of the 4
+    subpixel groups on int8, whose output is stem_q int8 (B,H/2,W/2,C2).
+    _s2d_stem_int8 runs it to its end; a caller that times the stages
+    reads the clock between the yields."""
+    y = packed_conv1_1(x.to(_BF16), stem_w["K1"], stem_w["B1"],
+                       stem_w["C1"])
+    yield "packed conv1_1", y
+    y_q = _quantize(y, qtrunk["conv1_1"]["s_out"], 0)
+    yield "quantize", y_q
+    pw = stem_w["conv1_2"]
+    z_q = S8.conv2x2_s8_nk(y_q, pw["w_nk"], pw["k"], pw["b"])
+    yield "2x2 conv", z_q
+    yield "group max", group_max(z_q, stem_w["C2"])
+
+
+def _s2d_stem_int8(qtrunk, x, stem_w, conv_impl="pallas"):
+    """Space-to-depth stem with the packed conv1_1 in bf16 (quantized at
+    the literal conv1_1 scale) and the packed conv1_2 in int8, on stem_w
+    (prepare_s2d_stem_int8's dict): s2d_stem_int8_stages to its end.
+    Returns (stem_q int8, s_out) for trunk_apply_int8_from_stem_q."""
+    _check_impl(conv_impl)
+    *_, (_, stem_q) = s2d_stem_int8_stages(qtrunk, x, stem_w)
+    return stem_q, qtrunk["conv1_2"]["s_out"]
 
 
 def rpn_conv_int8(params, feat_q, s_in):
@@ -394,11 +469,14 @@ def _float_stem(params, x, suffix, stem):
     return _bf16_stem(params, x, suffix)
 
 
-def extract_features_int8(params, quant, bev, image, trunk_w,
+def extract_features_int8(params, quant, bev, image, trunk_w, stem_cache,
                           fused_stem=False, stem="bf16", conv_impl="xla"):
     """Quantized twin of mv3d.extract_features (quant.py:610-689), the
     trunks' convs on trunk_w = {key: prepare_trunk_weights(quant[key])} for
-    "trunk_bv" and "trunk_img". stem:
+    "trunk_bv" and "trunk_img"; the s2d_int8 stem's weights from
+    stem_cache = {"trunk_bv": {}, "trunk_img": {}}, owned by the caller
+    (s2d_stem_weights: prepared once per view and kept there; the other
+    stems do not read it). stem:
       "bf16"     — literal bf16 conv1 pair and pool, then int8;
       "s2d"      — the space-to-depth bf16 stem (ops/stem_s2d.py);
       "s2d_fused" — the s2d stem as one kernel in bf16
@@ -418,7 +496,8 @@ def extract_features_int8(params, quant, bev, image, trunk_w,
     for key, x, suffix in (("trunk_bv", bev, ""), ("trunk_img", image, "_2")):
         qt, tw = quant[key], trunk_w[key]
         if stem == "s2d_int8":
-            stem_q, _ = _s2d_stem_int8(params, qt, x, suffix, conv_impl)
+            sw = s2d_stem_weights(stem_cache[key], params, qt, suffix)
+            stem_q, _ = _s2d_stem_int8(qt, x, sw, conv_impl)
             out += trunk_apply_int8_from_stem_q(qt, stem_q, tw, conv_impl)
         elif stem == "int8":
             out += trunk_apply_int8(qt, x, tw)

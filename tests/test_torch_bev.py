@@ -1,7 +1,9 @@
 """The port's BEV rasterization (mv3d_tf_tpu_torch/ops/bev.py, ops/bev_cuda.py)
 against mv3d_tf_tpu/ops/bev.py on CPU, bit for bit: the numpy twin, the
 plain torch scatter, the sort-and-place path through the plain placement,
-and the slice-boundary rule."""
+the slice-boundary rule, and the placement kernel's chunk-edge traffic
+(ops/bev.py:chunk_edge_points, chunk_edge_slots), which chip_smoke.py also
+holds the kernel to."""
 
 import numpy as np
 import pytest
@@ -226,3 +228,98 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     zs = torch.zeros((1, 8))
     with pytest.raises(ValueError):
         C.bev_place_cuda(seg, zs, zs)
+
+
+def _jax_place(seg_s, zs, rs):
+    """JAX's Pallas placement (interpret mode) on sorted slots, with the
+    winners, stripe offsets and row bounds its fast path computes
+    (mv3d_tf_tpu/ops/bev.py:170-187)."""
+    from mv3d_tf_tpu.ops.bev_pallas import (NO_REM, N_STEPS, ROW_SEGS,
+                                            ROWS_PER_STEP, bev_place_pallas)
+    import jax
+    seg = jnp.asarray(seg_s.numpy())
+    nxt = jnp.concatenate([seg[:, 1:], jnp.full((seg.shape[0], 1), -1,
+                                                jnp.int32)], 1)
+    live = seg < C.N_FLAT
+    win_h = (seg != nxt) & live
+    win_i = (seg // 9 != nxt // 9) & live
+    rem = seg - (seg // ROW_SEGS) * ROW_SEGS
+    rem_h = jnp.where(win_h, rem, NO_REM)
+    rem_i = jnp.where(win_i, (rem // 9) * 9 + 8, NO_REM)
+    starts = jnp.arange(N_STEPS * ROWS_PER_STEP + 1, dtype=jnp.int32) \
+        * ROW_SEGS
+    bounds = jax.vmap(lambda s: jnp.searchsorted(s, starts).astype(
+        jnp.int32))(seg)
+    return np.asarray(bev_place_pallas(
+        rem_h, rem_i, jnp.asarray(zs.numpy()), jnp.asarray(rs.numpy()),
+        bounds, interpret=True))
+
+
+def test_chunk_edge_points_front_end():
+    """The chunk-edge scans: the port's plain scatter and its fast path
+    (plain placement) equal the numpy twin and JAX's batch rasterizer bit
+    for bit, and the traffic has what it promises: the chunks' last
+    elements written, a run across sorted entry 1024, the empty scan 1,
+    dead rows."""
+    pts, val = T.chunk_edge_points(N)
+    ref = np.asarray(J.point_cloud_2_top_batch(pts, val))
+    plain = T.point_cloud_2_top_batch(pts, val, device="cpu").numpy()
+    fast = T.point_cloud_2_top_fast(pts, val, device="cpu").numpy()
+    assert np.array_equal(plain, ref) and np.array_equal(fast, ref)
+    for b in (0, 2):
+        assert np.array_equal(ref[b], T.point_cloud_2_top_np(pts[b][val[b]]))
+    assert not ref[1].any()
+    flat = ref.reshape(3, -1)
+    edges = np.arange(C.CHUNK_CELLS, 601 * 601, C.CHUNK_CELLS)
+    last = flat[0, edges * 9 - 1]               # the chunks' last elements
+    first = flat[0, edges * 9]                  # the next chunks' first
+    assert (last > 0).sum() > 300 and (last > 0).sum() == (first > 0).sum()
+    seg, _, _ = T.sort_slots(torch.from_numpy(pts), torch.from_numpy(val))
+    assert seg[0, 1023] // 9 == seg[0, 1024] // 9 < C.N_FLAT // 9
+    dead = (seg[0] >= C.N_FLAT).sum()
+    assert dead > 2000 and (seg[1] >= C.N_FLAT).all()
+
+
+def test_chunk_edge_slots_plain_matches_jax_pallas():
+    """bev_place_plain on the chunk-edge slots, with the raster's first and
+    last elements spliced in, equals JAX's Pallas placement in interpret
+    mode bit for bit; the wrapper's dispatch takes the plain route on the
+    CPU without launching the kernel. The NaN rows' values sort last, onto
+    dead entries, which the placement ignores; JAX's one-hot product would
+    spread them (0 * NaN in its last block), so it gets them as zeros."""
+    seg_s, zs, rs = T.chunk_edge_slots(N)
+    assert seg_s[0, 0] == seg_s[2, 0] == 0
+    assert torch.isnan(zs).any()
+    before = C.bev_place_cuda.launches
+    got = C.bev_place(seg_s, zs, rs)
+    assert C.bev_place_cuda.launches == before
+    dead = seg_s >= C.N_FLAT
+    zs0, rs0 = zs.masked_fill(dead, 0.0), rs.masked_fill(dead, 0.0)
+    assert torch.equal(C.bev_place(seg_s, zs0, rs0), got)
+    want = _jax_place(seg_s, zs0, rs0)
+    assert np.array_equal(got.numpy(), want)
+    flat = want.reshape(3, -1)
+    assert flat[0, 0] == 0.5 and flat[0, 8] == 2.0
+    assert flat[2, -2] == 1.0 and flat[2, -1] == 1.5
+    assert not flat[1].any()
+    assert np.array_equal(got.numpy(), C.bev_place_plain(seg_s, zs, rs))
+
+
+def test_chunk_cells_is_the_kernels():
+    """ops/bev_cuda.CHUNK_CELLS, at whose edges chunk_edge_points cuts its
+    traffic, is the chunk that csrc/bev_place.cu compiles in, with the
+    raster's channels; the C entry takes no chunk size, and its ctypes
+    signature has one type per parameter."""
+    import os
+    import re
+    from mv3d_tf_tpu_torch import kernels
+    src = open(os.path.join(os.path.dirname(C.__file__), os.pardir, "csrc",
+                            "bev_place.cu")).read()
+    assert re.findall(r"constexpr int CHUNK_CELLS = (\d+);", src) == [
+        str(C.CHUNK_CELLS)]
+    assert re.findall(r"constexpr int CHANNELS = (\d+);", src) == [
+        str(C.BEV_C)]
+    entry = re.search(r"int mv3d_bev_place_f32\(([^)]*)\)", src).group(1)
+    assert "chunk" not in entry
+    assert entry.count(",") + 1 == len(
+        kernels._SIGNATURES["mv3d_bev_place_f32"])

@@ -218,8 +218,10 @@ def test_s2d_int8_stem_codes_track_jax(case, key, suffix, frames):
     tests/test_quant.py:177-178, made stricter)."""
     want, s_want = _j_stem(case, key, suffix, frames)
     with torch.no_grad():
-        got, s_got = Q._s2d_stem_int8(case["params"], case["state"][key],
-                                      _T(case[frames]), suffix)
+        qt = case["state"][key]
+        got, s_got = Q._s2d_stem_int8(
+            qt, _T(case[frames]),
+            Q.prepare_s2d_stem_int8(case["params"], qt, suffix))
     assert float(s_got) == float(s_want)
     diff = np.abs(got.numpy().astype(np.int32) - np.asarray(want, np.int32))
     assert diff.max() <= 1 and (diff == 0).mean() > 0.99, (
@@ -427,6 +429,35 @@ def test_int8_detector_matches_jax(case):
     np.testing.assert_allclose(got["scores"], want["scores"], atol=1e-3)
     np.testing.assert_allclose(got["boxes_cnr_r"], want["boxes_cnr_r"],
                                atol=1e-2)
+
+
+def test_int8_detector_prepares_its_stem_once(case, monkeypatch):
+    """The built s2d_int8 detector prepares each view's packed conv1_2
+    operand once across two calls (quant.s2d_stem_weights), and both calls
+    hold test_int8_detector_matches_jax's comparison with JAX."""
+    prepared = []
+    prepare = S8.prepare_s8_conv2x2_weight
+    monkeypatch.setattr(S8, "prepare_s8_conv2x2_weight",
+                        lambda w: prepared.append(tuple(w.shape))
+                        or prepare(w))
+    kw = dict(stem_impl="s2d_int8", quant_rpn=True, nms_impl="blocked_fixed",
+              **SMALL)
+    want = j_detect_batch(quant=case["jstate"], **kw)(
+        case["P"], case["bev"], case["image"], case["calib"])
+    detect = build_detect_batch_fn(quant=case["state"], **kw)
+    assert prepared == []
+    outs = [detect(case["params"], case["bev"], case["image"], case["calib"])
+            for _ in range(2)]
+    assert len(prepared) == 2                   # one per view, once
+    for got in outs:
+        assert set(got) == set(want)
+        np.testing.assert_array_equal(got["valid"].numpy(),
+                                      _np(want["valid"]))
+        np.testing.assert_allclose(got["scores"].numpy(),
+                                   _np(want["scores"]), atol=1e-3)
+        np.testing.assert_allclose(got["boxes_cnr_r"].numpy(),
+                                   _np(want["boxes_cnr_r"]), atol=1e-2)
+    assert all(torch.equal(outs[0][k], outs[1][k]) for k in outs[0])
 
 
 def test_int8_detector_int8_stem_pool_false_matches_jax(case):
