@@ -33,14 +33,27 @@ batched detectors with stem_impl="s2d_fused" (bf16 at B=4, int8 at B=8);
 and the evaluation entry points on a synthetic KITTI tree that the port
 writes: tools/test_net over its val split (bf16, and int8 with the s2d_int8
 stem) and tools/quant_check with the s2d_fused stem.
+Then the blocked NMS on the proposal layer's own candidates at the train
+step's shape (pre-NMS 12000, post-NMS 2000) and at test_net's (B=8): keep
+sets equal to the greedy loop's, the fixed variant certified, a 40-box
+chain that leaves its certificate False, and the layer's time on the
+greedy and on the blocked route in turns; solver.train_net on a second
+synthetic tree (8 train frames, bf16, the train set on the card: 6
+iterations with a trace, then tools/train_net --resume to 8, then 2
+iterations on the host feed); and tools/demo_mv on one of its frames, with
+and without the frame's raster file.
 Every failed check raises, so the exit code is non-zero; without a CUDA
 device it exits non-zero before printing any result.
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit, and before that a JSON line per kernel.
 """
 
+import contextlib
+import io
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -53,11 +66,13 @@ import torch.nn.functional as F
 from mv3d_tf_tpu_torch import eval as eval_mod
 from mv3d_tf_tpu_torch import geometry as G
 from mv3d_tf_tpu_torch import kernels
+from mv3d_tf_tpu_torch import proposals as proposals_mod
 from mv3d_tf_tpu_torch import quant as Q
+from mv3d_tf_tpu_torch import solver as solver_mod
 from mv3d_tf_tpu_torch import train as train_mod
-from mv3d_tf_tpu_torch.config import cfg
+from mv3d_tf_tpu_torch.config import cfg, get_output_dir
 from mv3d_tf_tpu_torch.data import synthetic
-from mv3d_tf_tpu_torch.data.kitti import get_imdb
+from mv3d_tf_tpu_torch.data.kitti import get_imdb, prepare_roidb
 from mv3d_tf_tpu_torch.data.kitti_eval import evaluate_kitti_bev
 from mv3d_tf_tpu_torch.eval import (PIXEL_MEANS, build_detect_batch_fn,
                                     build_detect_fn, detect_from_features,
@@ -71,6 +86,7 @@ from mv3d_tf_tpu_torch.ops import conv_s8 as S8
 from mv3d_tf_tpu_torch.ops import roi_pool_cuda as roi_pool_cuda_mod
 from mv3d_tf_tpu_torch.ops.bev_cuda import (CHUNK_CELLS, N_FLAT,
                                             bev_place_cuda, bev_place_plain)
+from mv3d_tf_tpu_torch.ops.nms import nms, nms_blocked, nms_blocked_fixed
 from mv3d_tf_tpu_torch.ops.conv_s8_cuda import (conv2x2_s8_cuda,
                                                 conv2x2_s8_nk_cuda,
                                                 conv3x3_s8_cuda,
@@ -88,7 +104,8 @@ from mv3d_tf_tpu_torch.ops.stem_s2d import (group_max, hwio,
 from mv3d_tf_tpu_torch.ops.stem_s2d_cuda import (stem_s2d_fused_cuda,
                                                  stem_s2d_fused_plain)
 from mv3d_tf_tpu_torch.ops.vgg_stem_cuda import vgg_stem_cuda, vgg_stem_plain
-from mv3d_tf_tpu_torch.tools import quant_check, read_lidar, test_net
+from mv3d_tf_tpu_torch.tools import demo_mv, quant_check, read_lidar, test_net
+from mv3d_tf_tpu_torch.tools import train_net as train_net_cli
 from mv3d_tf_tpu_torch.train import (build_forward_losses, build_train_step,
                                      make_draws)
 from mv3d_tf_tpu_torch.utils.weights import he_normal_params, params_from_jax
@@ -127,6 +144,7 @@ INT8_KW = dict(stem_impl="s2d_int8", quant_rpn=True, nms_impl="blocked_fixed",
 S8_VIEWS = {"bev": (300, 300), "image": (192, 624)}
 # the evaluation CLIs' synthetic KITTI tree: half train, half val
 EVAL_FRAMES = 16
+TRAIN_FRAMES = 8      # train_net's and the demo's tree: 8 train, 8 val
 
 
 def max_err(got, ref):
@@ -1710,7 +1728,7 @@ def int8_stages(params, state, bev, image, calib, stem="s2d_int8"):
                                  fbv, s_bv)
         rois, flat_bv, flat_img = clock(
             "proposal layer", eval_mod.proposals, rpn_cls, rpn_box, calib,
-            FEAT, FEAT, INT8_PRE_NMS, POST_NMS, 0.7)
+            FEAT, FEAT, INT8_PRE_NMS, POST_NMS, 0.7, INT8_KW["nms_impl"])
         pooled_bv = clock("int8 roi pool", roi_pool_fast, fbv, flat_bv)
         pooled_im = clock("int8 roi pool", roi_pool_fast, fim, flat_img)
         _, cls_prob, bbox_pred = clock(
@@ -2017,6 +2035,308 @@ def phase_eval_clis(np_params, smi):
     return total
 
 
+def capture_nms_inputs(args, kw):
+    """One proposal_layer_3d call on the blocked route; returns the blocked
+    NMS's inputs (score-ordered candidates of the layer's top-K)."""
+    seen = []
+    blocked = proposals_mod.nms_blocked
+
+    def capture(bv, psc, valid, max_out, thresh, presorted):
+        seen.append((bv, psc, valid, max_out, thresh))
+        return blocked(bv, psc, valid, max_out, thresh, presorted=presorted)
+
+    proposals_mod.nms_blocked = capture
+    try:
+        proposals_mod.proposal_layer_3d(*args, **kw)
+    finally:
+        proposals_mod.nms_blocked = blocked
+    return seen[0]
+
+
+class GreedyRoute:
+    """The proposal layer with its blocked NMS swapped for the greedy loop:
+    the route every post-NMS size took before the blocked scan was ported."""
+
+    def __enter__(self):
+        self.saved = proposals_mod.nms_blocked
+        proposals_mod.nms_blocked = (
+            lambda bv, psc, valid, max_out, thresh, presorted:
+            nms(bv, psc, valid, max_out, thresh))
+
+    def __exit__(self, *exc):
+        proposals_mod.nms_blocked = self.saved
+
+
+def nms_chain_case(gen, n=600, chain=40):
+    """One frame of n score-ordered boxes whose first ``chain`` form a
+    suppression chain (100 px wide, 12 px apart: neighbours at IoU 0.786,
+    boxes two apart at 0.613), inside the first 512-block: the fixed
+    variant's 16 rounds cannot reach its fixpoint."""
+    xy = torch.rand(n, 2, generator=gen) * 500
+    wh = 4 + torch.rand(n, 2, generator=gen) * 36
+    boxes = torch.cat([xy, xy + wh], 1)
+    x = 12.0 * torch.arange(chain, dtype=torch.float32)
+    boxes[:chain] = torch.stack([x, torch.full_like(x, 700.0), x + 99.0,
+                                 torch.full_like(x, 799.0)], 1)
+    scores = torch.linspace(1.0, 0.0, n)
+    return (boxes[None].cuda(), scores[None].cuda(),
+            torch.ones(1, n, dtype=torch.bool, device="cuda"))
+
+
+def phase_nms_blocked(np_params, smi):
+    """The blocked NMS on the card, on the proposal layer's own candidates:
+    at the train step's shape (one frame's RPN output from the He weights
+    in bf16, pre-NMS 12000, post-NMS 2000) and at test_net's (B=8, the TEST
+    config's pre/post-NMS), nms_blocked and nms_blocked_fixed give the
+    greedy nms's keep_idx and keep_valid, the fixed one certified; a
+    40-box chain in one block leaves the certificate False while the exact
+    variant still equals the greedy loop. Then the proposal layer's time on
+    the greedy route against the blocked route, alternating (greedy,
+    blocked, blocked, greedy after a warm-up of each), at both shapes, with
+    equal outputs."""
+    params = params_from_jax(np_params, device="cuda")
+    rng = np.random.RandomState(SEED + 7)
+    train_frame, _ = train_batch(rng)
+    frames = {"train step (B=1)": (
+        train_frame["bev"][None], train_frame["image"][None],
+        train_frame["calib"], TRAIN_PRE_NMS, TRAIN_POST_NMS)}
+    B = 8
+    frames["test_net batch (B=8)"] = (
+        torch.from_numpy(rng.rand(B, *TRAIN_BEV).astype(np.float32)).cuda(),
+        torch.from_numpy((rng.rand(B, *TRAIN_IMAGE) * 255).astype(
+            np.float32)).cuda(),
+        torch.from_numpy(np.stack([example_calib()] * B)).cuda(),
+        cfg.TEST.RPN_PRE_NMS_TOP_N, cfg.TEST.RPN_POST_NMS_TOP_N)
+    mean = torch.from_numpy(PIXEL_MEANS).cuda()
+    for name, (bev_in, image_in, calib, pre, post) in frames.items():
+        with torch.inference_mode():
+            c5, _ = mv3d.extract_features(params, bev_in, image_in - mean,
+                                          dtype=torch.bfloat16)
+            rpn_cls, rpn_box = mv3d.rpn_head(params, c5, dtype=torch.bfloat16)
+            args = (mv3d.rpn_probs(rpn_cls), rpn_box.float(), calib, FEAT,
+                    FEAT)
+            kw = dict(pre_nms_top_n=pre, post_nms_top_n=post)
+            bv, psc, valid, P, thr = capture_nms_inputs(args, kw)
+            want_idx, want_val = nms(bv, psc, valid, P, thr)
+            got = {"nms_blocked": nms_blocked(bv, psc, valid, P, thr,
+                                              presorted=True),
+                   "nms_blocked_fixed": nms_blocked_fixed(
+                       bv, psc, valid, P, thr, presorted=True)}
+            for impl, res in got.items():
+                if not (torch.equal(res[0], want_idx)
+                        and torch.equal(res[1], want_val)):
+                    raise AssertionError("%s at the %s: keep set differs "
+                                         "from the greedy nms" % (impl, name))
+            conv = got["nms_blocked_fixed"][2]
+            if not conv.all():
+                raise AssertionError("nms_blocked_fixed at the %s: not "
+                                     "certified: %s" % (name, conv.tolist()))
+            nms_ms = {}
+            for impl, fn in (("greedy nms", lambda: nms(bv, psc, valid, P,
+                                                        thr)),
+                             ("nms_blocked", lambda: nms_blocked(
+                                 bv, psc, valid, P, thr, presorted=True)),
+                             ("nms_blocked_fixed", lambda: nms_blocked_fixed(
+                                 bv, psc, valid, P, thr, presorted=True))):
+                nms_ms[impl] = timed(fn)[1]
+            layer = {"greedy": [], "blocked": []}
+            outs = {}
+
+            def run(route):
+                with (GreedyRoute() if route == "greedy"
+                      else contextlib.nullcontext()):
+                    out, ms = timed(lambda: proposals_mod.proposal_layer_3d(
+                        *args, **kw))
+                outs[route] = out
+                return ms
+
+            run("greedy")
+            run("blocked")
+            for route in ("greedy", "blocked", "blocked", "greedy"):
+                layer[route].append(run(route))
+            bad = [k for k in outs["greedy"]
+                   if not torch.equal(outs["greedy"][k], outs["blocked"][k])]
+            if bad:
+                raise AssertionError("proposal layer at the %s: greedy and "
+                                     "blocked routes differ in %s" % (name,
+                                                                      bad))
+        print("blocked NMS at the %s: %d candidates a frame, %d kept of "
+              "post-NMS %d, keep sets equal to the greedy nms, certified %s; "
+              "NMS alone ms: %s; proposal layer ms, greedy route %s, blocked "
+              "route %s (alternating), on [%s]" % (
+                  name, bv.shape[-2], int(want_val.sum()), P, conv.tolist(),
+                  ", ".join("%s %.3f" % kv for kv in nms_ms.items()),
+                  ", ".join("%.3f" % t for t in layer["greedy"]),
+                  ", ".join("%.3f" % t for t in layer["blocked"]), smi))
+    del params
+    boxes, scores, valid = nms_chain_case(torch.Generator().manual_seed(SEED))
+    idx, val = nms(boxes, scores, valid, 300, 0.7)
+    e_idx, e_val = nms_blocked(boxes, scores, valid, 300, 0.7, presorted=True)
+    f_idx, f_val, conv = nms_blocked_fixed(boxes, scores, valid, 300, 0.7,
+                                           presorted=True)
+    if conv.item() or not (torch.equal(e_idx, idx) and torch.equal(e_val,
+                                                                   val)):
+        raise AssertionError("40-box chain: certified %s, exact variant "
+                             "equal to greedy %s" % (
+                                 conv.item(), torch.equal(e_idx, idx)))
+    print("40-box chain in one block: nms_blocked_fixed certificate False "
+          "(its keep set %s the greedy one), nms_blocked equal to the greedy "
+          "nms" % ("equals" if torch.equal(f_idx, idx) else "differs from"))
+
+
+def printed_lines(fn, *args, **kwargs):
+    """fn's result and printed lines; echoes them but the config dump (its
+    lines start with "{" or a space) and the weight loader's line per
+    tensor."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args, **kwargs)
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        if line and not line.startswith(("{", " ", "assign pretrain model")):
+            print(line)
+    return out, lines
+
+
+def check_train_log(lines, what):
+    losses = [float(re.search(r"total loss: (\S+),", line).group(1))
+              for line in lines if line.startswith("iter: ")]
+    if not losses or not np.isfinite(losses).all():
+        raise AssertionError("%s: losses %s" % (what, losses))
+    return [float(re.search(r"speed: (\S+)s", line).group(1))
+            for line in lines if line.startswith("speed: ")]
+
+
+def phase_train_net(np_params, root, weights, smi):
+    """solver.train_net on the synthetic tree's 8 train frames in bf16 from
+    the He weights, on the device dataset: 6 iterations with SNAPSHOT_ITERS
+    4, DISPLAY 2 and DEBUG_TIMELINE on (a trace of iterations 2-4), then
+    tools.train_net.main(argv) --resume to 8; then 2 iterations on the host
+    feed (the device-data budget set to 0). Checks finite losses, the
+    snapshots _iter_4/6/8.pt, the trace file, the resume at 6, Adam's step
+    count 8, and 2 forward and 2 backward ROI launches an iteration (counts
+    zeroed just before each run, read just after). Returns the counts."""
+    keys = ("SNAPSHOT_ITERS", "DISPLAY", "DEBUG_TIMELINE")
+    saved = ([getattr(cfg.TRAIN, k) for k in keys], cfg.ROOT_DIR,
+             cfg.DATA_DIR, cfg.TPU.TRAIN_DATA_HBM_GB)
+    total = {}
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            cfg.ROOT_DIR, cfg.DATA_DIR = tmp, os.path.join(tmp, "data")
+            cfg.TRAIN.SNAPSHOT_ITERS, cfg.TRAIN.DISPLAY = 4, 2
+            cfg.TRAIN.DEBUG_TIMELINE = True
+            imdb = get_imdb("kitti_train", kitti_path=root)
+            roidb = prepare_roidb(imdb)
+            out_dir = get_output_dir(imdb, None)
+
+            def counted(name, iters, fn, *args, **kwargs):
+                roi_pool_cuda.launches = roi_pool_bwd_cuda.launches = 0
+                vgg_stem_cuda.launches = 0
+                t0 = time.perf_counter()
+                _, lines = printed_lines(fn, *args, **kwargs)
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+                launches = {"roi_pool": roi_pool_cuda.launches,
+                            "roi_pool_bwd": roi_pool_bwd_cuda.launches,
+                            "vgg_stem": vgg_stem_cuda.launches}
+                want = {"roi_pool": 2 * iters, "roi_pool_bwd": 2 * iters,
+                        "vgg_stem": 0}
+                if launches != want:
+                    raise AssertionError("%s launched %s != %s"
+                                         % (name, launches, want))
+                add_launches(total, launches)
+                speeds = check_train_log(lines, name)
+                print("%s: %d iterations in %.2f s (setup included), speed "
+                      "lines %s s/iter, launches %s, on [%s]" % (
+                          name, iters, secs, speeds, launches, smi))
+                return lines
+
+            counted("train_net bf16, device dataset", 6, solver_mod.train_net,
+                    imdb, roidb, out_dir, pretrained_model=weights,
+                    max_iters=6, compute_dtype=torch.bfloat16)
+            traces = os.listdir(os.path.join(out_dir, "traces"))
+            if traces != ["trace_iter_2_4.json"] or not os.path.getsize(
+                    os.path.join(out_dir, "traces", traces[0])):
+                raise AssertionError("trace files %s" % traces)
+            cfg.TRAIN.DEBUG_TIMELINE = False
+            lines = counted(
+                "tools.train_net --resume to 8, device dataset", 2,
+                train_net_cli.main,
+                ["--imdb", "kitti_train", "--kitti_path", root, "--iters",
+                 "8", "--weights", weights, "--resume", "--set", "ROOT_DIR",
+                 tmp, "DATA_DIR", os.path.join(tmp, "data"),
+                 "TRAIN.SNAPSHOT_ITERS", "4", "TRAIN.DISPLAY", "2"])
+            if not any(line.startswith("Resumed from") and line.endswith(
+                    "_iter_6.pt (iter 6)") for line in lines):
+                raise AssertionError("the CLI did not resume at 6")
+            snaps = sorted(n for n in os.listdir(out_dir)
+                           if n.endswith(".pt"))
+            want = ["VGGnet_fast_rcnn_iter_%d.pt" % i for i in (4, 6, 8)]
+            if snaps != want:
+                raise AssertionError("snapshots %s != %s" % (snaps, want))
+            blob = torch.load(os.path.join(out_dir, want[-1]),
+                              map_location="cpu", weights_only=True)
+            steps = {int(st["step"]) for st in blob["opt"]["state"].values()}
+            if steps != {8}:
+                raise AssertionError("Adam step counts %s != {8}" % steps)
+            del blob
+            for name in snaps:
+                os.remove(os.path.join(out_dir, name))
+            cfg.TPU.TRAIN_DATA_HBM_GB = 0.0
+            cfg.TRAIN.DISPLAY = 1
+            counted("train_net bf16, host feed", 2, solver_mod.train_net,
+                    imdb, roidb, out_dir, pretrained_model=weights,
+                    max_iters=2, compute_dtype=torch.bfloat16)
+    finally:
+        ([cfg.TRAIN.SNAPSHOT_ITERS, cfg.TRAIN.DISPLAY,
+          cfg.TRAIN.DEBUG_TIMELINE], cfg.ROOT_DIR, cfg.DATA_DIR,
+         cfg.TPU.TRAIN_DATA_HBM_GB) = saved
+    return total
+
+
+def phase_demo(root, weights, smi):
+    """tools.demo_mv.main on frame 000000 of the synthetic tree (bf16, the
+    He weights): with its lidar_bv raster, then from a copy of the frame
+    without it, where the scan is rasterized by the BEV placement kernel
+    (one launch). Each run writes non-empty _img, _bev and _3d PNGs; its
+    detector launches 2 stems and 2 ROI pools. Returns the counts."""
+    total = {}
+    obj = os.path.join(root, "object", "training")
+    with tempfile.TemporaryDirectory() as tmp:
+        bare = os.path.join(tmp, "object", "training")
+        for sub, ext in (("image_2", ".png"), ("velodyne", ".bin"),
+                         ("calib", ".txt")):
+            os.makedirs(os.path.join(bare, sub))
+            shutil.copy(os.path.join(obj, sub, "000000" + ext),
+                        os.path.join(bare, sub))
+        for name, src, rasters in (("with lidar_bv", obj, 0),
+                                   ("from the scan", bare, 1)):
+            zero_path_launches()
+            bev_place_cuda.launches = 0
+            t0 = time.perf_counter()
+            written, _ = printed_lines(
+                demo_mv.main, ["--root", src, "--index", "000000",
+                               "--weights", weights, "--out",
+                               os.path.join(tmp, "out", str(rasters))])
+            secs = time.perf_counter() - t0
+            launches = dict(path_launches(),
+                            bev_place=bev_place_cuda.launches)
+            want = dict(dict.fromkeys(launches, 0), roi_pool=2, vgg_stem=2,
+                        bev_place=rasters)
+            if launches != want:
+                raise AssertionError("demo %s launched %s != %s"
+                                     % (name, launches, want))
+            kinds = sorted(os.path.basename(p).rsplit("_", 1)[1]
+                           for p in written)
+            sizes = [os.path.getsize(p) for p in written]
+            if kinds != ["3d.png", "bev.png", "img.png"] or min(sizes) < 1000:
+                raise AssertionError("demo %s wrote %s" % (name, written))
+            add_launches(total, launches)
+            print("tools.demo_mv %s: %.2f s, PNGs %s bytes, launches %s, on "
+                  "[%s]" % (name, secs, sizes, launches, smi))
+    return total
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; "
@@ -2050,9 +2370,23 @@ def main():
     new_phases_s += time.perf_counter() - t0
     print("the fused s2d stem's phases (kernel check, detectors, CLIs): "
           "%.1f s" % new_phases_s)
+    t0 = time.perf_counter()
+    phase_nms_blocked(np_params, smi)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = synthetic.generate(os.path.join(tmp, "kitti"),
+                                  num_frames=TRAIN_FRAMES * 2,
+                                  cars_per_frame=3, seed=SEED)
+        weights = os.path.join(tmp, "he.npy")
+        np.save(weights, np_params)
+        trained = phase_train_net(np_params, root, weights, smi)
+        demo = phase_demo(root, weights, smi)
+    print("the blocked NMS, train_net and demo phases: %.1f s"
+          % (time.perf_counter() - t0))
     new_paths = {}
     add_launches(new_paths, fused)
     add_launches(new_paths, clis)
+    add_launches(new_paths, trained)
+    add_launches(new_paths, demo)
     loaded = [m for m in sys.modules
               if m.split(".")[0] in ("jax", "jaxlib", "mv3d_tf_tpu")]
     if loaded:
@@ -2060,7 +2394,8 @@ def main():
                              "imported: %s" % loaded)
     # launches on the main paths: the detector's run, the train run, the
     # read_lidar run, the scan-to-detections run, the int8 detector's run,
-    # the s2d_fused detectors' run and the evaluation CLIs' runs
+    # the s2d_fused detectors' run, the evaluation CLIs' runs, the
+    # train_net runs and the demo's runs
     print(json.dumps({"kernels": [
         {"name": "roi_pool", "route": "cuda", "source": ROI_SOURCE,
          "replaces": "mv3d_tf_tpu/ops/roi_pool_pallas.py:71",
@@ -2073,10 +2408,12 @@ def main():
          + new_paths["vgg_stem"], **stem},
         {"name": "roi_pool_bwd", "route": "cuda", "source": BWD_SOURCE,
          "replaces": "mv3d_tf_tpu/ops/roi_pool_pallas.py:333",
-         "launches": train_launches["roi_pool_bwd"], **bwd},
+         "launches": train_launches["roi_pool_bwd"]
+         + new_paths["roi_pool_bwd"], **bwd},
         {"name": "bev_place", "route": "cuda", "source": BEV_SOURCE,
          "replaces": "mv3d_tf_tpu/ops/bev_pallas.py:58",
-         "launches": cli_launches + scan_launches["bev_place"], **bev_stats},
+         "launches": cli_launches + scan_launches["bev_place"]
+         + new_paths["bev_place"], **bev_stats},
         {"name": "conv_s8", "route": "cuda", "source": CONV_S8_SOURCE,
          "replaces": "mv3d_tf_tpu/ops/conv_s8_pallas.py:46,155",
          "launches": int8["conv_s8"] + new_paths["conv_s8"], **conv_stats},

@@ -153,8 +153,8 @@ __C.TPU.EVAL_BATCH = 8
 __C.TPU.TRAIN_DATA_HBM_GB = 6.0
 # train-graph conv1 stem: '' = the literal VGG stem (parity default);
 # 's2d' = the space-to-depth packed stem (ops/stem_s2d.py),
-# gradient-equivalent but not bit-identical; train.build_train_step takes
-# it as stem_impl; solver.train_net, which reads this key, is not ported yet
+# gradient-equivalent but not bit-identical; solver.train_net passes it to
+# train.build_train_step as stem_impl
 __C.TPU.TRAIN_STEM = ''
 
 

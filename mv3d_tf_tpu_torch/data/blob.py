@@ -1,6 +1,6 @@
 """The LiDAR blob helper of mv3d_tf_tpu/data/blob.py:36-44
 (``make_bird_view``). The image helpers beside it there serve the legacy 2D
-path and wait for it (ROADMAP.md, Queue 1 item 12)."""
+path and wait for it (ROADMAP.md, Queue 1 item 8)."""
 
 from mv3d_tf_tpu_torch.ops import bev as bev_ops
 

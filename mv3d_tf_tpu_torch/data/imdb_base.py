@@ -3,9 +3,9 @@ reference's lib/datasets/imdb.py): the lazy cached roidb, its cache path,
 proposal recall and box-list roidb construction. Host code in numpy; the
 box overlaps are the port's ops/iou.bbox_overlaps on CPU tensors.
 
-Flip augmentation, ``evaluate_proposals`` and ``merge_roidbs`` serve the
-training loop and the legacy 2D path and wait for them (ROADMAP.md,
-Queue 1 items 8 and 12).
+Flip augmentation, ``evaluate_proposals`` and ``merge_roidbs`` serve only
+the legacy 2D path (the MV3D training loop does not flip) and wait for it
+(ROADMAP.md, Queue 1 item 8).
 """
 
 import os

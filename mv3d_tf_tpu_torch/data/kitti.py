@@ -270,7 +270,7 @@ def get_imdb(name, kitti_path=None):
             "unknown dataset {!r}: the port reads kitti_{{{}}}; the JAX "
             "package's other datasets (kitti_raw, kitti_tracking, kitti2d, "
             "voc, coco, pascal3d, imagenet3d, nissan, nthu) are not ported "
-            "(ROADMAP.md, Queue 1 item 12)".format(name,
+            "(ROADMAP.md, Queue 1 item 8)".format(name,
                                                    ",".join(KITTI_SPLITS)))
     imdb = KittiMV3D(split, kitti_path=kitti_path)
     _IMDB_FACTORY[key] = imdb

@@ -1,12 +1,15 @@
-"""Host data loading (mv3d_tf_tpu/data/loader.py:23-79): one frame's image,
-BEV raster and calib as fixed-shape numpy blobs, padded to the static
-image bucket and MAX_GT gt rows with a validity mask, as the train step and
-the detector take them. The epoch cursor ``RoIDataLayer`` belongs to the
-training loop and waits for it (ROADMAP.md, Queue 1 item 8).
+"""Host data loading (mv3d_tf_tpu/data/loader.py): one frame's image, BEV
+raster and calib as fixed-shape numpy blobs, padded to the static image
+bucket and MAX_GT gt rows with a validity mask, as the train step and the
+detector take them; and ``RoIDataLayer``, the training loop's
+epoch-permuted cursor with a background prefetch thread.
 
 Images load as BGR float32 through Pillow, as the JAX package loads them
 (cv2.imread parity: PIXEL_MEANS is BGR).
 """
+
+import queue
+import threading
 
 import numpy as np
 
@@ -69,3 +72,64 @@ def get_minibatch(entry, image_bucket=None, max_gt=None):
                  [[bev.shape[0], bev.shape[1], 1.0]], np.float32)}
     batch.update(pad_gt(entry, max_gt))
     return batch
+
+
+class _PrefetchError:
+    """A prefetch worker's exception, carried to forward()."""
+
+    def __init__(self, exc):
+        self.exc = exc
+
+
+class RoIDataLayer:
+    """Epoch-permuted cursor over the roidb (loader.py:89-143): each epoch
+    a permutation from np.random.RandomState(cfg.RNG_SEED, or seed), drawn
+    again when the cursor runs out. With prefetch > 0 a daemon thread loads
+    that many minibatches ahead; an exception in it is raised by forward()
+    as a RuntimeError from the worker's exception."""
+
+    def __init__(self, roidb, num_classes=2, seed=None, prefetch=2):
+        self._roidb = roidb
+        self._num_classes = num_classes
+        self._rng = np.random.RandomState(
+            cfg.RNG_SEED if seed is None else seed)
+        self._shuffle()
+        self._queue = None
+        if prefetch:
+            self._queue = queue.Queue(maxsize=prefetch)
+            threading.Thread(target=self._worker, daemon=True).start()
+
+    def _shuffle(self):
+        self._perm = self._rng.permutation(np.arange(len(self._roidb)))
+        self._cur = 0
+
+    def next_index(self):
+        """Advance the cursor without loading anything: the frame index
+        for a device-resident dataset, in forward()'s order."""
+        if self._cur >= len(self._roidb):
+            self._shuffle()
+        i = self._perm[self._cur]
+        self._cur += 1
+        return i
+
+    def _load_next(self):
+        return get_minibatch(self._roidb[self.next_index()])
+
+    def _worker(self):
+        while True:
+            try:
+                item = self._load_next()
+            except BaseException as e:      # carried to forward()
+                self._queue.put(_PrefetchError(e))
+                return
+            self._queue.put(item)
+
+    def forward(self):
+        """The next minibatch dict (get_minibatch)."""
+        if self._queue is None:
+            return self._load_next()
+        item = self._queue.get()
+        if isinstance(item, _PrefetchError):
+            raise RuntimeError(
+                "prefetch worker died: {!r}".format(item.exc)) from item.exc
+        return item

@@ -36,14 +36,16 @@ _NMS_IMPLS = ("auto", "blocked_fixed")
 
 
 def proposals(rpn_cls, rpn_box, calib, feat_h=75, feat_w=75,
-              pre_nms_top_n=6000, post_nms_top_n=300, rpn_nms_thresh=0.7):
+              pre_nms_top_n=6000, post_nms_top_n=300, rpn_nms_thresh=0.7,
+              nms_impl="auto"):
     """The proposal layer for B frames, and its rois flattened for the ROI
     pool with the frame index in column 0 (eval.py:217-220). Returns
-    (rois, flat_bv (B*P,5), flat_img (B*P,5))."""
+    (rois, flat_bv (B*P,5), flat_img (B*P,5)); nms_impl is the layer's."""
     B, P = rpn_cls.shape[0], post_nms_top_n
     rois = proposal_layer_3d(mv3d.rpn_probs(rpn_cls), rpn_box.float(), calib,
                              feat_h, feat_w, pre_nms_top_n=pre_nms_top_n,
-                             post_nms_top_n=P, nms_thresh=rpn_nms_thresh)
+                             post_nms_top_n=P, nms_thresh=rpn_nms_thresh,
+                             nms_impl=nms_impl)
     frame = torch.arange(B, dtype=torch.float32,
                          device=rpn_cls.device).repeat_interleave(P)[:, None]
     flat_bv = torch.cat([frame, rois["rois_bv"].reshape(B * P, 5)[:, 1:]], 1)
@@ -61,7 +63,7 @@ def _outputs(rois, cls_prob, bbox_pred):
     pred_bv = G.corners_to_bv(pred_cnr)
 
     mask = rois["valid"].reshape(B * P, 1).float()
-    return {
+    out = {
         "scores": (cls_prob * mask).reshape(B, P, -1),
         "boxes_bv": (pred_bv * mask).reshape(B, P, -1),
         "boxes_cnr": (pred_cnr * mask).reshape(B, P, -1),
@@ -70,22 +72,26 @@ def _outputs(rois, cls_prob, bbox_pred):
         "rois_img": rois["rois_img"],
         "valid": rois["valid"],
     }
+    if "nms_converged" in rois:
+        out["nms_converged"] = rois["nms_converged"]
+    return out
 
 
 def detect_from_features(params, c5, c5_2, calib, feat_h=75, feat_w=75,
                          pre_nms_top_n=6000, post_nms_top_n=300,
                          rpn_nms_thresh=0.7, compute_dtype=None,
-                         pool=roi_pool_fast):
+                         pool=roi_pool_fast, nms_impl="auto"):
     """The detector after the trunks, for B frames.
 
     c5 (B,h,w,512) BEV and c5_2 (B,h',w',512) image features; calib
     (B,4,12). ``pool`` is the ROI pool (the kernel dispatch by default).
-    Returns the single-frame detector's keys with leading dims (B, P).
+    Returns the single-frame detector's keys with leading dims (B, P), and
+    "nms_converged" (B,) with nms_impl="blocked_fixed".
     """
     rpn_cls, rpn_box = mv3d.rpn_head(params, c5, dtype=compute_dtype)
     rois, flat_bv, flat_img = proposals(
         rpn_cls, rpn_box, calib, feat_h, feat_w, pre_nms_top_n,
-        post_nms_top_n, rpn_nms_thresh)
+        post_nms_top_n, rpn_nms_thresh, nms_impl)
     pooled_bv = pool(c5, flat_bv, spatial_scale=1.0 / 8)
     pooled_img = pool(c5_2, flat_img, spatial_scale=1.0 / 8)
     _, cls_prob, bbox_pred = mv3d.fusion_head(params, pooled_bv, pooled_img,
@@ -127,7 +133,7 @@ def _dequant(q, s):
 @torch.inference_mode()
 def _detect_int8(params, qstate, bev, image, calib, stem_impl, conv_impl,
                  quant_rpn, quant_pool, feat_h, feat_w, pre_nms_top_n,
-                 post_nms_top_n, rpn_nms_thresh, trunk_w, head_nk,
+                 post_nms_top_n, rpn_nms_thresh, nms_impl, trunk_w, head_nk,
                  stem_cache):
     """The int8 batched detector (eval.py:137-291): int8 trunks (their convs
     on trunk_w, quant.prepare_trunk_weights' dict per trunk; the s2d_int8
@@ -148,7 +154,7 @@ def _detect_int8(params, qstate, bev, image, calib, stem_impl, conv_impl,
                                          dtype=torch.bfloat16)
     rois, flat_bv, flat_img = proposals(
         rpn_cls, rpn_box, calib, feat_h, feat_w, pre_nms_top_n,
-        post_nms_top_n, rpn_nms_thresh)
+        post_nms_top_n, rpn_nms_thresh, nms_impl)
     if not quant_pool:
         fbv, fim = _dequant(fbv, s_bv), _dequant(fim, s_im)
     pooled_bv = roi_pool_fast(fbv, flat_bv, spatial_scale=1.0 / 8)
@@ -204,9 +210,11 @@ def build_detect_batch_fn(feat_h=75, feat_w=75, pre_nms_top_n=6000,
 
     Returns detect_batch(params, bev (B,...), image (B,...), calib (B,4,12))
     -> dict with leading dims (B, P) and the keys of the JAX batch detector.
-    Both nms_impl values run the one exact greedy NMS; with "blocked_fixed"
-    the output carries "nms_converged" (B,), all True, as the JAX key
-    promises.
+    nms_impl "auto" leaves the choice to the proposal layer (the greedy
+    loop at post_nms_top_n <= 512, the blocked scan above);
+    "blocked_fixed" runs the fixed-round blocked NMS and the output carries
+    its certificate "nms_converged" (B,) bool (eval.py:289-290), which a
+    caller must check before it trusts the frame (solver.test_net raises).
 
     quant: an int8 PTQ state (quant.build_quant_state, load_quant_state or
     utils.weights.quant_state_from_jax) runs the int8 detector: stem_impl
@@ -228,7 +236,8 @@ def build_detect_batch_fn(feat_h=75, feat_w=75, pre_nms_top_n=6000,
     if nms_impl not in _NMS_IMPLS:
         raise ValueError("unknown nms_impl {!r}".format(nms_impl))
     kw = dict(feat_h=feat_h, feat_w=feat_w, pre_nms_top_n=pre_nms_top_n,
-              post_nms_top_n=post_nms_top_n, rpn_nms_thresh=rpn_nms_thresh)
+              post_nms_top_n=post_nms_top_n, rpn_nms_thresh=rpn_nms_thresh,
+              nms_impl=nms_impl)
     if quant is None:
         run = lambda p, b, i, c: _detect(  # noqa: E731
             p, b, i, c, compute_dtype, stem_impl, **kw)
@@ -247,10 +256,6 @@ def build_detect_batch_fn(feat_h=75, feat_w=75, pre_nms_top_n=6000,
     def detect_batch(params, bev, image, calib):
         out = run(params, bev, image, calib)
         del out["rois_img"]
-        if nms_impl == "blocked_fixed":
-            out["nms_converged"] = torch.ones(
-                out["valid"].shape[0], dtype=torch.bool,
-                device=out["valid"].device)
         return out
 
     return detect_batch

@@ -4,18 +4,19 @@ import torch
 
 
 def bbox_overlaps(boxes, query):
-    """(N, 4) x (K, 4) -> (N, K) IoU, 0 where the boxes do not overlap.
-    ops/iou.py:11-30."""
-    b, q = boxes[:, None, :], query[None, :, :]
+    """(..., N, 4) x (..., K, 4) -> (..., N, K) IoU, 0 where the boxes do
+    not overlap; leading dims are independent frames. ops/iou.py:11-30,
+    in its order of operations."""
+    b, q = boxes[..., :, None, :], query[..., None, :, :]
     iw = (torch.minimum(b[..., 2], q[..., 2])
           - torch.maximum(b[..., 0], q[..., 0]) + 1.0)
     ih = (torch.minimum(b[..., 3], q[..., 3])
           - torch.maximum(b[..., 1], q[..., 1]) + 1.0)
     inter = iw.clamp(min=0.0) * ih.clamp(min=0.0)
-    area_b = ((boxes[:, 2] - boxes[:, 0] + 1.0)
-              * (boxes[:, 3] - boxes[:, 1] + 1.0))[:, None]
-    area_q = ((query[:, 2] - query[:, 0] + 1.0)
-              * (query[:, 3] - query[:, 1] + 1.0))[None, :]
+    area_b = ((boxes[..., 2] - boxes[..., 0] + 1.0)
+              * (boxes[..., 3] - boxes[..., 1] + 1.0))[..., :, None]
+    area_q = ((query[..., 2] - query[..., 0] + 1.0)
+              * (query[..., 3] - query[..., 1] + 1.0))[..., None, :]
     iou = inter / (area_b + area_q - inter)
     return torch.where((iw > 0.0) & (ih > 0.0), iou, 0.0)
 

@@ -1,14 +1,21 @@
 """Score top-K and exact greedy NMS with fixed output slots
 (mv3d_tf_tpu/ops/nms.py), plus the numpy greedy oracle for host code.
 
-The JAX package's blocked, blocked-fixed and matrix NMS variants exist to
-work around TPU faults; the one greedy loop here gives the same keep set.
+Two formulations give the greedy keep set, as in the JAX package:
+  * ``nms``: the greedy loop, one O(N) step per output slot;
+  * ``nms_blocked`` / ``nms_blocked_fixed``: the candidates in score order,
+    512 a block; each block is resolved by a fixpoint on its (512, 512)
+    suppression mask, then one (512, N) IoU sweep suppresses the boxes
+    behind it. The proposal layer takes them above post-NMS 512 for speed
+    (proposals.py): a train step's 2000 greedy steps become 24 blocks.
+The matrix variant and the reference's ``nms_new`` belong to the legacy 2D
+path (ROADMAP.md, Queue 1 item 8).
 """
 
 import numpy as np
 import torch
 
-from mv3d_tf_tpu_torch.ops.iou import iou_one_to_many
+from mv3d_tf_tpu_torch.ops.iou import bbox_overlaps, iou_one_to_many
 
 NEG_INF = -1e30
 
@@ -43,6 +50,110 @@ def nms(boxes, scores, valid, max_out, iou_threshold=0.7):
         keep_idx.append(torch.where(found, best, 0))
         keep_val.append(found)
     return torch.cat(keep_idx, dim=-1), torch.cat(keep_val, dim=-1)
+
+
+def nms_blocked(boxes, scores, valid, max_out, iou_threshold=0.7,
+                block=512, presorted=False):
+    """Exact greedy NMS over score-sorted blocks (ops/nms.py:115-137): each
+    block's fixpoint runs until one more round changes nothing in any
+    frame (one host sync a round).
+
+    boxes (..., N, 4), scores (..., N), valid (..., N) bool; leading dims
+    are independent frames. presorted=True promises boxes already in
+    descending score order with every invalid entry trailing (what
+    top_k_by_score gives), and skips the sort. Returns keep_idx (...,
+    max_out) int64 (0 in unused slots) and keep_valid (..., max_out) bool,
+    as ``nms``.
+    """
+    keep_idx, keep_valid, _ = _nms_blocked_core(
+        boxes, scores, valid, max_out, iou_threshold, block, presorted, None)
+    return keep_idx, keep_valid
+
+
+def nms_blocked_fixed(boxes, scores, valid, max_out, iou_threshold=0.7,
+                      block=512, presorted=False, rounds=16):
+    """nms_blocked with ``rounds`` fixpoint rounds per block and no host
+    sync (ops/nms.py:83-111). The keep set is the greedy one whenever every
+    suppression chain inside a block is at most ``rounds`` deep; the third
+    output, ``converged`` (...,) bool, certifies it: True iff one more round
+    would change nothing in any block of the frame (ops/nms.py:200-205)."""
+    return _nms_blocked_core(boxes, scores, valid, max_out, iou_threshold,
+                             block, presorted, rounds)
+
+
+def _nms_blocked_core(boxes, scores, valid, max_out, iou_threshold, block,
+                      presorted, rounds):
+    """The shared body (ops/nms.py:140-220), batched over frames. rounds
+    None runs each block's fixpoint to the end (converged all True);
+    rounds=int runs that many rounds and certifies the result."""
+    lead = scores.shape[:-1]
+    n = scores.shape[-1]
+    boxes = boxes.reshape(-1, n, 4).float()
+    scores = scores.reshape(-1, n)
+    active = valid.reshape(-1, n) & torch.isfinite(scores)
+    B, dev = scores.shape[0], scores.device
+    bs = min(block, n)
+    nblk = -(-n // bs)
+    pad = nblk * bs - n
+
+    if presorted:
+        order = torch.arange(n, device=dev).expand(B, n)
+        boxes_s, valid_s = boxes, active
+    else:
+        masked = torch.where(active, scores, NEG_INF)
+        # descending and stable: ties keep their index order, as the
+        # ascending stable argsort of the negated scores does in JAX
+        order = torch.sort(masked, dim=-1, descending=True, stable=True)[1]
+        boxes_s = boxes.gather(1, order[..., None].expand(B, n, 4))
+        valid_s = active.gather(1, order)
+    boxes_s = torch.nn.functional.pad(boxes_s, (0, 0, 0, pad))
+    valid_s = torch.nn.functional.pad(valid_s, (0, pad))
+
+    upper = torch.ones(bs, bs, dtype=torch.bool, device=dev).triu(1)
+    supp = torch.zeros(B, nblk * bs, dtype=torch.bool, device=dev)
+    converged = torch.ones(B, dtype=torch.bool, device=dev)
+    kept_blocks = []
+    for start in range(0, nblk * bs, bs):
+        end = start + bs
+        bb = boxes_s[:, start:end]
+        bvalid = valid_s[:, start:end] & ~supp[:, start:end]
+        # the block's own greedy: a fixpoint on its (bs, bs) mask
+        sup_bb = ((bbox_overlaps(bb, bb) >= iou_threshold) & upper
+                  & bvalid[:, :, None] & bvalid[:, None, :])
+
+        def step(kept):
+            return bvalid & ~(kept[:, :, None] & sup_bb).any(dim=1)
+
+        kept = bvalid
+        if rounds is None:
+            while True:
+                new = step(kept)
+                if torch.equal(new, kept):
+                    break
+                kept = new
+        else:
+            for _ in range(rounds):
+                kept = step(kept)
+            # one more round is a no-op <=> the fixpoint was reached
+            converged &= (step(kept) == kept).all(dim=1)
+        kept_blocks.append(kept)
+        # the block's kept boxes suppress the boxes behind it; JAX sweeps
+        # all N columns, but those up to ``end`` are never read again
+        if end < nblk * bs:
+            iou_bt = bbox_overlaps(bb, boxes_s[:, end:])
+            hit = (kept[:, :, None] & (iou_bt >= iou_threshold)).any(dim=1)
+            supp[:, end:] |= hit
+    kept = torch.cat(kept_blocks, dim=1)[:, :n]
+
+    # the first max_out kept (in score order) into fixed slots
+    rank = kept.long().cumsum(dim=1) - 1
+    slot = torch.where(kept & (rank < max_out), rank, max_out)
+    keep_idx = torch.zeros(B, max_out + 1, dtype=torch.long, device=dev)
+    keep_idx = keep_idx.scatter(1, slot, order)[:, :max_out]
+    n_kept = kept.sum(dim=1, keepdim=True).clamp(max=max_out)
+    keep_valid = torch.arange(max_out, device=dev) < n_kept
+    return (keep_idx.mul(keep_valid).reshape(*lead, max_out),
+            keep_valid.reshape(*lead, max_out), converged.reshape(lead))
 
 
 def nms_np(dets, thresh):

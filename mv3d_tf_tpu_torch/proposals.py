@@ -3,9 +3,11 @@ proposal blocks with a validity mask.
 
 Same pipeline as the JAX layer: fg scores -> static anchor grid -> 6-dof
 decode -> BEV and image projections -> clip -> min-size and image-bounds
-filters (as score masks) -> stable top-K -> greedy BEV NMS -> fixed
-(P, ...) blocks. Frames are a batch dimension written out, where the JAX
-package vmaps a single-frame layer.
+filters (as score masks) -> stable top-K -> BEV NMS -> fixed (P, ...)
+blocks. The NMS is the greedy loop at post-NMS <= 512 and the blocked scan
+above it, as the JAX layer routes it (proposals.py:115-121). Frames are a
+batch dimension written out, where the JAX package vmaps a single-frame
+layer.
 """
 
 import torch
@@ -13,12 +15,14 @@ import torch
 from mv3d_tf_tpu_torch import geometry as G
 from mv3d_tf_tpu_torch.anchors import get_anchor_grid
 from mv3d_tf_tpu_torch.models.mv3d import rpn_fg_scores
-from mv3d_tf_tpu_torch.ops.nms import nms, top_k_by_score
+from mv3d_tf_tpu_torch.ops.nms import (nms, nms_blocked, nms_blocked_fixed,
+                                       top_k_by_score)
 
 # the reference hardcodes the camera image bounds and padding rather than
 # using the real image size (proposal_layer_tf.py:146-147,343-352)
 IMG_BOUNDS = (375.0, 1242.0)
 IMG_PAD = 50.0
+NMS_IMPLS = ("auto", "blocked", "blocked_fixed")
 
 
 def _take(a, idx):
@@ -29,7 +33,7 @@ def _take(a, idx):
 def proposal_layer_3d(rpn_cls_prob, rpn_bbox_pred, calib, feat_h, feat_w,
                       feat_stride=8, pre_nms_top_n=12000,
                       post_nms_top_n=2000, nms_thresh=0.7, min_size=5,
-                      im_h=601, im_w=601, im_scale=1.0):
+                      im_h=601, im_w=601, im_scale=1.0, nms_impl="auto"):
     """RPN outputs -> proposal blocks (proposals.py:38-137).
 
     rpn_cls_prob (B,h,w,2A) softmax probabilities; rpn_bbox_pred (B,h,w,6A)
@@ -38,7 +42,15 @@ def proposal_layer_3d(rpn_cls_prob, rpn_bbox_pred, calib, feat_h, feat_w,
     left 0 here], scores (B,P), valid (B,P), P = post_nms_top_n. Given a
     single (4,12) calib and B = 1, the leading dim is dropped, as the JAX
     layer returns.
+
+    nms_impl "auto" runs the greedy ``nms`` at post_nms_top_n <= 512 and
+    ``nms_blocked`` above; "blocked" runs ``nms_blocked`` at any size;
+    "blocked_fixed" runs ``nms_blocked_fixed`` and adds its certificate,
+    "nms_converged" (B,) bool (0-d for a single frame). All three give the
+    greedy keep set (the fixed one where certified).
     """
+    if nms_impl not in NMS_IMPLS:
+        raise ValueError("unknown nms_impl {!r}".format(nms_impl))
     single = calib.dim() == 2
     if single:
         calib = calib[None]
@@ -68,7 +80,17 @@ def proposal_layer_3d(rpn_cls_prob, rpn_bbox_pred, calib, feat_h, feat_w,
     bv, p3d, pimg = _take(pbv, top_idx), _take(p3d, top_idx), _take(pimg, top_idx)
     psc = scores.gather(1, top_idx)
 
-    keep_idx, keep_valid = nms(bv, psc, top_valid, post_nms_top_n, nms_thresh)
+    converged = None
+    if nms_impl == "blocked_fixed":
+        keep_idx, keep_valid, converged = nms_blocked_fixed(
+            bv, psc, top_valid, post_nms_top_n, nms_thresh, presorted=True)
+    elif post_nms_top_n <= 512 and nms_impl != "blocked":
+        keep_idx, keep_valid = nms(bv, psc, top_valid, post_nms_top_n,
+                                   nms_thresh)
+    else:
+        keep_idx, keep_valid = nms_blocked(bv, psc, top_valid,
+                                           post_nms_top_n, nms_thresh,
+                                           presorted=True)
     mask = keep_valid[..., None].float()
     zeros = mask.new_zeros((B, post_nms_top_n, 1))
 
@@ -82,6 +104,8 @@ def proposal_layer_3d(rpn_cls_prob, rpn_bbox_pred, calib, feat_h, feat_w,
         "scores": psc.gather(1, keep_idx) * keep_valid,
         "valid": keep_valid,
     }
+    if converged is not None:
+        out["nms_converged"] = converged
     if single:
         out = {name: v[0] for name, v in out.items()}
     return out

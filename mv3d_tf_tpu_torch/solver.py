@@ -1,29 +1,240 @@
-"""The full-dataset evaluation loop (mv3d_tf_tpu/solver.py:236-437, the
-reference's lib/fast_rcnn/test_mv.py:321-517): batched detection over an
-imdb, per-class threshold and NMS, the top-300 cap, the detections pickles
-and the KITTI result writing and AP.
+"""The training loop and the full-dataset evaluation loop
+(mv3d_tf_tpu/solver.py).
+
+``train_net`` (solver.py:69-233, the reference's train_mv.py:87-219): the
+single-frame train step over an epoch-permuted roidb, fed from a
+card-resident copy of the train set when it fits (bf16 BEV, uint8 image)
+or by a host prefetch thread; Adam with the optional staircase LR decay as
+a torch scheduler; the reference's display and snapshot cadence; resume
+from the latest snapshot with Adam's and the scheduler's state; an optional
+torch.profiler trace of three iterations.
+
+``test_net`` (solver.py:236-437, the reference's test_mv.py:321-517):
+batched detection over an imdb, per-class threshold and NMS, the top-300
+cap, the detections pickles and the KITTI result writing and AP.
 
 A prefetch thread loads each batch from disk and copies it to the device
 on a side stream while the previous batch computes; the previous batch's
 host post-processing overlaps the current batch's device work. With a
 ``quant_cfg`` it calibrates the int8 detector on the first frames
 of the split (the accuracy gate with the same flags is tools/quant_check).
-``train_net`` belongs to the training loop and waits for it (ROADMAP.md,
-Queue 1 item 8).
 """
 
 import os
 import pickle
 import queue
 import threading
+import time
 
 import numpy as np
 import torch
 
+from mv3d_tf_tpu_torch import train
 from mv3d_tf_tpu_torch.config import cfg, get_output_dir
-from mv3d_tf_tpu_torch.data.loader import load_image_bgr, pad_image
+from mv3d_tf_tpu_torch.data.loader import (RoIDataLayer, get_minibatch,
+                                           load_image_bgr, pad_image)
 from mv3d_tf_tpu_torch.eval import build_detect_batch_fn, frame_detections
+from mv3d_tf_tpu_torch.models import mv3d
+from mv3d_tf_tpu_torch.utils.checkpoint import (latest_snapshot,
+                                                load_checkpoint,
+                                                load_pretrained,
+                                                save_checkpoint,
+                                                snapshot_iter)
 from mv3d_tf_tpu_torch.utils.timer import Timer
+
+LR = 1e-5               # the MV3D Adam lr (train.build_train_step's)
+FEAT = 75               # the train step's stride-8 BEV feature map side
+KEEP_PROB = 0.5         # the fusion head's dropout keep rate
+
+
+def _build_device_dataset(roidb, device, log=print):
+    """The whole roidb stacked on ``device`` for train.build_train_step_cached
+    (solver.py:27-66): bev as bfloat16 (the bf16 trunk's first act is that
+    cast), image as uint8 (raw pixels are integers), the rest as loaded.
+    Returns None when the estimate exceeds cfg.TPU.TRAIN_DATA_HBM_GB; the
+    caller then feeds frames from the host."""
+    n = len(roidb)
+    b0 = get_minibatch(roidb[0])
+    keys = train.BATCH_KEYS
+    per_frame = (b0["bev"].size * 2 + b0["image"].size
+                 + sum(b0[k].size * 4 for k in keys[2:-1])
+                 + b0["gt_valid"].size)
+    total = n * per_frame
+    budget = float(cfg.TPU.TRAIN_DATA_HBM_GB) * (1 << 30)
+    if total > budget:
+        log("device dataset {} frames = {:.1f} GiB > budget {:.1f} GiB; "
+            "feeding from the host".format(n, total / (1 << 30),
+                                           budget / (1 << 30)))
+        return None
+    log("pinning {} train frames on device ({:.2f} GiB)...".format(
+        n, total / (1 << 30)))
+    host = {"bev": torch.empty((n,) + b0["bev"].shape, dtype=torch.bfloat16),
+            "image": torch.empty((n,) + b0["image"].shape,
+                                 dtype=torch.uint8)}
+    for k in keys[2:]:
+        host[k] = torch.empty((n,) + b0[k].shape,
+                              dtype=torch.from_numpy(b0[k]).dtype)
+    for i in range(n):
+        b = b0 if i == 0 else get_minibatch(roidb[i])
+        host["bev"][i] = torch.from_numpy(b["bev"])
+        host["image"][i] = torch.from_numpy(b["image"])
+        for k in keys[2:]:
+            host[k][i] = torch.from_numpy(b[k])
+    t0 = time.time()
+    data = {k: v.to(device) for k, v in host.items()}
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    log("device dataset ready ({:.1f}s transfer)".format(time.time() - t0))
+    return data
+
+
+def _lr_scheduler(opt, start_iter):
+    """cfg.TRAIN.LR_DECAY's staircase, optax.exponential_decay(1e-5, STEPSIZE,
+    GAMMA, staircase=True) (solver.py:114-126): the lr of the update after
+    ``count`` updates is 1e-5 * GAMMA ** (count // STEPSIZE). Stepped once an
+    iteration; built at start_iter, so a resumed run continues its lr."""
+    step, gamma = int(cfg.TRAIN.STEPSIZE), float(cfg.TRAIN.GAMMA)
+    for group in opt.param_groups:
+        group["initial_lr"] = LR
+    return torch.optim.lr_scheduler.LambdaLR(
+        opt, lambda count: gamma ** (count // step), last_epoch=start_iter - 1)
+
+
+def train_net(imdb, roidb, output_dir, pretrained_model=None,
+              max_iters=10000, compute_dtype=None, seed=None,
+              display=None, snapshot_iters=None, log=print,
+              resume=False, trace_dir=None, device_data=None,
+              device="cuda"):
+    """Train MV3D on a roidb on ``device`` (the card unless the caller asks
+    for the CPU); returns the params.
+
+    The params start from mv3d.init_params with a generator seeded from
+    ``seed`` (cfg.RNG_SEED if None), then ``pretrained_model`` (a .npy dict
+    or a port snapshot). The same generator then gives each iteration's
+    draws (train.make_draws). On a card with a compute dtype the train set
+    is kept on the card (_build_device_dataset; ``device_data`` passes one
+    built before, so that segmented drivers pin it once); otherwise frames
+    come from the host with a prefetch of 2. resume=True restores the
+    latest snapshot in output_dir: params, Adam and the LR scheduler; the
+    draws and the epoch permutation restart from the seed, as the JAX
+    package's do (solver.py:92-93, 175-176). trace_dir (or
+    cfg.TRAIN.DEBUG_TIMELINE, under output_dir/traces) records a
+    torch.profiler Chrome trace of iterations start+2 to start+4.
+    """
+    roidb = train.filter_roidb(roidb)
+    display = cfg.TRAIN.DISPLAY if display is None else display
+    snapshot_iters = (cfg.TRAIN.SNAPSHOT_ITERS if snapshot_iters is None
+                      else snapshot_iters)
+    device = torch.device(device)
+    gen = torch.Generator(device=device).manual_seed(
+        cfg.RNG_SEED if seed is None else seed)
+    params = mv3d.init_params(gen, device=device)
+    if pretrained_model is not None:
+        log("Loading pretrained model weights from {:s}".format(
+            pretrained_model))
+        load_pretrained(params, pretrained_model)
+
+    if (device_data is None and device.type == "cuda"
+            and compute_dtype is not None):
+        device_data = _build_device_dataset(roidb, device, log)
+
+    kw = dict(pre_nms_top_n=cfg.TRAIN.RPN_PRE_NMS_TOP_N,
+              post_nms_top_n=cfg.TRAIN.RPN_POST_NMS_TOP_N,
+              rpn_nms_thresh=cfg.TRAIN.RPN_NMS_THRESH,
+              rois_per_image=cfg.TRAIN.BATCH_SIZE,
+              compute_dtype=compute_dtype,
+              stem_impl=(cfg.TPU.TRAIN_STEM or None))
+    if device_data is not None:
+        step, make_opt = train.build_train_step_cached(**kw)
+    else:
+        step, make_opt = train.build_train_step(**kw)
+    opt = make_opt(params)
+
+    snap = latest_snapshot(output_dir) if resume else None
+    start_iter = 0 if snap is None else snapshot_iter(snap)
+    sched = None
+    if cfg.TRAIN.LR_DECAY:
+        sched = _lr_scheduler(opt, start_iter)
+        log("LR_DECAY on: 1e-5 * {}^(it // {})".format(
+            cfg.TRAIN.GAMMA, cfg.TRAIN.STEPSIZE))
+    if snap is not None:
+        load_checkpoint(snap, params, opt, sched)
+        log("Resumed from {} (iter {})".format(snap, start_iter))
+
+    data_layer = RoIDataLayer(roidb, imdb.num_classes,
+                              prefetch=0 if device_data is not None else 2)
+    draw_args = (FEAT * FEAT * mv3d.NUM_ANCHORS,
+                 cfg.TRAIN.RPN_POST_NMS_TOP_N + cfg.TPU.MAX_GT,
+                 cfg.TRAIN.BATCH_SIZE, params["fc7_1"].weight.shape[0],
+                 KEEP_PROB, device)
+
+    if cfg.TRAIN.DEBUG_TIMELINE and trace_dir is None:
+        trace_dir = os.path.join(output_dir, "traces")
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    prof = None
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    def stop_trace(last):
+        sync()
+        prof.stop()
+        os.makedirs(trace_dir, exist_ok=True)
+        path = os.path.join(trace_dir, "trace_iter_{}_{}.json".format(
+            start_iter + 2, last))
+        prof.export_chrome_trace(path)
+        log("profiler trace written to " + path)
+
+    timer = Timer()
+    last_display_t = time.time()
+    last_snapshot_iter = -1
+    for it in range(start_iter, max_iters):
+        if trace_dir is not None and it == start_iter + 2:
+            prof = torch.profiler.profile(activities=acts)
+            prof.start()
+        if prof is not None and it == start_iter + 5:
+            stop_trace(it - 1)
+            prof = None
+        draws = train.make_draws(gen, *draw_args)
+        if device_data is not None:
+            # no sync per iteration: the loss read at display points syncs
+            m = step(params, opt, device_data, int(data_layer.next_index()),
+                     draws)
+        else:
+            blobs = data_layer.forward()
+            timer.tic()
+            m = step(params, opt, blobs, draws)
+            sync()
+            timer.toc()
+        if sched is not None:
+            sched.step()
+
+        if (it + 1) % display == 0:
+            log("iter: %d / %d, total loss: %.4f, rpn_loss_cls: %.4f, "
+                "rpn_loss_box: %.4f, loss_cls: %.4f, loss_box: %.4f"
+                % (it + 1, max_iters, m["loss"].item(),
+                   m["rpn_cross_entropy"].item(), m["rpn_loss_box"].item(),
+                   m["cross_entropy"].item(), m["loss_box"].item()))
+            if device_data is not None:
+                now = time.time()
+                log("speed: {:.3f}s / iter".format(
+                    (now - last_display_t) / display))
+                last_display_t = now
+            else:
+                log("speed: {:.3f}s / iter".format(timer.average_time))
+
+        if (it + 1) % snapshot_iters == 0:
+            last_snapshot_iter = it
+            save_checkpoint(output_dir, it + 1, params, opt, sched)
+
+    if prof is not None:        # a short run can end before the stop
+        stop_trace(max_iters - 1)
+    if last_snapshot_iter != max_iters - 1:
+        save_checkpoint(output_dir, max_iters, params, opt, sched)
+    return params
 
 _DET_KEYS = ("scores", "boxes_bv", "boxes_cnr", "boxes_cnr_r", "valid")
 

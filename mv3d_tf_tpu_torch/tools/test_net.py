@@ -78,11 +78,11 @@ def main(argv=None):
     if args.network_name.startswith("VGGnet"):
         raise SystemExit(
             "--network {}: the legacy 2D Faster R-CNN networks are not "
-            "ported (ROADMAP.md, Queue 1 item 12)".format(args.network_name))
+            "ported (ROADMAP.md, Queue 1 item 8)".format(args.network_name))
     if args.host_id is not None or args.merge_shards:
         raise SystemExit(
             "--host_id / --merge_shards: multi-host evaluation is not "
-            "ported (ROADMAP.md, Queue 1 item 11)")
+            "ported (ROADMAP.md, Queue 1 item 7)")
     if not (args.network_name.endswith("_test")
             or args.network_name.endswith("_train")):
         raise SystemExit("Unknown network: {}".format(args.network_name))

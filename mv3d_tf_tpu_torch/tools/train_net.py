@@ -1,0 +1,102 @@
+"""Train an MV3D network: the counterpart of tools/train_net.py, with the
+same flags.
+
+    python -m mv3d_tf_tpu_torch.tools.train_net --imdb kitti_train \\
+        --kitti_path <kitti> [--iters 70000] [--weights vgg16.npy] \\
+        [--dtype bfloat16|float32] [--resume] [--rand] [--device cuda|cpu] \\
+        [--set TRAIN.SNAPSHOT_ITERS 5000 ...]
+
+Runs solver.train_net on the card (``--device cpu`` for the plain versions
+on the CPU): snapshots ``<prefix>_iter_<N>.pt`` with the Adam and LR
+scheduler state under output/<EXP_DIR>/<imdb>/, and ``--resume`` continues
+from the latest of them. Without ``--rand`` numpy and the torch generator
+are seeded from cfg.RNG_SEED. The legacy 2D networks (``VGGnet*``) are not
+ported.
+"""
+
+import argparse
+import pprint
+import sys
+
+
+def build_parser():
+    parser = argparse.ArgumentParser(description="Train an MV3D network")
+    parser.add_argument("--device", dest="device", default="cuda",
+                        choices=["cuda", "cpu"])
+    parser.add_argument("--device_id", dest="device_id", default=0, type=int)
+    parser.add_argument("--solver", dest="solver", default=None, type=str)
+    parser.add_argument("--iters", dest="max_iters", default=70000, type=int)
+    parser.add_argument("--weights", dest="pretrained_model", default=None,
+                        type=str)
+    parser.add_argument("--cfg", dest="cfg_file", default=None, type=str)
+    parser.add_argument("--imdb", dest="imdb_name", default="kitti_train",
+                        type=str)
+    parser.add_argument("--rand", dest="randomize", action="store_true",
+                        help="randomize (do not use a fixed seed)")
+    parser.add_argument("--network", dest="network_name",
+                        default="MV3D_train", type=str)
+    parser.add_argument("--kitti_path", dest="kitti_path", default=None,
+                        type=str)
+    parser.add_argument("--devkit_path", dest="devkit_path", default=None,
+                        type=str, help="VOCdevkit path for voc_* imdbs")
+    parser.add_argument("--resume", dest="resume", action="store_true",
+                        help="resume from the latest snapshot (with the "
+                             "Adam and LR scheduler state)")
+    parser.add_argument("--dtype", dest="dtype", default="bfloat16",
+                        choices=["bfloat16", "float32"])
+    parser.add_argument("--set", dest="set_cfgs", default=None,
+                        nargs=argparse.REMAINDER)
+    return parser
+
+
+def main(argv=None):
+    parser = build_parser()
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if not argv:
+        parser.print_help()
+        sys.exit(1)
+    args = parser.parse_args(argv)
+    print("Called with args:")
+    print(args)
+    if args.network_name.startswith("VGGnet"):
+        raise SystemExit(
+            "--network {}: the legacy 2D Faster R-CNN networks are not "
+            "ported (ROADMAP.md, Queue 1 item 8)".format(args.network_name))
+
+    import numpy as np
+    import torch
+
+    from mv3d_tf_tpu_torch.config import (cfg, cfg_from_file, cfg_from_list,
+                                          get_output_dir)
+    from mv3d_tf_tpu_torch.data.kitti import get_imdb, prepare_roidb
+    from mv3d_tf_tpu_torch.solver import train_net
+
+    if args.cfg_file is not None:
+        cfg_from_file(args.cfg_file)
+    if args.set_cfgs is not None:
+        cfg_from_list(args.set_cfgs)
+    print("Using config:")
+    pprint.pprint(cfg)
+
+    if not args.randomize:
+        np.random.seed(cfg.RNG_SEED)
+    imdb = get_imdb(args.imdb_name, kitti_path=args.kitti_path)
+    print("Loaded dataset `{:s}` for training".format(imdb.name))
+    roidb = prepare_roidb(imdb)
+    print("{:d} roidb entries".format(len(roidb)))
+    output_dir = get_output_dir(imdb, None)
+    print("Output will be saved to `{:s}`".format(output_dir))
+    print("Use network `{:s}` in training".format(args.network_name))
+
+    device = (torch.device("cuda", args.device_id) if args.device == "cuda"
+              else torch.device("cpu"))
+    dtype = torch.bfloat16 if args.dtype == "bfloat16" else None
+    seed = int(np.random.rand() * 1e6) if args.randomize else None
+    return train_net(imdb, roidb, output_dir,
+                     pretrained_model=args.pretrained_model,
+                     max_iters=args.max_iters, compute_dtype=dtype,
+                     seed=seed, resume=args.resume, device=device)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,12 +1,13 @@
-"""Snapshots of the port's parameters (mv3d_tf_tpu/utils/checkpoint.py).
+"""Snapshots of the port's training state (mv3d_tf_tpu/utils/checkpoint.py).
 
-The JAX package writes orbax directories with its optimizer state; the port
-writes one ``torch.save`` file of the parameters, named by the reference's
-scheme ``<SNAPSHOT_PREFIX>[_<INFIX>]_iter_<N>`` with a ``.pt`` suffix.
-Saving and resuming the optimizer state belongs to the training loop and
-waits for it (ROADMAP.md, Queue 1 item 8). ``load_pretrained`` reads a
-reference-style ``.npy`` weight dict (utils/weights.load_npy_weights) or a
-snapshot the port wrote; an orbax directory raises.
+The JAX package writes orbax directories; the port writes one
+``torch.save`` file, named by the reference's scheme
+``<SNAPSHOT_PREFIX>[_<INFIX>]_iter_<N>`` with a ``.pt`` suffix, that holds
+the parameters and, from the training loop, the Adam state and the LR
+scheduler's state (the reference restarts Adam on every run).
+``load_pretrained`` reads a reference-style ``.npy`` weight dict
+(utils/weights.load_npy_weights) or a snapshot the port wrote; an orbax
+directory raises.
 """
 
 import os
@@ -26,20 +27,47 @@ def snapshot_name(iter_n, prefix=None, infix=None):
     return "{}{}_iter_{:d}".format(prefix, mid, iter_n)
 
 
-def save_checkpoint(output_dir, iter_n, params):
-    """Write the parameters to <output_dir>/<snapshot_name>.pt."""
+def snapshot_iter(path):
+    """The iteration of a snapshot path: ``..._iter_<N>.pt`` -> N."""
+    name = osp.basename(path)
+    if name.endswith(SUFFIX):
+        name = name[:-len(SUFFIX)]
+    return int(name.rsplit("_iter_", 1)[1])
+
+
+def save_checkpoint(output_dir, iter_n, params, opt=None, sched=None):
+    """Write the parameters, and the optimizer's and the LR scheduler's
+    state when given, to <output_dir>/<snapshot_name>.pt."""
     os.makedirs(output_dir, exist_ok=True)
     path = osp.abspath(osp.join(output_dir, snapshot_name(iter_n) + SUFFIX))
-    torch.save({"params": params.state_dict()}, path)
+    blob = {"params": params.state_dict()}
+    if opt is not None:
+        blob["opt"] = opt.state_dict()
+    if sched is not None:
+        blob["sched"] = sched.state_dict()
+    torch.save(blob, path)
     print("Wrote snapshot to: {:s}".format(path))
     return path
 
 
-def load_checkpoint(path, params):
+def load_checkpoint(path, params, opt=None, sched=None):
     """Load a snapshot of save_checkpoint into ``params`` in place, onto the
-    devices its tensors are on; returns params."""
+    devices its tensors are on, and into ``opt`` and ``sched`` when given;
+    returns params. A params-only load of a full snapshot works. A snapshot
+    without scheduler state (a constant-lr run) leaves ``sched`` where it
+    was built and gives the optimizer the scheduler's lr."""
     blob = torch.load(path, map_location="cpu", weights_only=True)
     params.load_state_dict(blob["params"])
+    if opt is not None:
+        if "opt" not in blob:
+            raise KeyError("{} holds no optimizer state".format(path))
+        opt.load_state_dict(blob["opt"])
+    if sched is not None:
+        if "sched" in blob:
+            sched.load_state_dict(blob["sched"])
+        for group, lr in zip(sched.optimizer.param_groups,
+                             sched.get_last_lr()):
+            group["lr"] = lr
     return params
 
 
@@ -51,7 +79,7 @@ def latest_snapshot(output_dir):
     for name in os.listdir(output_dir):
         if "_iter_" in name and name.endswith(SUFFIX):
             try:
-                it = int(name[:-len(SUFFIX)].rsplit("_iter_", 1)[1])
+                it = snapshot_iter(name)
             except ValueError:
                 continue
             if it > best_iter:

@@ -6,7 +6,7 @@ native/bev_raster.cc) through ctypes and falls back to numpy without a
 toolchain. This module is numpy only: it keeps the same output shapes,
 dtypes and trim/pad rule, and reads a batch's files on a thread pool
 (np.fromfile releases the interpreter lock). The C++ host code is not
-ported yet (ROADMAP.md, Queue 1 item 6).
+ported yet (ROADMAP.md, Queue 1 item 5).
 """
 
 import concurrent.futures

@@ -16,23 +16,49 @@ from mv3d_tf_tpu_torch.models import vgg
 from mv3d_tf_tpu_torch.models.mv3d import N_CLASSES, NUM_ANCHORS
 
 
+def _to_port(w):
+    """A JAX-layout weight (HWIO conv, (in, out) fc; or a bias) as a float32
+    tensor in the port's layout (OIHW, (out, in))."""
+    w = np.array(w, np.float32)
+    if w.ndim == 4:
+        w = w.transpose(3, 2, 0, 1)
+    elif w.ndim == 2:
+        w = w.T
+    return torch.from_numpy(np.ascontiguousarray(w))
+
+
+def _to_jax(t):
+    """The inverse of _to_port: a port tensor as a JAX-layout numpy array."""
+    w = t.detach().float().cpu().numpy()
+    if w.ndim == 4:
+        w = w.transpose(2, 3, 1, 0)
+    elif w.ndim == 2:
+        w = w.T
+    return np.ascontiguousarray(w)
+
+
+def _pairs(params):
+    """(JAX name, subkey, port parameter) for every parameter."""
+    for key, m in params.items():
+        name = key.replace("__", "/")
+        yield name, "weights", m.weight
+        yield name, "biases", m.bias
+
+
 def params_from_jax(np_params, device="cuda"):
     """JAX flat param dict -> the port's ModuleDict, float32 on ``device``
     (the card unless the caller asks for another; without one it raises)."""
     layers = {}
     for name, p in np_params.items():
-        w = np.array(p["weights"], np.float32)
-        b = np.array(p["biases"], np.float32)
-        if w.ndim == 4:                                  # HWIO -> OIHW
-            kh, _, cin, cout = w.shape
+        shape = np.shape(p["weights"])
+        if len(shape) == 4:
+            kh, _, cin, cout = shape
             m = vgg.empty_layer(torch.nn.Conv2d, (cin, cout, kh), device)
-            w = w.transpose(3, 2, 0, 1)
-        else:                                            # (in, out) -> (out, in)
-            m = vgg.empty_layer(torch.nn.Linear, w.shape, device)
-            w = w.T
+        else:
+            m = vgg.empty_layer(torch.nn.Linear, shape, device)
         with torch.no_grad():
-            m.weight.copy_(torch.from_numpy(np.ascontiguousarray(w)))
-            m.bias.copy_(torch.from_numpy(b))
+            m.weight.copy_(_to_port(p["weights"]))
+            m.bias.copy_(_to_port(p["biases"]))
         layers[vgg.module_key(name)] = m
     return torch.nn.ModuleDict(layers)
 
@@ -40,13 +66,59 @@ def params_from_jax(np_params, device="cuda"):
 def params_to_jax(params):
     """The port's ModuleDict -> JAX flat param dict of float32 numpy arrays."""
     out = {}
-    for key, m in params.items():
-        w = m.weight.detach().float().cpu().numpy()
-        w = w.transpose(2, 3, 1, 0) if w.ndim == 4 else w.T
-        out[key.replace("__", "/")] = {
-            "weights": np.ascontiguousarray(w),
-            "biases": m.bias.detach().float().cpu().numpy()}
+    for name, sub, t in _pairs(params):
+        out.setdefault(name, {})[sub] = _to_jax(t)
     return out
+
+
+def _adam_leaves(np_opt_state):
+    """(count, mu, nu, schedule count or None) of an optax adam state: the
+    chain's tuple (ScaleByAdamState, then EmptyState or, with a schedule,
+    ScaleByScheduleState) or a ScaleByAdamState alone."""
+    states = ([np_opt_state] if hasattr(np_opt_state, "mu")
+              else list(np_opt_state))
+    adam = next(s for s in states if hasattr(s, "mu"))
+    sched = [s.count for s in states
+             if getattr(s, "_fields", None) == ("count",)]
+    return adam.count, adam.mu, adam.nu, (sched[0] if sched else None)
+
+
+def adam_state_from_jax(np_opt_state, params, opt):
+    """Load an optax adam state (optax.adam's, with or without an lr
+    schedule; numpy or JAX leaves in the JAX layout) into ``opt``, a
+    torch.optim.Adam over ``params``: per parameter ``step`` = count,
+    ``exp_avg`` = mu, ``exp_avg_sq`` = nu, moved into the port's layout as
+    params_from_jax moves the weights (the fc rows keep their order: both
+    packages flatten pooled maps in (h, w, c) order). Returns the number of
+    updates taken (the schedule's count when it has one)."""
+    count, mu, nu, sched_count = _adam_leaves(np_opt_state)
+    step = float(np.asarray(count))
+    for name, sub, p in _pairs(params):
+        opt.state[p] = {
+            "step": torch.tensor(step, dtype=torch.float32),
+            "exp_avg": _to_port(mu[name][sub]).to(p.device),
+            "exp_avg_sq": _to_port(nu[name][sub]).to(p.device)}
+    return int(np.asarray(count if sched_count is None else sched_count))
+
+
+def adam_state_to_jax(opt, params):
+    """The inverse of adam_state_from_jax: ``opt``'s state over ``params``
+    as {"count": int32, "mu": {name: {"weights", "biases"}}, "nu": ...} of
+    numpy arrays in the JAX layout, the fields of optax's
+    ScaleByAdamState (a schedule's count, when there is one, equals count).
+    A parameter without state (no update yet) gives zeros."""
+    mu, nu, steps = {}, {}, set()
+    for name, sub, p in _pairs(params):
+        st = opt.state.get(p, {})
+        zero = torch.zeros_like(p)
+        mu.setdefault(name, {})[sub] = _to_jax(st.get("exp_avg", zero))
+        nu.setdefault(name, {})[sub] = _to_jax(st.get("exp_avg_sq", zero))
+        steps.add(int(st["step"]) if "step" in st else 0)
+    if len(steps) > 1:
+        raise ValueError("parameters at different step counts: {}".format(
+            sorted(steps)))
+    return {"count": np.int32(steps.pop() if steps else 0), "mu": mu,
+            "nu": nu}
 
 
 def jax_param_shapes(bev_channels=9, fc_dim=2048, pooled=7):

@@ -42,9 +42,9 @@ def test_test_net_refusals(tmp_path):
         "import sys\n"
         "from mv3d_tf_tpu_torch.tools.test_net import main\n"
         "for argv, want in (([], '1'),\n"
-        "                   (['--host_id', '0'], 'Queue 1 item 11'),\n"
-        "                   (['--merge_shards'], 'Queue 1 item 11'),\n"
-        "                   (['--network', 'VGGnet_test'], 'Queue 1 item 12')):\n"
+        "                   (['--host_id', '0'], 'Queue 1 item 7'),\n"
+        "                   (['--merge_shards'], 'Queue 1 item 7'),\n"
+        "                   (['--network', 'VGGnet_test'], 'Queue 1 item 8')):\n"
         "    try:\n"
         "        main(argv)\n"
         "    except SystemExit as e:\n"
