@@ -41,14 +41,22 @@ greedy and on the blocked route in turns; solver.train_net on a second
 synthetic tree (8 train frames, bf16, the train set on the card: 6
 iterations with a trace, then tools/train_net --resume to 8, then 2
 iterations on the host feed); and tools/demo_mv on one of its frames, with
-and without the frame's raster file.
+and without the frame's raster file. Then tools/accuracy_eval on that tree
+in two segments with the LR decay, a constant-lr resume of its decayed
+snapshot refused; the trace and profile tools at the reference shapes,
+each launching (and the traces naming) their hand kernels; and
+tools/tracklet2label -> a kitti_raw imdb -> two train_net iterations. The
+host code in C++ (the velodyne loader, the host BEV raster of read_lidar
+--host, the AP matcher) is held to its numpy versions along the way.
 Every failed check raises, so the exit code is non-zero; without a CUDA
 device it exits non-zero before printing any result.
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit, and before that a JSON line per kernel.
 """
 
+import concurrent.futures
 import contextlib
+import copy
 import io
 import json
 import os
@@ -73,7 +81,9 @@ from mv3d_tf_tpu_torch import train as train_mod
 from mv3d_tf_tpu_torch.config import cfg, get_output_dir
 from mv3d_tf_tpu_torch.data import synthetic
 from mv3d_tf_tpu_torch.data.kitti import get_imdb, prepare_roidb
-from mv3d_tf_tpu_torch.data.kitti_eval import evaluate_kitti_bev
+from mv3d_tf_tpu_torch.data.kitti_raw import KittiRaw
+from mv3d_tf_tpu_torch.data.kitti_eval import (evaluate_kitti_bev,
+                                               evaluate_kitti_official)
 from mv3d_tf_tpu_torch.eval import (PIXEL_MEANS, build_detect_batch_fn,
                                     build_detect_fn, detect_from_features,
                                     frame_detections)
@@ -96,7 +106,8 @@ from mv3d_tf_tpu_torch.ops.conv_s8_cuda import (conv2x2_s8_cuda,
 from mv3d_tf_tpu_torch.ops.roi_pool import (bin_bounds, bin_cells,
                                             boundary_rois, roi_pool,
                                             roi_pool_bwd, roi_pool_fast,
-                                            roi_pool_train)
+                                            roi_pool_train,
+                                            roi_pool_train_plain)
 from mv3d_tf_tpu_torch.ops.roi_pool_cuda import roi_pool_bwd_cuda, roi_pool_cuda
 from mv3d_tf_tpu_torch.ops.stem_s2d import _conv as s2d_conv
 from mv3d_tf_tpu_torch.ops.stem_s2d import (group_max, hwio,
@@ -104,10 +115,14 @@ from mv3d_tf_tpu_torch.ops.stem_s2d import (group_max, hwio,
 from mv3d_tf_tpu_torch.ops.stem_s2d_cuda import (stem_s2d_fused_cuda,
                                                  stem_s2d_fused_plain)
 from mv3d_tf_tpu_torch.ops.vgg_stem_cuda import vgg_stem_cuda, vgg_stem_plain
-from mv3d_tf_tpu_torch.tools import demo_mv, quant_check, read_lidar, test_net
+from mv3d_tf_tpu_torch.tools import (accuracy_eval, demo_mv, profile_bev,
+                                     profile_stages, profile_train, profiling,
+                                     quant_check, read_lidar, test_net,
+                                     trace_detect, trace_train, tracklet2label)
 from mv3d_tf_tpu_torch.tools import train_net as train_net_cli
 from mv3d_tf_tpu_torch.train import (build_forward_losses, build_train_step,
                                      make_draws)
+from mv3d_tf_tpu_torch.utils import native
 from mv3d_tf_tpu_torch.utils.weights import he_normal_params, params_from_jax
 
 SEED = 0
@@ -145,6 +160,7 @@ S8_VIEWS = {"bev": (300, 300), "image": (192, 624)}
 # the evaluation CLIs' synthetic KITTI tree: half train, half val
 EVAL_FRAMES = 16
 TRAIN_FRAMES = 8      # train_net's and the demo's tree: 8 train, 8 val
+NATIVE_LIBS = ("mv3d_loader", "bev_raster", "kitti_eval")
 
 
 def max_err(got, ref):
@@ -176,18 +192,6 @@ def bin_cells_total(rois, H, W):
             * (we - ws).clamp(min=0)[:, None, :]).sum().item()
 
 
-def example_calib():
-    """The calib blob of __graft_entry__._example_calib (rows P2, P3, R0, Tr)."""
-    calib = np.zeros((4, 12), np.float32)
-    calib[0] = [707.0, 0, 601.8, 45.7, 0, 707.0, 183.1, -0.34,
-                0, 0, 1.0, 0.005]
-    calib[1] = calib[0]
-    calib[2, :9] = np.eye(3, dtype=np.float32).reshape(-1)
-    calib[3] = [0.0002, -0.9999, -0.0106, -0.002, 0.0104, 0.0106,
-                -0.9999, -0.075, 0.9999, 0.0002, 0.0105, -0.272]
-    return calib
-
-
 def cuda_ms(fn, iters=20, warmup=3):
     """Mean device time of fn() in ms, by CUDA events around iters calls."""
     for _ in range(warmup):
@@ -212,12 +216,17 @@ def phase_environment():
         [kernels.nvcc_path(), "--version"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[-1]
     t0 = time.perf_counter()
-    kernels.library()
-    load_s = time.perf_counter() - t0
+    # the host code's g++ builds (one process per source) beside nvcc's
+    with concurrent.futures.ThreadPoolExecutor(len(NATIVE_LIBS)) as pool:
+        native_libs = pool.map(native.build, NATIVE_LIBS)
+        kernels.library()
+        load_s = time.perf_counter() - t0
+        native_libs = [os.path.basename(p) for p in native_libs]
+    native_s = time.perf_counter() - t0
     print("environment: gpu=[%s] torch=%s cuda=%s nvcc=[%s] nvcc_build_s=%.2f "
-          "build_and_load_s=%.2f" % (smi, torch.__version__, torch.version.cuda,
-                                     nvcc, kernels.build_info["seconds"],
-                                     load_s))
+          "build_and_load_s=%.2f; g++ host code %s in %.2f s" % (
+              smi, torch.__version__, torch.version.cuda, nvcc,
+              kernels.build_info["seconds"], load_s, native_libs, native_s))
     # one line per kernel: its (mangled) name, registers and spills
     entry, spill = None, ""
     for line in kernels.build_info["log"].splitlines():
@@ -696,7 +705,7 @@ def phase_detector(params, smi):
     bev = torch.from_numpy(rng.rand(frames, 601, 601, 9).astype(np.float32))
     image = torch.from_numpy(
         (rng.rand(frames, 384, 1248, 3) * 255).astype(np.float32))
-    calib = torch.from_numpy(np.stack([example_calib()] * frames))
+    calib = torch.from_numpy(np.stack([profiling.example_calib()] * frames))
     bev, image, calib = bev.cuda(), image.cuda(), calib.cuda()
     kw = dict(pre_nms_top_n=PRE_NMS, post_nms_top_n=POST_NMS)
     runs = {"f32 single-frame": build_detect_fn(**kw),
@@ -896,31 +905,10 @@ def train_batch(rng):
     batch = {"bev": torch.from_numpy(rng.rand(*TRAIN_BEV).astype(np.float32)),
              "image": torch.from_numpy(
                  (rng.rand(*TRAIN_IMAGE) * 255).astype(np.float32)),
-             "calib": torch.from_numpy(example_calib()),
+             "calib": torch.from_numpy(profiling.example_calib()),
              "gt_boxes_bv": bv, "gt_boxes_3d": b3, "gt_boxes_corners": cnr,
              "gt_valid": torch.arange(MAX_GT) < n}
     return {k: v.cuda() for k, v in batch.items()}, n
-
-
-class PlainPool(torch.autograd.Function):
-    """The train pool through both plain versions, on any device."""
-
-    @staticmethod
-    def forward(ctx, feat, rois, pooled, spatial_scale):
-        out = roi_pool(feat, rois, pooled, spatial_scale)
-        ctx.save_for_backward(feat, rois, out)
-        ctx.args = (pooled, spatial_scale)
-        return out
-
-    @staticmethod
-    def backward(ctx, dy):
-        feat, rois, out = ctx.saved_tensors
-        return (roi_pool_bwd(feat, rois, out, dy.float(), *ctx.args)
-                .to(feat.dtype), None, None, None)
-
-
-def plain_pool(feat, rois, pooled=7, spatial_scale=1.0 / 8):
-    return PlainPool.apply(feat, rois, pooled, spatial_scale)
 
 
 def phase_train(np_params, smi):
@@ -1009,7 +997,8 @@ def phase_train(np_params, smi):
     # f32: the kernel pair against the plain pair, same params and draws
     draws = make_draws(torch.Generator().manual_seed(SEED + 4), *draw_args)
     results = {}
-    for name, pool in (("kernel", roi_pool_train), ("plain", plain_pool)):
+    for name, pool in (("kernel", roi_pool_train),
+                       ("plain", roi_pool_train_plain)):
         fwd = build_forward_losses(pool=pool, **kw)
         params = params_from_jax(np_params, device="cuda")
         m = fwd(params, batch, draws)
@@ -1180,27 +1169,77 @@ def phase_bev_kernel(smi):
 
 def phase_read_lidar(root, smi):
     """The read_lidar CLI on the card (no --device: the default) over
-    CLI_SCANS scans of the traffic written as velodyne .bin files; every
-    lidar_bv/*.npy equals the numpy twin. Returns the placement launches,
-    zeroed just before and read just after the CLI runs."""
+    CLI_SCANS scans of the traffic and boundary_scan() as the last,
+    written as velodyne .bin files and read by the C++ loader; then again
+    with --host, where the C++ raster writes lidar_bv. Every raster of both
+    runs equals the numpy twin and the other run's bit for bit. Then the
+    loader, numpy against C++, in turns (3 each) over the same files, and
+    the host raster, numpy twin against C++, on the first scans. Returns
+    the placement launches of the card run, zeroed just before and read
+    just after it."""
     pts = scan_traffic(np.random.RandomState(SEED + 6), CLI_SCANS)
     vel = os.path.join(root, "velodyne")
     os.makedirs(vel)
+    paths = [os.path.join(vel, "%06d.bin" % i) for i in range(CLI_SCANS + 1)]
     for i in range(CLI_SCANS):
-        pts[i].tofile(os.path.join(vel, "%06d.bin" % i))
+        pts[i].tofile(paths[i])
+    edge = boundary_scan()[0][0]
+    edge.tofile(paths[-1])
+    scans = [p for p in pts] + [edge]
+    out_dir = os.path.join(root, "lidar_bv")
+
+    def rasters():
+        return [np.load(os.path.join(out_dir, "%06d.npy" % i))
+                for i in range(len(scans))]
+
     bev_place_cuda.launches = 0
     read_lidar.main(["--root", root, "--batch", "8"])
     launches = bev_place_cuda.launches
-    expected = -(-CLI_SCANS // 8)
+    expected = -(-len(scans) // 8)
     print("read_lidar launches: %d (expected %d) on [%s]"
           % (launches, expected, smi))
     if launches != expected:
         raise AssertionError("read_lidar launched bev_place %d times, not %d"
                              % (launches, expected))
-    tops = np.stack([np.load(os.path.join(root, "lidar_bv", "%06d.npy" % i))
-                     for i in range(CLI_SCANS)])
-    check_twin(tops, pts, np.ones(pts.shape[:2], bool), "read_lidar")
-    print("read_lidar: %d rasters equal the numpy twin" % CLI_SCANS)
+    on_card = rasters()
+    shutil.rmtree(out_dir)
+    bev_place_cuda.launches = 0
+    read_lidar.main(["--root", root, "--batch", "8", "--host"])
+    if bev_place_cuda.launches:
+        raise AssertionError("read_lidar --host launched bev_place")
+    for what, tops in (("read_lidar", on_card),
+                       ("read_lidar --host (C++ raster)", rasters())):
+        for i, (top, scan) in enumerate(zip(tops, scans)):
+            if not (np.array_equal(top, bev.point_cloud_2_top_np(scan))
+                    and np.array_equal(top, on_card[i])):
+                raise AssertionError("%s raster %d differs from the numpy "
+                                     "twin or the card's" % (what, i))
+    print("read_lidar and read_lidar --host: %d rasters (the last "
+          "boundary_scan()) equal the numpy twin and each other bit for bit"
+          % len(scans))
+    loaders = {"numpy": native.load_velodyne_batch_np,
+               "C++": native.load_velodyne_batch}
+    got = [f(paths) for f in loaders.values()]
+    if not all(np.array_equal(a, b) for a, b in zip(*got)):
+        raise AssertionError("the C++ loader differs from the numpy one")
+    rates = {k: [] for k in loaders}
+    for turn in range(3):
+        for name in (("numpy", "C++") if turn % 2 == 0 else ("C++", "numpy")):
+            t0 = time.perf_counter()
+            loaders[name](paths)
+            rates[name].append(len(paths) / (time.perf_counter() - t0))
+    raster_ms = {}
+    for name, fn in (("numpy twin", bev.point_cloud_2_top_np),
+                     ("C++", native.point_cloud_2_top_host)):
+        t0 = time.perf_counter()
+        for scan in scans[:4]:
+            fn(scan)
+        raster_ms[name] = (time.perf_counter() - t0) * 1e3 / 4
+    print("velodyne loader over %d files of %d points (page-cached), scans/s "
+          "in turns: %s; host raster ms/scan: %s; on the host of [%s]"
+          % (len(paths), SCAN_POINTS,
+             {k: ["%.1f" % r for r in v] for k, v in rates.items()},
+             {k: "%.3f" % v for k, v in raster_ms.items()}, smi))
     return launches
 
 
@@ -1218,7 +1257,7 @@ def phase_scan_detector(params, root, smi):
     rng = np.random.RandomState(SEED + 7)
     image = torch.from_numpy(
         (rng.rand(frames, 384, 1248, 3) * 255).astype(np.float32)).cuda()
-    calib = torch.from_numpy(np.stack([example_calib()] * frames)).cuda()
+    calib = torch.from_numpy(np.stack([profiling.example_calib()] * frames)).cuda()
     kw = dict(pre_nms_top_n=PRE_NMS, post_nms_top_n=POST_NMS)
     runs = {"f32": build_detect_fn(**kw),
             "bf16": build_detect_fn(compute_dtype=torch.bfloat16, **kw)}
@@ -1626,27 +1665,9 @@ def add_launches(total, launches):
 
 def device_busy(fn):
     """One call of fn under torch.profiler: the device kernels' count and
-    summed time, and the idle share of the call's span (from its first host
-    event to its last device event) that no kernel covers."""
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        fn()
-        torch.cuda.synchronize()
-    events = prof.events()
-    dev = sorted((e.time_range.start, e.time_range.end) for e in events
-                 if e.device_type == torch.autograd.DeviceType.CUDA)
-    if not dev:
-        return "the profiler saw no device kernel: idle share not measured"
-    busy, end = 0.0, float("-inf")
-    for s, e in dev:                   # the union of the kernels' intervals
-        if e > end:
-            busy += e - max(s, end)
-            end = e
-    start = min(e.time_range.start for e in events)
-    span = max(end, max(e.time_range.end for e in events)) - start
-    return ("%d device kernels, busy %.3f of %.3f ms, idle share %.3f"
-            % (len(dev), busy / 1e3, span / 1e3, 1 - busy / span))
+    summed time, and the idle share of the call's span that no kernel
+    covers (tools/profiling.device_busy)."""
+    return profiling.busy_line(fn, "cuda")
 
 
 def stem_prep(params, state):
@@ -1756,7 +1777,7 @@ def phase_int8_detector(np_params, smi):
         bev_ = torch.from_numpy(rng.rand(n, 601, 601, 9).astype(np.float32))
         image = torch.from_numpy(
             (rng.rand(n, 384, 1248, 3) * 255).astype(np.float32))
-        calib = torch.from_numpy(np.stack([example_calib()] * n))
+        calib = torch.from_numpy(np.stack([profiling.example_calib()] * n))
         return bev_.cuda(), image.cuda(), calib.cuda()
 
     cbev, cimage, ccalib = frames(CALIB_FRAMES)
@@ -1862,7 +1883,7 @@ def phase_s2d_fused_detectors(np_params, state, smi):
         bev_ = torch.from_numpy(rng.rand(n, 601, 601, 9).astype(np.float32))
         image = torch.from_numpy(
             (rng.rand(n, 384, 1248, 3) * 255).astype(np.float32))
-        calib = torch.from_numpy(np.stack([example_calib()] * n))
+        calib = torch.from_numpy(np.stack([profiling.example_calib()] * n))
         return bev_.cuda(), image.cuda(), calib.cuda()
 
     float_b = 4
@@ -1978,9 +1999,14 @@ def phase_eval_clis(np_params, smi):
                         "--weights", weights, "--dtype", "bfloat16"] + extra
                 zero_path_launches()
                 t0 = time.perf_counter()
-                all_boxes, _ = test_net.main(argv)
+                all_boxes, all_cnr = test_net.main(argv)
                 torch.cuda.synchronize()
                 secs = time.perf_counter() - t0
+                if name == "bf16":
+                    official_native_check(imdb, all_boxes, all_cnr,
+                                          "test_net's detections", smi)
+                    official_native_check(imdb, *gt_detections(imdb),
+                                          "jittered gt detections", smi)
                 launches = path_launches()
                 missing = [f for f in ("detections.pkl", "detections_cnr.pkl",
                                        "detections_cnr_r.pkl")
@@ -2033,6 +2059,57 @@ def phase_eval_clis(np_params, smi):
         finally:
             cfg.ROOT_DIR, cfg.DATA_DIR = saved
     return total
+
+
+def official_native_check(imdb, all_boxes, all_cnr, what, smi):
+    """The official-protocol tables (legacy, proper projection, regressed
+    corners from the corner sets) with the C++ matcher and with the numpy
+    loop: every AP equal within 1e-9; the evaluation's host seconds both
+    ways."""
+    quiet = lambda *a: None   # noqa: E731
+    kw = [{}, {"projection": "proper"},
+          {"projection": "proper", "derive_bev_from_corners": True}]
+    secs, tables = {True: [], False: []}, {}
+    for use_native in (True, False, False, True):
+        t0 = time.perf_counter()
+        tables[use_native] = [evaluate_kitti_official(
+            imdb, all_boxes, all_cnr, log=quiet, use_native=use_native, **k)
+            for k in kw]
+        secs[use_native].append(time.perf_counter() - t0)
+    aps = [(t[m][d], u[m][d]) for t, u in zip(tables[True], tables[False])
+           for m in t for d in t[m]]
+    worst = max(abs(a - b) for a, b in aps)
+    if not worst < 1e-9:
+        raise AssertionError("official AP on %s: C++ against numpy differ "
+                             "by %g" % (what, worst))
+    print("official AP tables on %s (%d APs, max %.4f): C++ matcher equals "
+          "the numpy loop (max |diff| %g); evaluation s in turns (C++, numpy, "
+          "numpy, C++): C++ %s, numpy %s, on the host of [%s]" % (
+              what, len(aps), max(a for a, _ in aps), worst,
+              ["%.4f" % t for t in secs[True]],
+              ["%.4f" % t for t in secs[False]], smi))
+
+
+def gt_detections(imdb, seed=SEED):
+    """all_boxes and all_boxes_cnr for class 1 from the imdb's own gt, each
+    box jittered by up to 0.3 m with a random score, plus as many random
+    boxes in range: APs that are neither 0 nor 1."""
+    rng = np.random.RandomState(seed)
+    n = imdb.num_images
+    boxes = [[np.zeros((0, 5), np.float32)] * n for _ in range(2)]
+    cnr = [[np.zeros((0, 25), np.float32)] * n for _ in range(2)]
+    for i in range(n):
+        gt = imdb.roidb[i]["boxes_3D"][imdb.roidb[i]["gt_classes"] == 1]
+        fake = np.concatenate([gt, gt.copy()])
+        fake[:len(gt), :3] += rng.uniform(-0.3, 0.3, (len(gt), 3))
+        fake[len(gt):, :2] = rng.uniform([5, -20], [55, 20], (len(gt), 2))
+        box = torch.from_numpy(fake[:, :6].astype(np.float32))
+        score = rng.rand(len(fake), 1).astype(np.float32)
+        boxes[1][i] = np.concatenate(
+            [G.lidar_3d_to_bv(box).numpy(), score], 1)
+        cnr[1][i] = np.concatenate(
+            [G.lidar_3d_to_corners(box).numpy(), score], 1)
+    return boxes, cnr
 
 
 def capture_nms_inputs(args, kw):
@@ -2105,7 +2182,7 @@ def phase_nms_blocked(np_params, smi):
         torch.from_numpy(rng.rand(B, *TRAIN_BEV).astype(np.float32)).cuda(),
         torch.from_numpy((rng.rand(B, *TRAIN_IMAGE) * 255).astype(
             np.float32)).cuda(),
-        torch.from_numpy(np.stack([example_calib()] * B)).cuda(),
+        torch.from_numpy(np.stack([profiling.example_calib()] * B)).cuda(),
         cfg.TEST.RPN_PRE_NMS_TOP_N, cfg.TEST.RPN_POST_NMS_TOP_N)
     mean = torch.from_numpy(PIXEL_MEANS).cuda()
     for name, (bev_in, image_in, calib, pre, post) in frames.items():
@@ -2337,6 +2414,249 @@ def phase_demo(root, weights, smi):
     return total
 
 
+def all_launches():
+    """Every kernel's count, the train path's gradient and the placement
+    included."""
+    return dict(path_launches(), roi_pool_bwd=roi_pool_bwd_cuda.launches,
+                bev_place=bev_place_cuda.launches)
+
+
+def zero_all_launches():
+    zero_path_launches()
+    roi_pool_bwd_cuda.launches = bev_place_cuda.launches = 0
+
+
+@contextlib.contextmanager
+def saved_cfg(tmp):
+    """The whole config, restored on exit (tools.accuracy_eval merges the
+    end2end yml into it), with ROOT_DIR and DATA_DIR in tmp meanwhile."""
+    saved = copy.deepcopy(dict(cfg))
+    cfg.ROOT_DIR, cfg.DATA_DIR = tmp, os.path.join(tmp, "data")
+    try:
+        yield
+    finally:
+        cfg.clear()
+        cfg.update(saved)
+
+
+def phase_accuracy_eval(root, smi):
+    """tools.accuracy_eval on the train_net phase's synthetic tree (8 train,
+    8 val frames), bf16, --lr-decay --stepsize 2, evaluating every 2: 4
+    iterations (evaluations at 0, 2, 4), then --resume to 6 (one more).
+    Checks the trajectory's evaluations and keys, its finite losses, and
+    the launches of each run (zeroed just before, read just after: per
+    iteration 2 forward and 2 backward ROI launches, per evaluation of the
+    8 val frames one bf16 detector call: 2 stems, 2 pools). Then
+    solver.train_net --resume with cfg.TRAIN.LR_DECAY off refuses the
+    decayed snapshot (ValueError naming LR_DECAY). Returns the counts."""
+    total = {}
+    with tempfile.TemporaryDirectory() as tmp, saved_cfg(tmp):
+        out = os.path.join(tmp, "accuracy")
+        common = ["--data", root, "--out", out, "--dtype", "bf16",
+                  "--eval-every", "2", "--lr-decay", "--stepsize", "2"]
+        for extra, iters, evals in ((["--iters", "4"], 4, 3),
+                                    (["--iters", "6", "--resume"], 2, 1)):
+            zero_all_launches()
+            t0 = time.perf_counter()
+            traj = accuracy_eval.main(common + extra)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launches = all_launches()
+            want = dict(dict.fromkeys(launches, 0), roi_pool=2 * (iters + evals),
+                        roi_pool_bwd=2 * iters, vgg_stem=2 * evals)
+            if launches != want:
+                raise AssertionError("accuracy_eval %s launched %s != %s"
+                                     % (extra, launches, want))
+            add_launches(total, launches)
+            print("tools.accuracy_eval %s: %.2f s (evaluations %s s), "
+                  "launches %s, on [%s]" % (
+                      " ".join(extra), secs,
+                      [e["eval_seconds"] for e in traj["evals"][-evals:]],
+                      {k: v for k, v in launches.items() if v}, smi))
+        with open(os.path.join(out, "accuracy_trajectory.json")) as f:
+            traj = json.load(f)
+        tags = [e["tag"] for e in traj["evals"]]
+        losses = [float(re.search(r"total loss: (\S+),", line).group(1))
+                  for line in traj["losses"]]
+        keys = {"tag", "bev_ap@0.5", "bev_ap@0.7", "official",
+                "official_proper_projection", "official_quality_regressed",
+                "eval_seconds"}
+        if (tags != ["iter0", "iter2", "iter4", "iter6"]
+                or any(set(e) != keys for e in traj["evals"])
+                or len(losses) != 3 or not np.isfinite(losses).all()):
+            raise AssertionError("accuracy trajectory: tags %s, losses %s, "
+                                 "keys %s" % (tags, losses,
+                                              [sorted(e) for e in
+                                               traj["evals"]]))
+        print("accuracy trajectory: %s, losses %s, BEV AP@0.5 %s (random "
+              "VGG-style weights, 6 iterations)" % (
+                  tags, losses, [e["bev_ap@0.5"] for e in traj["evals"]]))
+        imdb = get_imdb("kitti_train", kitti_path=root)
+        roidb = prepare_roidb(imdb)
+        cfg.TRAIN.LR_DECAY = False
+        try:
+            printed_lines(solver_mod.train_net, imdb, roidb, out,
+                          max_iters=8, compute_dtype=torch.bfloat16,
+                          resume=True)
+        except ValueError as e:
+            if "LR_DECAY" not in str(e):
+                raise
+            print("a constant-lr resume of the decayed snapshot raised: %s"
+                  % str(e).replace(tmp, "<tmp>"))
+        else:
+            raise AssertionError("train_net resumed a decayed snapshot with "
+                                 "LR_DECAY off")
+    return total
+
+
+# the hand kernel each wrapper's count stands for, as a trace names it
+KERNEL_SYMBOL = {"roi_pool": "roi_pool_kernel",
+                 "roi_pool_bwd": "roi_pool_bwd_kernel",
+                 "vgg_stem": "stem_s2d_bf16_kernel",
+                 "stem_s2d_fused": "stem_s2d_bf16_kernel",
+                 "bev_place": "bev_place_chunks",
+                 "conv_s8": "conv_s8_wgmma", "conv2x2_s8": "conv_s8_wgmma",
+                 "matmul_s8": "matmul_s8_wgmma"}
+
+
+def raw_sequence(root, raw_root, seq):
+    """A KITTI-raw sequence from the synthetic tree's train frames: a
+    tracklet XML of their cars (one pose each, box bottom at the lidar box's
+    floor, no yaw) through tools.tracklet2label into gt_boxes3d/, each
+    frame's image, raster and scan, and frame 0's calib as calib.txt."""
+    imdb = get_imdb("kitti_train", kitti_path=root)
+    obj = os.path.join(root, "object", "training")
+    seq_dir = os.path.join(raw_root, seq)
+    items = []
+    for i, index in enumerate(imdb.image_index):
+        for x, y, z, l, w, h in imdb.roidb[i]["boxes_3D"]:
+            items.append(
+                "<item><objectType>Car</objectType><h>%r</h><w>%r</w>"
+                "<l>%r</l><first_frame>%d</first_frame><poses><count>1"
+                "</count><item><tx>%r</tx><ty>%r</ty><tz>%r</tz><rz>0</rz>"
+                "</item></poses></item>" % (float(h), float(w), float(l), i,
+                                            float(x), float(y),
+                                            float(z - h / 2)))
+        for sub, ext in (("image_2", ".png"), ("lidar_bv", ".npy"),
+                         ("velodyne", ".bin")):
+            os.makedirs(os.path.join(seq_dir, sub), exist_ok=True)
+            shutil.copy(os.path.join(obj, sub, index + ext),
+                        os.path.join(seq_dir, sub, "%010d%s" % (i, ext)))
+    xml = os.path.join(raw_root, "tracklet_labels.xml")
+    with open(xml, "w") as f:
+        f.write("<?xml version=\"1.0\"?><boost_serialization><tracklets>"
+                "<count>%d</count>%s</tracklets></boost_serialization>"
+                % (len(items), "".join(items)))
+    tracklet2label.main(["--xml", xml, "--out",
+                         os.path.join(seq_dir, "gt_boxes3d")])
+    shutil.copy(os.path.join(obj, "calib", imdb.image_index[0] + ".txt"),
+                os.path.join(seq_dir, "calib.txt"))
+    return imdb.num_images, len(items)
+
+
+def phase_tools(np_params, root, weights, smi):
+    """The trace and profile tools on the card at the reference shapes, each
+    main(argv) with the counts zeroed just before and read just after, the
+    He weights standing in for profiling.he_params: trace_detect (bf16 B=4;
+    int8 B=8 with the s2d_int8 stem, int8 head and RPN, blocked_fixed NMS,
+    pre-NMS 1024), trace_train (bf16), profile_stages (B=4), profile_bev
+    (B=8 x 131072) and profile_train (full and plain_pool), 2 steps each.
+    Each must launch its hand kernels, and a trace tool must name them in
+    its table. Then tools.tracklet2label on an XML of the tree's train
+    cars, a kitti_raw_<seq> imdb through get_imdb, and 2 solver.train_net
+    iterations on it (bf16, device dataset). Returns the counts."""
+    total = {}
+    he = profiling.he_params
+    profiling.he_params = lambda device, seed=0: params_from_jax(
+        np_params, device=device)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            runs = (
+                ("trace_detect bf16 B=4", trace_detect.main,
+                 ["--batch", "4", "--steps", "2", "--top", "12"],
+                 ("vgg_stem", "roi_pool")),
+                ("trace_detect int8 B=8 --stem s2d_int8", trace_detect.main,
+                 ["--batch", "8", "--steps", "2", "--top", "12", "--int8",
+                  "--stem", "s2d_int8", "--int8-head", "--int8-rpn",
+                  "--nms", "blocked_fixed", "--pre-nms", "1024"],
+                 ("conv_s8", "conv2x2_s8", "matmul_s8", "roi_pool")),
+                ("trace_train bf16", trace_train.main,
+                 ["--steps", "2", "--top", "12"],
+                 ("roi_pool", "roi_pool_bwd")),
+                ("profile_stages B=4", profile_stages.main,
+                 ["--batch", "4", "--iters", "2"], ("vgg_stem", "roi_pool")),
+                ("profile_bev B=8", profile_bev.main,
+                 ["--batch", "8", "--iters", "2"], ("bev_place",)),
+                ("profile_train full, plain_pool", profile_train.main,
+                 ["--iters", "2", "--variants", "full", "plain_pool"],
+                 ("roi_pool", "roi_pool_bwd")))
+            for i, (name, fn, argv, want) in enumerate(runs):
+                if fn in (trace_detect.main, trace_train.main):
+                    argv = argv + ["--out", os.path.join(tmp, str(i))]
+                zero_all_launches()
+                t0 = time.perf_counter()
+                res = fn(argv)
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+                launches = all_launches()
+                missing = [k for k in want if not launches[k]]
+                if missing:
+                    raise AssertionError("%s launched no %s: %s"
+                                         % (name, missing, launches))
+                if fn in (trace_detect.main, trace_train.main):
+                    named = {trace_detect.function_of(n) for n in res["hand"]}
+                    unnamed = {KERNEL_SYMBOL[k] for k in want} - named
+                    if res["lane"] != "device" or unnamed:
+                        raise AssertionError("%s: the trace's table does not "
+                                             "name %s" % (name, unnamed))
+                    print("%s: busy %.3f of %.3f ms traced, idle share %.3f; "
+                          "top ops (ms over the trace) %s; hand kernels %s" % (
+                              name, res["busy_ms"], res["span_ms"],
+                              res["idle_share"],
+                              [(n[:40], round(ms, 4), c)
+                               for n, ms, c in res["ops"][:5]],
+                              {n: (round(ms, 4), c)
+                               for n, (ms, c) in res["hand"].items()}))
+                add_launches(total, launches)
+                print("tools.%s: %.2f s, launches %s, on [%s]" % (
+                    name, secs, {k: v for k, v in launches.items() if v},
+                    smi))
+        with tempfile.TemporaryDirectory() as tmp, saved_cfg(tmp):
+            seq = "2011_09_26_drive_0001"
+            frames, cars = raw_sequence(root, os.path.join(tmp, "raw"), seq)
+            imdb = get_imdb("kitti_raw_" + seq,
+                            kitti_path=os.path.join(tmp, "raw"))
+            roidb = prepare_roidb(imdb)
+            n_gt = sum(len(r["gt_classes"]) for r in roidb)
+            if not isinstance(imdb, KittiRaw) or imdb.num_images != frames \
+                    or n_gt != cars:
+                raise AssertionError("kitti_raw_%s: %d frames, %d gt"
+                                     % (seq, imdb.num_images, n_gt))
+            zero_all_launches()
+            t0 = time.perf_counter()
+            _, lines = printed_lines(
+                solver_mod.train_net, imdb, roidb,
+                get_output_dir(imdb, None), pretrained_model=weights,
+                max_iters=2, compute_dtype=torch.bfloat16, display=1)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launches = all_launches()
+            want = dict(dict.fromkeys(launches, 0), roi_pool=4,
+                        roi_pool_bwd=4)
+            if launches != want:
+                raise AssertionError("train_net on kitti_raw launched %s != %s"
+                                     % (launches, want))
+            add_launches(total, launches)
+            print("tools.tracklet2label -> kitti_raw_%s (%d frames, %d gt "
+                  "cars) -> train_net bf16, 2 iterations: %.2f s, speed lines "
+                  "%s s/iter, launches %s, on [%s]" % (
+                      seq, frames, cars, secs, check_train_log(lines, seq),
+                      {k: v for k, v in launches.items() if v}, smi))
+    finally:
+        profiling.he_params = he
+    return total
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; "
@@ -2380,13 +2700,16 @@ def main():
         np.save(weights, np_params)
         trained = phase_train_net(np_params, root, weights, smi)
         demo = phase_demo(root, weights, smi)
-    print("the blocked NMS, train_net and demo phases: %.1f s"
+        print("the blocked NMS, train_net and demo phases: %.1f s"
+              % (time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        accuracy = phase_accuracy_eval(root, smi)
+        tools = phase_tools(np_params, root, weights, smi)
+    print("the accuracy_eval and tools phases: %.1f s"
           % (time.perf_counter() - t0))
     new_paths = {}
-    add_launches(new_paths, fused)
-    add_launches(new_paths, clis)
-    add_launches(new_paths, trained)
-    add_launches(new_paths, demo)
+    for counts in (fused, clis, trained, demo, accuracy, tools):
+        add_launches(new_paths, counts)
     loaded = [m for m in sys.modules
               if m.split(".")[0] in ("jax", "jaxlib", "mv3d_tf_tpu")]
     if loaded:

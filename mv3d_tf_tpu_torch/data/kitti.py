@@ -22,6 +22,7 @@ import numpy as np
 from mv3d_tf_tpu_torch import geometry_np as Gnp
 from mv3d_tf_tpu_torch.config import cfg
 from mv3d_tf_tpu_torch.data.imdb_base import Imdb
+from mv3d_tf_tpu_torch.data.kitti_raw import KittiRaw
 
 KITTI_SPLITS = ("train", "val", "trainval", "test")
 
@@ -258,20 +259,24 @@ _IMDB_FACTORY = {}
 
 def get_imdb(name, kitti_path=None):
     """datasets.factory.get_imdb (lib/datasets/factory.py:29-85) for
-    kitti_{train,val,trainval,test}; one instance per name and data root
-    (the JAX package keys by name alone, so a second root would get the
-    first one's imdb)."""
+    kitti_{train,val,trainval,test} and kitti_raw_<sequence> (a sequence
+    directory under kitti_path, data/kitti_raw.py); one instance per name
+    and data root (the JAX package keys by name alone, so a second root
+    would get the first one's imdb)."""
     key = (name, None if kitti_path is None else osp.abspath(kitti_path))
     if key in _IMDB_FACTORY:
         return _IMDB_FACTORY[key]
     split = name[len("kitti_"):] if name.startswith("kitti_") else None
-    if split not in KITTI_SPLITS:
+    if name.startswith("kitti_raw_"):
+        imdb = KittiRaw(name[len("kitti_raw_"):], root=kitti_path)
+    elif split in KITTI_SPLITS:
+        imdb = KittiMV3D(split, kitti_path=kitti_path)
+    else:
         raise KeyError(
-            "unknown dataset {!r}: the port reads kitti_{{{}}}; the JAX "
-            "package's other datasets (kitti_raw, kitti_tracking, kitti2d, "
-            "voc, coco, pascal3d, imagenet3d, nissan, nthu) are not ported "
-            "(ROADMAP.md, Queue 1 item 8)".format(name,
-                                                   ",".join(KITTI_SPLITS)))
-    imdb = KittiMV3D(split, kitti_path=kitti_path)
+            "unknown dataset {!r}: the port reads kitti_{{{}}} and "
+            "kitti_raw_<sequence>; the JAX package's other datasets "
+            "(kitti_tracking, kitti2d, voc, coco, pascal3d, imagenet3d, "
+            "nissan, nthu) are not ported (ROADMAP.md, Queue 1 item 8)"
+            .format(name, ",".join(KITTI_SPLITS)))
     _IMDB_FACTORY[key] = imdb
     return imdb

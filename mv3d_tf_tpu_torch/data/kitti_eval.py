@@ -4,9 +4,11 @@ official-protocol 2D / BEV / 3D table over the easy / moderate / hard
 buckets. The reference's evaluator binary is absent (kitti_mv3d.py:392-395),
 so this is the working one.
 
-The greedy matcher runs in numpy. The JAX package can run the same loop in
-C++ (native/kitti_eval.cc, pinned equal by tests/test_kitti_eval_native.py);
-that host code is not ported, so these functions take no ``use_native``.
+The per-difficulty AP's greedy matcher runs in C++ (native/kitti_eval.cc
+through utils/native.eval_ap_native) when every frame uses this module's
+iou_2d or iou_3d_aabb, and in numpy for any other IoU callable or with
+use_native=False; the numpy loop is the plain version the tests hold the
+C++ to (tests/test_torch_native.py).
 """
 
 import functools
@@ -186,14 +188,28 @@ def iou_3d_aabb(a, b):
     return inter / np.maximum(union, 1e-9)
 
 
-def evaluate_ap_difficulty(frames, iou_thresh, difficulty):
+def evaluate_ap_difficulty(frames, iou_thresh, difficulty,
+                           use_native=True):
     """Per-difficulty AP. frames: list of dicts with dets (N, D), scores
     (N,), det_heights (N,), gts (M, D), levels (M,) and iou, a callable
     (dets, gts) -> (N, M). Gts harder than the difficulty are ignored (not
     in npos; detections matching them are neither TP nor FP); detections
-    shorter than its min height that match nothing are ignored too."""
+    shorter than its min height that match nothing are ignored too.
+
+    use_native: frames whose iou is this module's iou_2d (or iou_3d_aabb)
+    in every frame go to the C++ matcher (kitti_eval.py:206-237), which
+    returns ap and num_gt only; other frames, or use_native=False, take the
+    numpy loop below."""
     min_h, _, _ = DIFFICULTY[difficulty]
     lvl_max = {"easy": 1, "moderate": 2, "hard": 3}[difficulty]
+    if use_native and frames:
+        kind = {id(iou_2d): 0, id(iou_3d_aabb): 1}.get(id(frames[0]["iou"]))
+        if kind is not None and all(fr["iou"] is frames[0]["iou"]
+                                    for fr in frames):
+            from mv3d_tf_tpu_torch.utils.native import eval_ap_native
+            ap, npos = eval_ap_native(frames, kind, iou_thresh, min_h,
+                                      lvl_max)
+            return {"ap": ap, "num_gt": npos}
     records = []
     npos = 0
     for fr in frames:
@@ -242,7 +258,7 @@ def evaluate_kitti_official(imdb, all_boxes, all_boxes_cnr, cls_ind=1,
                             iou_3d_thresh=0.7, log=print,
                             projection="legacy",
                             derive_bev_from_corners=False, label=None,
-                            num_frames=None):
+                            num_frames=None, use_native=True):
     """The 3 metric x 3 difficulty AP table for one class
     (kitti_eval.py:282-371).
 
@@ -252,7 +268,8 @@ def evaluate_kitti_official(imdb, all_boxes, all_boxes_cnr, cls_ind=1,
     reference's translation-dropping projection (parity mode), "proper"
     the standard KITTI chain (quality mode). derive_bev_from_corners
     recomputes each BEV det and gt from its corners' footprint, for scoring
-    regressed corners; scores still come from all_boxes.
+    regressed corners; scores still come from all_boxes. use_native is
+    evaluate_ap_difficulty's.
     """
     proj = functools.partial(_lidar_cnr_to_img_np,
                              legacy=(projection == "legacy"))
@@ -301,8 +318,8 @@ def evaluate_kitti_official(imdb, all_boxes, all_boxes_cnr, cls_ind=1,
                                 ("3d", frames_3d, iou_3d_thresh)):
         table[metric] = {}
         for diff in ("easy", "moderate", "hard"):
-            table[metric][diff] = evaluate_ap_difficulty(frames, thr,
-                                                         diff)["ap"]
+            table[metric][diff] = evaluate_ap_difficulty(
+                frames, thr, diff, use_native)["ap"]
     log("KITTI official-protocol AP{} (car, R40, IoU {:.2f}/{:.2f}/{:.2f}):"
         .format(", " + label if label else "",
                 iou_2d_thresh, iou_bev_thresh, iou_3d_thresh))

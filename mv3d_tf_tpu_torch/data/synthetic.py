@@ -6,8 +6,8 @@ files, image_2 PNGs, ImageSets splits and the lidar_bv .npy rasters, so the
 evaluation entry points run end to end without real KITTI data. The draws come
 from ``np.random.RandomState(seed)`` in the JAX package's order, so one seed
 gives the same files from either package. Images are drawn and written with
-Pillow, as the JAX package does; rasters come from the port's numpy twin
-(utils/native.point_cloud_2_top_host).
+Pillow, as the JAX package does; rasters come from the port's C++ host
+raster (utils/native.point_cloud_2_top_host), bit for bit its numpy twin.
 
 Scenes are built in the camera frame (like real labels) with cars on a
 ground plane; velodyne points lie on the yawed car boxes and the ground, so

@@ -17,6 +17,7 @@ import ctypes
 import glob
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -52,6 +53,18 @@ _SIGNATURES = {
 _lock = threading.Lock()
 _lib = None
 build_info = {}   # seconds, library path and compiler log of the last load
+
+
+def kernel_symbols():
+    """The names of the __global__ functions of csrc/*.cu: how a profiler
+    trace names the hand kernels."""
+    names = set()
+    for src in glob.glob(os.path.join(CSRC, "*.cu")):
+        with open(src) as fh:
+            names.update(re.findall(
+                r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?"
+                r"(\w+)", fh.read()))
+    return sorted(names)
 
 
 def nvcc_path():

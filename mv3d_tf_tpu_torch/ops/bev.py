@@ -137,14 +137,21 @@ def point_cloud_2_top(points, valid, device="cuda"):
     return flat.reshape(BEV_H, BEV_W, BEV_C)
 
 
+def slot_keys(points, valid):
+    """The elementwise part of the fast path: (B, N, 4) float32 + (B, N)
+    bool tensors -> (seg (B, N) int32 slot = cell * 9 + slice, DEAD for a
+    point in no slot; z - HEIGHT_MIN; r)."""
+    live, cell, slice_idx, zh, r = _prep(points, valid)
+    return torch.where(live, cell * BEV_C + slice_idx, DEAD), zh, r
+
+
 def sort_slots(points, valid):
     """The sort of the fast path (ops/bev.py:162-168): (B, N, 4) float32 +
     (B, N) bool tensors -> seg_s (B, N) int32 slots in ascending order
     (DEAD for a point in no slot), with z - HEIGHT_MIN and r gathered into
     the same order. The sort is stable, so file order holds within a run
     of equal slots."""
-    live, cell, slice_idx, zh, r = _prep(points, valid)
-    seg = torch.where(live, cell * BEV_C + slice_idx, DEAD)
+    seg, zh, r = slot_keys(points, valid)
     seg_s, perm = torch.sort(seg, dim=-1, stable=True)
     return (seg_s.contiguous(), torch.gather(zh, -1, perm),
             torch.gather(r, -1, perm))

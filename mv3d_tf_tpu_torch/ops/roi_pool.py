@@ -229,3 +229,28 @@ def roi_pool_train(feat, rois, pooled=7, spatial_scale=1.0 / 8):
                          + str(feat.device))
     return RoIPoolTrain.apply(feat.contiguous(), rois.contiguous(), pooled,
                               spatial_scale)
+
+
+class RoIPoolTrainPlain(torch.autograd.Function):
+    """The train pool through both plain versions on any device: the
+    reference the kernel pair is held to on the card (chip_smoke.py) and
+    tools/profile_train's plain_pool variant."""
+
+    @staticmethod
+    def forward(ctx, feat, rois, pooled, spatial_scale):
+        out = roi_pool(feat, rois, pooled, spatial_scale)
+        ctx.save_for_backward(feat, rois, out)
+        ctx.args = (pooled, spatial_scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, dy):
+        feat, rois, out = ctx.saved_tensors
+        return (roi_pool_bwd(feat, rois, out, dy.float(), *ctx.args)
+                .to(feat.dtype), None, None, None)
+
+
+def roi_pool_train_plain(feat, rois, pooled=7, spatial_scale=1.0 / 8):
+    """roi_pool_train's plain pair: the plain forward and gradient, on the
+    device feat lies on, with no kernel."""
+    return RoIPoolTrainPlain.apply(feat, rois, pooled, spatial_scale)

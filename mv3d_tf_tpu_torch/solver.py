@@ -314,8 +314,11 @@ def _build_detector(params, imdb, indices, compute_dtype, quant_cfg, log):
 
 def test_net(params, imdb, weights_filename="default", max_per_image=300,
              thresh=0.05, compute_dtype=None, log=print, detect_fn=None,
-             evaluate=True, batch_size=8, quant_cfg=None):
-    """Evaluate over an imdb; returns (all_boxes, all_boxes_cnr).
+             evaluate=True, batch_size=8, quant_cfg=None,
+             return_cnr_r=False):
+    """Evaluate over an imdb; returns (all_boxes, all_boxes_cnr), and
+    all_boxes_cnr_r third with return_cnr_r (tools/accuracy_eval scores
+    the regressed corners).
 
     all_boxes[cls][image] = (N,5) BEV detections, all_boxes_cnr[cls][image]
     = (N,25) corner detections (test_mv.py:321-517), all_boxes_cnr_r the
@@ -423,8 +426,10 @@ def test_net(params, imdb, weights_filename="default", max_per_image=300,
         if pending is not None:
             drain(*pending)
 
+    result = ((all_boxes, all_boxes_cnr, all_boxes_cnr_r) if return_cnr_r
+              else (all_boxes, all_boxes_cnr))
     if not evaluate:
-        return all_boxes, all_boxes_cnr
+        return result
 
     os.makedirs(output_dir, exist_ok=True)
     for name, boxes in (("detections.pkl", all_boxes),
@@ -436,4 +441,4 @@ def test_net(params, imdb, weights_filename="default", max_per_image=300,
     log("Evaluating detections")
     imdb.evaluate_detections(all_boxes, all_boxes_cnr, output_dir,
                              all_boxes_cnr_r=all_boxes_cnr_r)
-    return all_boxes, all_boxes_cnr
+    return result

@@ -5,10 +5,11 @@
         --root <kitti>/object/training [--count N] [--batch 8] \\
         [--bucket 131072] [--device cuda|cpu] [--host]
 
-On the card each batch is rasterized by the sort and the CUDA placement
-kernel (ops/bev.py:point_cloud_2_top_batch); with --device cpu by the plain
-torch scatter; with --host by the numpy twin. All three write the same
-files.
+Scans are read by the C++ loader (utils/native.load_velodyne_batch). On the
+card each batch is rasterized by the sort and the CUDA placement kernel
+(ops/bev.py:point_cloud_2_top_batch); with --device cpu by the plain torch
+scatter; with --host by the C++ host raster
+(utils/native.point_cloud_2_top_host). All three write the same files.
 """
 
 import argparse
@@ -31,7 +32,7 @@ def parse_args(argv=None):
                    help="point-count bucket per scan (longer scans are cut)")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     p.add_argument("--host", action="store_true",
-                   help="use the numpy twin on the host instead")
+                   help="rasterize on the host in C++ instead")
     return p.parse_args(argv)
 
 

@@ -107,7 +107,7 @@ def build_forward_losses(feat_h=75, feat_w=75, pre_nms_top_n=12000,
                          post_nms_top_n=2000, rpn_nms_thresh=0.7,
                          rois_per_image=128, keep_prob=0.5,
                          compute_dtype=None, pool=roi_pool_train,
-                         stem_impl=None):
+                         stem_impl=None, nms_impl="auto"):
     """The per-frame forward and 4-term loss (train.py:89-161).
 
     Returns forward_losses(params, batch, draws) -> dict of 0-d tensors
@@ -118,7 +118,8 @@ def build_forward_losses(feat_h=75, feat_w=75, pre_nms_top_n=12000,
     single-frame ROI pool. stem_impl None or "literal" runs the literal
     stem, "s2d" the space-to-depth packed convs (ops/stem_s2d.py), whose
     gradient is the literal stem's; the fused stems have no gradient and
-    are refused.
+    are refused. nms_impl is the proposal layer's
+    (proposals.proposal_layer_3d).
     """
     if stem_impl not in TRAIN_STEMS:
         raise ValueError(
@@ -142,7 +143,8 @@ def build_forward_losses(feat_h=75, feat_w=75, pre_nms_top_n=12000,
             rois = proposal_layer_3d(
                 mv3d.rpn_probs(rpn_cls), rpn_box.float(), b["calib"], feat_h,
                 feat_w, pre_nms_top_n=pre_nms_top_n,
-                post_nms_top_n=post_nms_top_n, nms_thresh=rpn_nms_thresh)
+                post_nms_top_n=post_nms_top_n, nms_thresh=rpn_nms_thresh,
+                nms_impl=nms_impl)
             roi_data = proposal_target_layer_3d(
                 draws["roi_fg"], draws["roi_bg"], rois["rois_bv"],
                 rois["rois_3d"], rois["valid"], *gt, b["gt_boxes_corners"],
@@ -165,20 +167,22 @@ def build_forward_losses(feat_h=75, feat_w=75, pre_nms_top_n=12000,
 def build_train_step(feat_h=75, feat_w=75, pre_nms_top_n=12000,
                      post_nms_top_n=2000, rpn_nms_thresh=0.7,
                      rois_per_image=128, keep_prob=0.5, lr=1e-5,
-                     compute_dtype=None, stem_impl=None):
+                     compute_dtype=None, stem_impl=None, nms_impl="auto",
+                     pool=roi_pool_train):
     """Build (train_step, make_optimizer) (train.py:164-198).
 
     make_optimizer(params) is Adam over the parameter ModuleDict with
     optax.adam's defaults. train_step(params, opt, batch, draws) runs the
     forward, the backward and one optimizer step, updating params in place,
-    and returns the metrics as detached 0-d tensors. stem_impl is
-    build_forward_losses'.
+    and returns the metrics as detached 0-d tensors. stem_impl, nms_impl
+    and pool are build_forward_losses'.
     """
     forward_losses = build_forward_losses(
         feat_h=feat_h, feat_w=feat_w, pre_nms_top_n=pre_nms_top_n,
         post_nms_top_n=post_nms_top_n, rpn_nms_thresh=rpn_nms_thresh,
         rois_per_image=rois_per_image, keep_prob=keep_prob,
-        compute_dtype=compute_dtype, stem_impl=stem_impl)
+        compute_dtype=compute_dtype, stem_impl=stem_impl, nms_impl=nms_impl,
+        pool=pool)
 
     def make_optimizer(params):
         return torch.optim.Adam(params.parameters(), lr=lr,

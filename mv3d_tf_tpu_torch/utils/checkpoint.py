@@ -55,8 +55,17 @@ def load_checkpoint(path, params, opt=None, sched=None):
     devices its tensors are on, and into ``opt`` and ``sched`` when given;
     returns params. A params-only load of a full snapshot works. A snapshot
     without scheduler state (a constant-lr run) leaves ``sched`` where it
-    was built and gives the optimizer the scheduler's lr."""
+    was built and gives the optimizer the scheduler's lr. A snapshot with
+    scheduler state (a decayed run) loaded with ``opt`` but no ``sched``
+    raises ValueError, as the JAX package refuses it (solver.py:142-144):
+    the optimizer would go on at the decayed lr."""
     blob = torch.load(path, map_location="cpu", weights_only=True)
+    if opt is not None and sched is None and "sched" in blob:
+        raise ValueError(
+            "{} was written with cfg.TRAIN.LR_DECAY on (it holds LR "
+            "scheduler state); resuming it with cfg.TRAIN.LR_DECAY off "
+            "would go on at its decayed lr. Resume with "
+            "cfg.TRAIN.LR_DECAY on".format(path))
     params.load_state_dict(blob["params"])
     if opt is not None:
         if "opt" not in blob:

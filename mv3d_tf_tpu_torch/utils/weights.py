@@ -208,6 +208,31 @@ def load_npy_weights(params, path_or_dict, ignore_missing=True, log=print):
     return params
 
 
+def make_mv3d_pretrain_dict(vgg_dict, fc_dim=2048, seed=None):
+    """A standard VGG16 .npy dict -> the MV3D pretrain dict, in numpy
+    (mv3d_tf_tpu/utils/weights.py:77, the reference's
+    make_pretrain_data.ipynb): conv weights duplicated under ``*_2``; fc6
+    (25088x4096) and fc7 (4096x4096) subsampled to fc_dim columns drawn by
+    np.random.RandomState(seed).randint WITH replacement, for both the
+    ``_1`` and ``_2`` copies. One seed gives the JAX package's arrays."""
+    rng = np.random.RandomState(seed)
+    out = {}
+    for k in [k for k in vgg_dict if k.startswith("conv")]:
+        out[k] = dict(vgg_dict[k])
+        out[k + "_2"] = dict(vgg_dict[k])
+    if "fc6" in vgg_dict and "fc7" in vgg_dict:
+        idx6 = rng.randint(vgg_dict["fc6"]["weights"].shape[1], size=fc_dim)
+        idx7 = rng.randint(vgg_dict["fc7"]["weights"].shape[1], size=fc_dim)
+        fc6 = {"weights": vgg_dict["fc6"]["weights"][:, idx6],
+               "biases": vgg_dict["fc6"]["biases"][idx6]}
+        fc7 = {"weights": vgg_dict["fc7"]["weights"][idx6][:, idx7],
+               "biases": vgg_dict["fc7"]["biases"][idx7]}
+        for tgt, src in (("fc6_1", fc6), ("fc6_2", fc6),
+                         ("fc7_1", fc7), ("fc7_2", fc7)):
+            out[tgt] = {k: np.array(v) for k, v in src.items()}
+    return out
+
+
 def he_normal_params(seed, bev_channels=9, fc_dim=2048, pooled=7):
     """JAX-layout params with He-scaled normal weights (std sqrt(2/fan_in))
     and zero biases, from a numpy seed.
