@@ -48,6 +48,14 @@ each launching (and the traces naming) their hand kernels; and
 tools/tracklet2label -> a kitti_raw imdb -> two train_net iterations. The
 host code in C++ (the velodyne loader, the host BEV raster of read_lidar
 --host, the AP matcher) is held to its numpy versions along the way.
+Last, the legacy 2D Faster R-CNN at full width (VGG16, stride 16, fc 4096,
+21 classes, He weights): both ROI kernels at its shapes (2000 rois on a
+38x64x512 conv5_3 at 1/16; the gradient on 128) against their plain
+versions; im_detect_2d on a 608x1024 image in float32 and bf16 (pre-NMS
+12000, post-NMS 2000) against the plain pool, with nms_matrix's keep set
+held to the host greedy loop; full-width 2D train steps (momentum SGD,
+conv1/conv2 frozen); and tools.train_net / tools.test_net with VGGnet*
+and tools.demo on a synthetic VOC tree.
 Every failed check raises, so the exit code is non-zero; without a CUDA
 device it exits non-zero before printing any result.
 The last line is {"ok": true, "device": {...}}; the line before it is the
@@ -72,6 +80,7 @@ import torch
 import torch.nn.functional as F
 
 from mv3d_tf_tpu_torch import eval as eval_mod
+from mv3d_tf_tpu_torch import faster_rcnn_2d as F2
 from mv3d_tf_tpu_torch import geometry as G
 from mv3d_tf_tpu_torch import kernels
 from mv3d_tf_tpu_torch import proposals as proposals_mod
@@ -96,7 +105,9 @@ from mv3d_tf_tpu_torch.ops import conv_s8 as S8
 from mv3d_tf_tpu_torch.ops import roi_pool_cuda as roi_pool_cuda_mod
 from mv3d_tf_tpu_torch.ops.bev_cuda import (CHUNK_CELLS, N_FLAT,
                                             bev_place_cuda, bev_place_plain)
-from mv3d_tf_tpu_torch.ops.nms import nms, nms_blocked, nms_blocked_fixed
+from mv3d_tf_tpu_torch.ops.iou import bbox_overlaps
+from mv3d_tf_tpu_torch.ops.nms import (nms, nms_blocked, nms_blocked_fixed,
+                                       nms_matrix, nms_np)
 from mv3d_tf_tpu_torch.ops.conv_s8_cuda import (conv2x2_s8_cuda,
                                                 conv2x2_s8_nk_cuda,
                                                 conv3x3_s8_cuda,
@@ -119,11 +130,14 @@ from mv3d_tf_tpu_torch.tools import (accuracy_eval, demo_mv, profile_bev,
                                      profile_stages, profile_train, profiling,
                                      quant_check, read_lidar, test_net,
                                      trace_detect, trace_train, tracklet2label)
+from mv3d_tf_tpu_torch.tools import demo as demo_2d
 from mv3d_tf_tpu_torch.tools import train_net as train_net_cli
 from mv3d_tf_tpu_torch.train import (build_forward_losses, build_train_step,
                                      make_draws)
 from mv3d_tf_tpu_torch.utils import native
-from mv3d_tf_tpu_torch.utils.weights import he_normal_params, params_from_jax
+from mv3d_tf_tpu_torch.utils.weights import (he_normal_params,
+                                             he_normal_params_2d,
+                                             params_from_jax)
 
 SEED = 0
 PRE_NMS, POST_NMS = 6000, 300
@@ -185,9 +199,9 @@ def bound(parts, peak):
                          else "operations")}
 
 
-def bin_cells_total(rois, H, W):
+def bin_cells_total(rois, H, W, scale=1.0 / 8):
     """The feature cells that the rois' 7x7 bins cover, summed over bins."""
-    hs, he, ws, we = bin_bounds(rois, 7, 1.0 / 8, H, W).unbind(1)
+    hs, he, ws, we = bin_bounds(rois, 7, scale, H, W).unbind(1)
     return ((he - hs).clamp(min=0)[:, :, None]
             * (we - ws).clamp(min=0)[:, None, :]).sum().item()
 
@@ -298,25 +312,25 @@ def check_rois(gen, n, in_h, in_w, frames):
                       stress_rois(in_h, in_w, frames - 1)])
 
 
-def roi_entry(feat, rois, out):
+def roi_entry(feat, rois, out, scale=1.0 / 8):
     """One launch of the forward kernel's C entry point, without the
     wrapper (no checks, no allocation, no count): the kernel alone."""
     fn = getattr(kernels.library(), roi_pool_cuda_mod._ENTRY[feat.dtype])
     B, H, W, C = feat.shape
     args = (feat.data_ptr(), rois.data_ptr(), out.data_ptr(), B, H, W, C,
-            rois.shape[0], 7, 1.0 / 8, torch.cuda.current_stream().cuda_stream)
+            rois.shape[0], 7, scale, torch.cuda.current_stream().cuda_stream)
     # the default argument keeps the tensors behind the pointers alive
     return lambda keep=(feat, rois, out): kernels.check(fn(*args),
                                                         "roi_pool entry")
 
 
-def roi_bwd_entry(feat, rois, out, dy, dfeat):
+def roi_bwd_entry(feat, rois, out, dy, dfeat, scale=1.0 / 8):
     """One launch of the backward kernel's C entry point, without the
     wrapper: the kernel alone, adding into dfeat."""
     fn = getattr(kernels.library(), roi_pool_cuda_mod._BWD_ENTRY[feat.dtype])
     H, W, C = feat.shape
     args = (feat.data_ptr(), rois.data_ptr(), out.data_ptr(), dy.data_ptr(),
-            dfeat.data_ptr(), H, W, C, rois.shape[0], 7, 1.0 / 8,
+            dfeat.data_ptr(), H, W, C, rois.shape[0], 7, scale,
             torch.cuda.current_stream().cuda_stream)
     return lambda keep=(feat, rois, out, dy, dfeat): kernels.check(
         fn(*args), "roi_pool_bwd entry")
@@ -2657,6 +2671,390 @@ def phase_tools(np_params, root, weights, smi):
     return total
 
 
+# the legacy 2D Faster R-CNN (VGG16, stride 16, fc 4096, 21 classes): the
+# solver's bucket and conv5_3, the demo's bucket, the pool's scale
+BUCKET_2D, DEMO_BUCKET_2D = (608, 1024), (608, 800)
+FEAT_2D = (BUCKET_2D[0] // 16, BUCKET_2D[1] // 16)        # 38 x 64
+SCALE_2D = 1.0 / 16
+ROIS_2D, TRAIN_ROIS_2D, GT_2D = 2000, 128, 32
+IM_INFO_2D = np.array([600.0, 1000.0, 1.6], np.float32)
+DETECT_2D_CALLS, TRAIN_2D_STEPS = 10, 3
+BF16_2D_RTOL = 2 ** -6   # bf16 detector outputs, relative to each max
+
+
+def phase_roi_2d(gen, smi):
+    """Both ROI kernels at the 2D path's shapes against their plain
+    versions: the forward over 2000 rois (make_rois' random and edge rois
+    in a 608x1024 image) on a 38x64x512 conv5_3 at 1/16, float32 and bf16,
+    on a distinct and a post-ReLU map, bit for bit; the gradient over 128
+    rois within BWD_RTOL * max + BWD_ATOL. Checks that C = 512 meets the
+    16-byte path's condition (C a multiple of the pack, both pointers
+    16-byte aligned) and that the set holds bins 10 cells wide (a whole-map
+    roi's 64 columns in 7 bins). Prints the kernels' times (raw launches of
+    the C entry) beside the plain versions' and the bound."""
+    H, W = FEAT_2D
+    x = torch.randn((H, W, 512), generator=gen).cuda()
+    rois = make_rois(gen, ROIS_2D - 6, *BUCKET_2D, 1)
+    hs, he, ws, we = bin_bounds(rois, 7, SCALE_2D, H, W).unbind(1)
+    widest, tallest = int((we - ws).max()), int((he - hs).max())
+    if widest < 10:
+        raise AssertionError("2D roi set: widest bin %d cells < 10" % widest)
+    brois = make_rois(gen, TRAIN_ROIS_2D - 6, *BUCKET_2D, 1)
+    times = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for kind, m in (("distinct", x), ("sparse", F.relu(x))):
+            feat = m.to(dtype)
+            out = roi_pool_cuda(feat, rois, 7, SCALE_2D)
+            ref = roi_pool(feat, rois, 7, SCALE_2D)
+            if not torch.equal(out, ref):
+                raise AssertionError("roi_pool 2D %s %s: kernel != plain, max "
+                                     "|diff| %g" % (dtype, kind,
+                                                    max_err(out, ref)))
+            pack = 16 // feat.element_size()
+            if not (512 % pack == 0 and feat.data_ptr() % 16 == 0
+                    and out.data_ptr() % 16 == 0):
+                raise AssertionError("roi_pool 2D %s: not on the 16-byte path"
+                                     % dtype)
+            bout = roi_pool_cuda(feat, brois, 7, SCALE_2D)
+            dy = torch.rand(bout.shape, generator=gen).cuda()
+            got = roi_pool_bwd_cuda(feat, brois, bout, dy, 7, SCALE_2D)
+            want = roi_pool_bwd(feat, brois, bout, dy, 7, SCALE_2D)
+            err = max_err(got, want)
+            tol = BWD_RTOL * want.abs().max().item() + BWD_ATOL
+            if not err <= tol:
+                raise AssertionError("roi_pool_bwd 2D %s %s: max |diff| %g > "
+                                     "%g" % (dtype, kind, err, tol))
+            print("roi_pool 2D %s %s (38,64,512) rois=%d: bit-identical to "
+                  "plain, 16-byte path; roi_pool_bwd rois=%d: max |diff| %g "
+                  "<= %g" % (dtype, kind, rois.shape[0], brois.shape[0], err,
+                             tol))
+            if kind == "sparse":
+                times[dtype] = (feat, out, bout, dy)
+    for dtype, (feat, out, bout, dy) in times.items():
+        k = cuda_ms(roi_entry(feat[None], rois, out, SCALE_2D))
+        p = cuda_ms(lambda: roi_pool(feat, rois, 7, SCALE_2D), iters=3,
+                    warmup=1)
+        fb = bound([(nbytes(feat, rois, out),
+                     bin_cells_total(rois, H, W, SCALE_2D) * 512)], F32_PER_S)
+        scratch = torch.zeros(feat.shape, device="cuda")
+        kb = cuda_ms(roi_bwd_entry(feat, brois, bout, dy, scratch, SCALE_2D))
+        pb = cuda_ms(lambda: roi_pool_bwd(feat, brois, bout, dy, 7, SCALE_2D),
+                     iters=3, warmup=1)
+        bb = bound([(nbytes(feat, brois, bout, dy, scratch),
+                     2 * bin_cells_total(brois, H, W, SCALE_2D) * 512)],
+                   F32_PER_S)
+        print("roi_pool 2D time %s (38,64,512) rois=%d: kernel alone %.4f ms, "
+              "plain %.4f ms, bound %.4f ms (%s); roi_pool_bwd rois=%d: "
+              "kernel alone %.4f ms, plain %.4f ms, bound %.4f ms (%s); "
+              "bins up to %dx%d cells; on [%s]" % (
+                  dtype, rois.shape[0], k, p, fb["bound_ms"], fb["bound_by"],
+                  brois.shape[0], kb, pb, bb["bound_ms"], bb["bound_by"],
+                  tallest, widest, smi))
+
+
+def nms_matrix_rounds(boxes, scores, valid, thr):
+    """The fixpoint rounds nms_matrix takes on these candidates (its loop,
+    counted), and the candidates' stable score order."""
+    order = torch.sort(torch.where(valid, scores, -1e30), descending=True,
+                       stable=True)[1]
+    b, v = boxes[order], valid[order]
+    sup = ((bbox_overlaps(b, b) >= thr).triu(1) & v[:, None]
+           & v[None, :]).float()
+    kept, rounds = v, 0
+    while True:
+        rounds += 1
+        new = v & (kept.float() @ sup < 0.5)
+        if torch.equal(new, kept):
+            return rounds, order
+        kept = new
+
+
+def check_nms_matrix(seen, what):
+    """nms_matrix's keep set on one call's candidates against the host
+    greedy loop nms_np over the same boxes in the layer's stable score
+    order (strictly decreasing stand-in scores, so the loop keeps that
+    order). Returns (fixpoint rounds, kept, candidates)."""
+    boxes, scores, valid, max_out, thr, keep_idx, keep_valid = seen
+    rounds, order = nms_matrix_rounds(boxes, scores, valid, thr)
+    order = order[valid[order]].cpu().numpy()
+    b = boxes.cpu().numpy()[order]
+    dets = np.hstack([b, (len(b) - np.arange(len(b), dtype=np.float32))[
+        :, None]]).astype(np.float32)
+    want = order[nms_np(dets, thr)[:max_out]]
+    got = keep_idx[keep_valid].cpu().numpy()
+    if not np.array_equal(got, want):
+        raise AssertionError("%s: nms_matrix kept %d boxes, nms_np %d; first "
+                             "difference at %s" % (
+                                 what, len(got), len(want),
+                                 int(np.argmax(got[:len(want)]
+                                               != want[:len(got)]))))
+    return rounds, len(got), len(order)
+
+
+class CaptureNmsMatrix:
+    """faster_rcnn_2d's nms_matrix, recording each call's inputs and
+    outputs while active."""
+
+    def __enter__(self):
+        self.seen, self.saved = [], F2.nms_matrix
+
+        def capture(boxes, scores, valid, max_out, thr):
+            keep = self.saved(boxes, scores, valid, max_out, thr)
+            self.seen.append((boxes, scores, valid, max_out, thr) + keep)
+            return keep
+
+        F2.nms_matrix = capture
+        return self.seen
+
+    def __exit__(self, *exc):
+        F2.nms_matrix = self.saved
+
+
+def phase_detect_2d(np2d, smi):
+    """faster_rcnn_2d.build_im_detect_2d at full width on a 608x1024 image
+    (im_info 600x1000 at 1.6) with test_net's proposal budget (pre-NMS
+    12000, post-NMS 2000), float32 and bf16: a warm-up then DETECT_2D_CALLS
+    timed calls, one ROI kernel launch each (counts zeroed just before,
+    read just after). Then the same call through the plain pool: rois and
+    keep set equal, scores and boxes bit for bit in float32 and within
+    BF16_2D_RTOL of each max in bf16; and nms_matrix's keep set on the
+    call's own candidates equal to nms_np's. Returns the launch counts."""
+    params = params_from_jax(np2d, device="cuda")
+    rng = np.random.RandomState(SEED + 7)
+    image = torch.from_numpy((rng.rand(*BUCKET_2D, 3) * 255 - PIXEL_MEANS)
+                             .astype(np.float32)).cuda()
+    im_info = torch.from_numpy(IM_INFO_2D).cuda()
+    kw = dict(pre_nms_top_n=cfg.TEST.RPN_PRE_NMS_TOP_N,
+              post_nms_top_n=cfg.TEST.RPN_POST_NMS_TOP_N)
+    total = {}
+    for name, dtype in (("f32", None), ("bf16", torch.bfloat16)):
+        detect = F2.build_im_detect_2d(*FEAT_2D, compute_dtype=dtype, **kw)
+        zero_all_launches()
+        with CaptureNmsMatrix() as seen:
+            out, warm_ms = timed(detect, params, image, im_info)
+        times = [timed(detect, params, image, im_info)[1]
+                 for _ in range(DETECT_2D_CALLS)]
+        launches = all_launches()
+        want = dict(dict.fromkeys(launches, 0), roi_pool=1 + DETECT_2D_CALLS)
+        if launches != want:
+            raise AssertionError("im_detect_2d %s launched %s != %s"
+                                 % (name, launches, want))
+        add_launches(total, launches)
+        n_valid = int(out["valid"].sum())
+        ok = (torch.isfinite(out["scores"]).all()
+              and torch.isfinite(out["boxes"]).all() and n_valid > 0
+              and torch.allclose(out["scores"][out["valid"]].sum(1),
+                                 torch.ones(n_valid, device="cuda")))
+        if not ok:
+            raise AssertionError("im_detect_2d %s: outputs" % name)
+        ref = F2.build_im_detect_2d(*FEAT_2D, compute_dtype=dtype,
+                                    pool=roi_pool, **kw)(params, image,
+                                                         im_info)
+        for k in ("rois", "valid"):
+            if not torch.equal(out[k], ref[k]):
+                raise AssertionError("im_detect_2d %s: %s differ from the "
+                                     "plain pool's" % (name, k))
+        errs = {k: max_err(out[k], ref[k]) for k in ("scores", "boxes")}
+        for k, e in errs.items():
+            tol = 0.0 if dtype is None else (
+                BF16_2D_RTOL * ref[k].abs().max().item())
+            if not e <= tol:
+                raise AssertionError("im_detect_2d %s: %s max |diff| %g > %g "
+                                     "against the plain pool" % (name, k, e,
+                                                                 tol))
+        rounds, kept, cands = check_nms_matrix(seen[0], "im_detect_2d " + name)
+        nms_ms = timed(nms_matrix, *seen[0][:5])[1]
+        print("im_detect_2d %s 608x1024 (pre-NMS %d, post-NMS %d): p50 %.3f "
+              "ms over %d calls (%s) after a %.3f ms warm-up; %d valid rois; "
+              "vs the plain pool: rois and keep set equal, scores/boxes max "
+              "|diff| %s; nms_matrix on %d candidates: %d kept = nms_np's, "
+              "%d fixpoint rounds, %.3f ms; launches %s; on [%s]" % (
+                  name, kw["pre_nms_top_n"], kw["post_nms_top_n"],
+                  float(np.median(times)), DETECT_2D_CALLS,
+                  ", ".join("%.3f" % t for t in times), warm_ms, n_valid,
+                  errs, cands, kept, rounds, nms_ms,
+                  {k: v for k, v in launches.items() if v}, smi))
+    return total
+
+
+def train_batch_2d(rng, n_gt=5):
+    """One 608x1024 training image (mean-subtracted noise, im_info 600x1000
+    at 1.6) with n_gt gt boxes of VOC classes, padded to GT_2D rows."""
+    gt = np.zeros((GT_2D, 5), np.float32)
+    xy = rng.uniform(0, 700, (n_gt, 2)) * [1.0, 0.6]
+    wh = rng.uniform(80, 300, (n_gt, 2))
+    gt[:n_gt, :4] = np.concatenate([xy, np.minimum(xy + wh, [999, 599])], 1)
+    gt[:n_gt, 4] = rng.randint(1, 21, n_gt)
+    return {"image": torch.from_numpy(
+                (rng.rand(*BUCKET_2D, 3) * 255 - PIXEL_MEANS)
+                .astype(np.float32)).cuda(),
+            "im_info": torch.from_numpy(IM_INFO_2D).cuda(),
+            "gt_boxes": torch.from_numpy(gt).cuda(),
+            "gt_valid": (torch.arange(GT_2D) < n_gt).cuda()}
+
+
+def phase_train_2d(np2d, smi):
+    """faster_rcnn_2d.build_train_step_2d at full width (pre-NMS 12000,
+    post-NMS 2000, 128 rois, momentum SGD) on a 608x1024 image, float32 and
+    bf16, fresh params each: a warm-up and TRAIN_2D_STEPS timed steps.
+    Checks finite metrics and a positive loss every step, conv1/conv2 bit
+    for bit unchanged, fc6 and conv3_1 moved, and one forward and one
+    backward ROI launch a step (counts zeroed just before, read just
+    after). Then, in float32, one forward and backward through the kernel
+    pair against the plain pair on the same draws: the loss within 1e-6
+    and every gradient within 1e-4 of its max. Returns the counts."""
+    batch = train_batch_2d(np.random.RandomState(SEED + 8))
+    kw = dict(pre_nms_top_n=TRAIN_PRE_NMS, post_nms_top_n=TRAIN_POST_NMS,
+              rois_per_image=TRAIN_ROIS_2D)
+    draw_args = (FEAT_2D[0] * FEAT_2D[1] * 9, TRAIN_POST_NMS + GT_2D,
+                 TRAIN_ROIS_2D, 4096, 0.5, "cuda")
+    zero_all_launches()
+    for name, dtype in (("f32", None), ("bf16", torch.bfloat16)):
+        params = params_from_jax(np2d, device="cuda")
+        frozen = {k: [t.detach().clone() for t in params[k].parameters()]
+                  for k in ("conv1_1", "conv1_2", "conv2_1", "conv2_2")}
+        watch = {k: params[k].weight.detach().clone()
+                 for k in ("conv3_1", "fc6")}
+        step, make_opt = F2.build_train_step_2d(*FEAT_2D, compute_dtype=dtype,
+                                                **kw)
+        opt, sched = make_opt(params)
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+        results = []
+        for _ in range(1 + TRAIN_2D_STEPS):
+            m, ms = timed(step, params, opt, sched, batch,
+                          F2.make_draws_2d(gen, *draw_args))
+            if not (all(torch.isfinite(v) for v in m.values())
+                    and m["loss"].item() > 0):
+                raise AssertionError("train 2D %s: metrics %s" % (
+                    name, {k: v.item() for k, v in m.items()}))
+            results.append((m["loss"].item(), ms))
+        moved = [k for k in frozen if not all(
+            torch.equal(a, b) for a, b in zip(params[k].parameters(),
+                                              frozen[k]))]
+        still = [k for k, w in watch.items()
+                 if torch.equal(params[k].weight, w)]
+        if moved or still:
+            raise AssertionError("train 2D %s: frozen layers moved %s, "
+                                 "trained layers still %s" % (name, moved,
+                                                              still))
+        times = [ms for _, ms in results[1:]]
+        print("train step 2D %s 608x1024: p50 %.3f ms/step over %d steps (%s) "
+              "after a %.3f ms warm-up; losses %s; conv1/conv2 bit for bit "
+              "unchanged; on [%s]" % (
+                  name, float(np.median(times)), TRAIN_2D_STEPS,
+                  ", ".join("%.3f" % t for t in times), results[0][1],
+                  ", ".join("%.4f" % v for v, _ in results), smi))
+        del params, opt, step
+    launches = all_launches()
+    steps = 2 * (1 + TRAIN_2D_STEPS)
+    want = dict(dict.fromkeys(launches, 0), roi_pool=steps,
+                roi_pool_bwd=steps)
+    if launches != want:
+        raise AssertionError("train 2D launched %s != %s" % (launches, want))
+
+    draws = F2.make_draws_2d(torch.Generator(device="cuda").manual_seed(1),
+                             *draw_args)
+    grads = {}
+    for name, pool in (("kernel", roi_pool_train),
+                       ("plain", roi_pool_train_plain)):
+        params = params_from_jax(np2d, device="cuda")
+        loss = F2.build_forward_losses_2d(*FEAT_2D, pool=pool, **kw)(
+            params, batch, draws)["loss"]
+        loss.backward()
+        grads[name] = (loss.item(), {k: p.grad for k, p in
+                                     params.named_parameters()})
+        del params
+    (loss_k, g_k), (loss_p, g_p) = grads["kernel"], grads["plain"]
+    if not abs(loss_k - loss_p) <= 1e-6 * abs(loss_p):
+        raise AssertionError("train 2D loss: kernel pair %r, plain pair %r"
+                             % (loss_k, loss_p))
+    worst = 0.0
+    for k, g in g_p.items():
+        err, scale = max_err(g_k[k], g), g.abs().max().item()
+        if not err <= 1e-4 * scale:
+            raise AssertionError("train 2D gradient of %s: max |diff| %g > "
+                                 "1e-4 * %g" % (k, err, scale))
+        worst = max(worst, err / scale if scale else 0.0)
+    print("f32 2D train step through the kernel pair vs the plain pair: loss "
+          "%.7f vs %.7f; worst gradient max |diff| / max |g| %.3g over %d "
+          "tensors; train-path launches %s" % (
+              loss_k, loss_p, worst, len(g_p),
+              {k: v for k, v in launches.items() if v}))
+    return launches
+
+
+def phase_clis_2d(smi):
+    """The 2D CLIs on a synthetic VOC tree of 4 375x500 JPEGs
+    (data/synthetic.generate_voc), at full width in bf16 (their default):
+    tools.train_net --network VGGnet_train for 2 iterations with
+    TRAIN.HAS_RPN on through a cfg file (one snapshot), tools.test_net
+    --network VGGnet_test on that snapshot over the test split (the VOC AP
+    table), and tools.demo on one image (its PNG). Each run's launches are
+    zeroed just before and read just after: 1 forward and 1 backward an
+    iteration, 1 forward an image. Returns the counts."""
+    total = {}
+    with tempfile.TemporaryDirectory() as tmp, saved_cfg(tmp):
+        devkit = synthetic.generate_voc(os.path.join(tmp, "VOCdevkit"),
+                                        num_images=4, seed=SEED)
+        yml = os.path.join(tmp, "end2end.yml")
+        with open(yml, "w") as f:
+            f.write("TRAIN:\n  HAS_RPN: True\n")
+        where = ["--devkit_path", devkit, "--set", "ROOT_DIR", tmp,
+                 "DATA_DIR", os.path.join(tmp, "data")]
+        snap = os.path.join(tmp, "output", "default", "voc_2007_trainval",
+                            "VGGnet_fast_rcnn_iter_2.pt")
+        jpg = os.path.join(devkit, "VOC2007", "JPEGImages", "000001.jpg")
+        runs = (("tools.train_net VGGnet_train, 2 iterations",
+                 train_net_cli.main,
+                 ["--network", "VGGnet_train", "--imdb", "voc_2007_trainval",
+                  "--iters", "2", "--cfg", yml] + where + ["TRAIN.DISPLAY",
+                                                           "1"],
+                 dict(roi_pool=2, roi_pool_bwd=2)),
+                ("tools.test_net VGGnet_test, 4 images", test_net.main,
+                 ["--network", "VGGnet_test", "--imdb", "voc_2007_test",
+                  "--weights", snap] + where, dict(roi_pool=4)),
+                ("tools.demo, 1 image", demo_2d.main,
+                 ["--image", jpg, "--weights", snap, "--out",
+                  os.path.join(tmp, "demo")], dict(roi_pool=1)))
+        for name, fn, argv, counts in runs:
+            zero_all_launches()
+            t0 = time.perf_counter()
+            res, lines = printed_lines(fn, argv)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launches = all_launches()
+            want = dict(dict.fromkeys(launches, 0), **counts)
+            if launches != want:
+                raise AssertionError("%s launched %s != %s"
+                                     % (name, launches, want))
+            add_launches(total, launches)
+            if fn is train_net_cli.main:
+                losses = [float(re.search(r"total loss: (\S+) ", line)
+                                .group(1)) for line in lines
+                          if line.startswith("iter: ")]
+                if len(losses) != 2 or not np.isfinite(losses).all() \
+                        or not os.path.getsize(snap):
+                    raise AssertionError("%s: losses %s" % (name, losses))
+                what = "losses %s, snapshot %.0f MB" % (
+                    losses, os.path.getsize(snap) / 1e6)
+            elif fn is test_net.main:
+                if len(res) != 20 or not all(0.0 <= v <= 1.0
+                                             for v in res.values()):
+                    raise AssertionError("%s: APs %s" % (name, res))
+                what = "VOC mean AP %.4f (random weights)" % np.mean(
+                    list(res.values()))
+            else:
+                path, dets = res
+                if os.path.getsize(path) < 1000:
+                    raise AssertionError("%s wrote %s" % (name, path))
+                what = "PNG %d bytes, %d detections" % (
+                    os.path.getsize(path), sum(dets.values()))
+            print("%s: %.2f s, %s, launches %s, on [%s]" % (
+                name, secs, what, {k: v for k, v in launches.items() if v},
+                smi))
+    return total
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; "
@@ -2707,8 +3105,17 @@ def main():
         tools = phase_tools(np_params, root, weights, smi)
     print("the accuracy_eval and tools phases: %.1f s"
           % (time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    phase_roi_2d(gen, smi)
+    np2d = he_normal_params_2d(SEED)
+    detect_2d = phase_detect_2d(np2d, smi)
+    train_2d = phase_train_2d(np2d, smi)
+    del np2d
+    clis_2d = phase_clis_2d(smi)
+    print("the legacy 2D phases: %.1f s" % (time.perf_counter() - t0))
     new_paths = {}
-    for counts in (fused, clis, trained, demo, accuracy, tools):
+    for counts in (fused, clis, trained, demo, accuracy, tools, detect_2d,
+                   train_2d, clis_2d):
         add_launches(new_paths, counts)
     loaded = [m for m in sys.modules
               if m.split(".")[0] in ("jax", "jaxlib", "mv3d_tf_tpu")]
@@ -2718,7 +3125,8 @@ def main():
     # launches on the main paths: the detector's run, the train run, the
     # read_lidar run, the scan-to-detections run, the int8 detector's run,
     # the s2d_fused detectors' run, the evaluation CLIs' runs, the
-    # train_net runs and the demo's runs
+    # train_net runs, the demo's runs, the accuracy_eval and tools runs,
+    # and the 2D detector's, train step's and CLIs' runs
     print(json.dumps({"kernels": [
         {"name": "roi_pool", "route": "cuda", "source": ROI_SOURCE,
          "replaces": "mv3d_tf_tpu/ops/roi_pool_pallas.py:71",

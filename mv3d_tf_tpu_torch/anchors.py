@@ -1,5 +1,6 @@
 """Anchor grid: a numpy copy of mv3d_tf_tpu/anchors.py:18-133 that takes its
 constants from this package's geometry module, so it loads without jax.
+``generate_anchors`` gives the legacy 2D path's 9 scale/ratio anchors.
 
 The BEV anchors and their shifted grid depend only on the feature-map
 shape; the table is built once per shape and cached. Anchor order is
@@ -26,6 +27,39 @@ def generate_anchors_bv(base_size=((3.9, 1.6), (1.0, 0.6)), res=0.1):
     base_anchors[:, 2] -= base_anchors[:, 2] // 2
     base_anchors[:, 3] -= base_anchors[:, 3] // 2
     return np.vstack((base_anchors, base_anchors[:, [1, 0, 3, 2]]))
+
+
+def generate_anchors(base_size=16, ratios=(0.5, 1, 2),
+                     scales=2 ** np.arange(3, 6)):
+    """The classic Faster R-CNN anchors, 3 ratios x 3 scales (anchors.py:34-41,
+    the reference's generate_anchors.py:53-113)."""
+    base_anchor = np.array([1, 1, base_size, base_size]) - 1
+    ratio_anchors = _ratio_enum(base_anchor, np.array(ratios, np.float64))
+    return np.vstack([_scale_enum(ratio_anchors[i, :], np.array(scales))
+                      for i in range(ratio_anchors.shape[0])])
+
+
+def _whctrs(anchor):
+    w = anchor[2] - anchor[0] + 1
+    h = anchor[3] - anchor[1] + 1
+    return w, h, anchor[0] + 0.5 * (w - 1), anchor[1] + 0.5 * (h - 1)
+
+
+def _mkanchors(ws, hs, x_ctr, y_ctr):
+    ws, hs = ws[:, None], hs[:, None]
+    return np.hstack((x_ctr - 0.5 * (ws - 1), y_ctr - 0.5 * (hs - 1),
+                      x_ctr + 0.5 * (ws - 1), y_ctr + 0.5 * (hs - 1)))
+
+
+def _ratio_enum(anchor, ratios):
+    w, h, x_ctr, y_ctr = _whctrs(anchor)
+    ws = np.round(np.sqrt(w * h / ratios))
+    return _mkanchors(ws, np.round(ws * ratios), x_ctr, y_ctr)
+
+
+def _scale_enum(anchor, scales):
+    w, h, x_ctr, y_ctr = _whctrs(anchor)
+    return _mkanchors(w * scales, h * scales, x_ctr, y_ctr)
 
 
 def shift_anchors(base_anchors, height, width, feat_stride):

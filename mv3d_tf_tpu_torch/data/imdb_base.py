@@ -4,8 +4,9 @@ proposal recall and box-list roidb construction. Host code in numpy; the
 box overlaps are the port's ops/iou.bbox_overlaps on CPU tensors.
 
 Flip augmentation, ``evaluate_proposals`` and ``merge_roidbs`` serve only
-the legacy 2D path (the MV3D training loop does not flip) and wait for it
-(ROADMAP.md, Queue 1 item 8).
+the Fast R-CNN path over precomputed proposals (the MV3D and the 2D
+end-to-end training loops do not flip) and wait for it (ROADMAP.md,
+Queue 1 item 8).
 """
 
 import os

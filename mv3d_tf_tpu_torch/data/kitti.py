@@ -257,26 +257,36 @@ def prepare_roidb(imdb):
 _IMDB_FACTORY = {}
 
 
-def get_imdb(name, kitti_path=None):
-    """datasets.factory.get_imdb (lib/datasets/factory.py:29-85) for
-    kitti_{train,val,trainval,test} and kitti_raw_<sequence> (a sequence
-    directory under kitti_path, data/kitti_raw.py); one instance per name
-    and data root (the JAX package keys by name alone, so a second root
-    would get the first one's imdb)."""
-    key = (name, None if kitti_path is None else osp.abspath(kitti_path))
+def get_imdb(name, kitti_path=None, devkit_path=None):
+    """datasets.factory.get_imdb (lib/datasets/factory.py:29-85, the JAX
+    package's data/kitti.py:299-336): kitti_{train,val,trainval,test},
+    kitti_raw_<sequence> (a sequence directory under kitti_path,
+    data/kitti_raw.py), kitti2d_<split> (data/kitti_2d.py, under kitti_path)
+    and voc_<year>_<split> (data/pascal_voc.py, under devkit_path); one
+    instance per name and data root (the JAX package keys by name alone, so
+    a second root would get the first one's imdb)."""
+    root = kitti_path if not name.startswith("voc_") else devkit_path
+    key = (name, None if root is None else osp.abspath(root))
     if key in _IMDB_FACTORY:
         return _IMDB_FACTORY[key]
     split = name[len("kitti_"):] if name.startswith("kitti_") else None
     if name.startswith("kitti_raw_"):
         imdb = KittiRaw(name[len("kitti_raw_"):], root=kitti_path)
+    elif name.startswith("kitti2d_"):
+        from mv3d_tf_tpu_torch.data.kitti_2d import Kitti2D
+        imdb = Kitti2D(name[len("kitti2d_"):], kitti_path=kitti_path)
     elif split in KITTI_SPLITS:
         imdb = KittiMV3D(split, kitti_path=kitti_path)
+    elif name.startswith("voc_"):
+        from mv3d_tf_tpu_torch.data.pascal_voc import PascalVOC
+        _, year, image_set = name.split("_", 2)
+        imdb = PascalVOC(image_set, year, devkit_path)
     else:
         raise KeyError(
-            "unknown dataset {!r}: the port reads kitti_{{{}}} and "
-            "kitti_raw_<sequence>; the JAX package's other datasets "
-            "(kitti_tracking, kitti2d, voc, coco, pascal3d, imagenet3d, "
-            "nissan, nthu) are not ported (ROADMAP.md, Queue 1 item 8)"
-            .format(name, ",".join(KITTI_SPLITS)))
+            "unknown dataset {!r}: the port reads kitti_{{{}}}, "
+            "kitti_raw_<sequence>, kitti2d_<split> and voc_<year>_<split>; "
+            "the JAX package's other datasets (kitti_tracking, coco, "
+            "pascal3d, imagenet3d, nissan, nthu) are not ported (ROADMAP.md, "
+            "Queue 1 item 9)".format(name, ",".join(KITTI_SPLITS)))
     _IMDB_FACTORY[key] = imdb
     return imdb

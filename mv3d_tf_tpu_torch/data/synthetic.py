@@ -179,3 +179,48 @@ def generate(root, num_frames=4, cars_per_frame=3, seed=0,
         with open(osp.join(root, "ImageSets", s + ".txt"), "w") as f:
             f.write("\n".join(split_frames.get(s, indices)) + "\n")
     return root
+
+
+def generate_voc(root, num_images=4, objects_per_image=3, seed=0,
+                 image_hw=(375, 500), year="2007"):
+    """A PASCAL VOC tree for the legacy 2D path (data/pascal_voc.py):
+    <root>/VOC<year>/{JPEGImages,Annotations,ImageSets/Main} with
+    num_images noise JPEGs, each with objects_per_image filled rectangles of
+    random VOC classes (1-based pixel corners in the XML, the last object of
+    every other image marked difficult), and the splits trainval and test
+    (every image) and train and val (the halves). Draws come from
+    np.random.RandomState(seed). Returns root."""
+    from PIL import Image, ImageDraw
+
+    from mv3d_tf_tpu_torch.data.pascal_voc import VOC_CLASSES
+
+    rng = np.random.RandomState(seed)
+    d = osp.join(root, "VOC" + year)
+    for sub in ("JPEGImages", "Annotations", osp.join("ImageSets", "Main")):
+        os.makedirs(osp.join(d, sub), exist_ok=True)
+    h, w = image_hw
+    ids = ["{:06d}".format(i + 1) for i in range(num_images)]
+    for n, idx in enumerate(ids):
+        im = Image.fromarray((rng.rand(h, w, 3) * 255).astype(np.uint8))
+        draw = ImageDraw.Draw(im)
+        objs = []
+        for k in range(objects_per_image):
+            bw, bh = rng.randint(w // 6, w // 2), rng.randint(h // 6, h // 2)
+            x1, y1 = rng.randint(1, w - bw), rng.randint(1, h - bh)
+            cls = VOC_CLASSES[rng.randint(1, len(VOC_CLASSES))]
+            draw.rectangle([x1 - 1, y1 - 1, x1 + bw - 2, y1 + bh - 2],
+                           fill=tuple(int(c) for c in rng.randint(0, 256, 3)))
+            difficult = int(k == objects_per_image - 1 and n % 2 == 1)
+            objs.append("<object><name>{}</name><difficult>{}</difficult>"
+                        "<bndbox><xmin>{}</xmin><ymin>{}</ymin><xmax>{}"
+                        "</xmax><ymax>{}</ymax></bndbox></object>".format(
+                            cls, difficult, x1, y1, x1 + bw - 1, y1 + bh - 1))
+        im.save(osp.join(d, "JPEGImages", idx + ".jpg"), quality=95)
+        with open(osp.join(d, "Annotations", idx + ".xml"), "w") as f:
+            f.write("<annotation>{}</annotation>\n".format("".join(objs)))
+    half = max(1, num_images // 2)
+    for split, members in (("trainval", ids), ("test", ids),
+                           ("train", ids[:half]), ("val", ids[half:])):
+        with open(osp.join(d, "ImageSets", "Main", split + ".txt"), "w") as f:
+            f.write("\n".join(members) + "\n")
+    return root

@@ -164,11 +164,47 @@ def bbox_transform_inv_cnr(boxes_cnr, deltas):
     return (d.reshape(-1, k, 24) + boxes_cnr[:, None, :]).reshape(deltas.shape)
 
 
+def bbox_transform(ex_rois, gt_rois):
+    """2D regression targets of (N, 4) boxes ``ex_rois`` toward ``gt_rois``,
+    with the +1 width convention. geometry.py:283-296."""
+    ex_w = ex_rois[:, 2] - ex_rois[:, 0] + 1.0
+    ex_h = ex_rois[:, 3] - ex_rois[:, 1] + 1.0
+    ex_cx = ex_rois[:, 0] + 0.5 * ex_w
+    ex_cy = ex_rois[:, 1] + 0.5 * ex_h
+    gt_w = gt_rois[:, 2] - gt_rois[:, 0] + 1.0
+    gt_h = gt_rois[:, 3] - gt_rois[:, 1] + 1.0
+    gt_cx = gt_rois[:, 0] + 0.5 * gt_w
+    gt_cy = gt_rois[:, 1] + 0.5 * gt_h
+    return torch.stack([(gt_cx - ex_cx) / ex_w, (gt_cy - ex_cy) / ex_h,
+                        torch.log(gt_w / ex_w), torch.log(gt_h / ex_h)],
+                       dim=1)
+
+
+def bbox_transform_inv(boxes, deltas):
+    """2D decode of (N, 4K) deltas on (N, 4) boxes -> (N, 4K) boxes.
+    geometry.py:329-345."""
+    w = boxes[:, 2:3] - boxes[:, 0:1] + 1.0
+    h = boxes[:, 3:4] - boxes[:, 1:2] + 1.0
+    cx = boxes[:, 0:1] + 0.5 * w
+    cy = boxes[:, 1:2] + 0.5 * h
+    pcx = deltas[:, 0::4] * w + cx
+    pcy = deltas[:, 1::4] * h + cy
+    pw = torch.exp(deltas[:, 2::4]) * w
+    ph = torch.exp(deltas[:, 3::4]) * h
+    out = torch.stack([pcx - 0.5 * pw, pcy - 0.5 * ph,
+                       pcx + 0.5 * pw, pcy + 0.5 * ph], dim=2)
+    return out.reshape(deltas.shape)
+
+
 def clip_boxes(boxes, im_shape):
-    """Clip (..., 4K) boxes to [0, dim-1]. geometry.py:378-388."""
+    """Clip (..., 4K) boxes to [0, dim-1]. geometry.py:378-388. im_shape
+    (h, w) holds numbers or 0-d tensors (the 2D path's traced im_info)."""
     h, w = im_shape[0], im_shape[1]
     b = boxes.reshape(boxes.shape[:-1] + (-1, 4))
-    out = torch.stack([b[..., 0].clamp(0, w - 1), b[..., 1].clamp(0, h - 1),
-                       b[..., 2].clamp(0, w - 1), b[..., 3].clamp(0, h - 1)],
-                      dim=-1)
+
+    def clip(x, dim):
+        return x.clamp(min=0).clamp(max=dim - 1)
+
+    out = torch.stack([clip(b[..., 0], w), clip(b[..., 1], h),
+                       clip(b[..., 2], w), clip(b[..., 3], h)], dim=-1)
     return out.reshape(boxes.shape)

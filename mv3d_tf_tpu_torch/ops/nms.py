@@ -8,8 +8,10 @@ Two formulations give the greedy keep set, as in the JAX package:
     suppression mask, then one (512, N) IoU sweep suppresses the boxes
     behind it. The proposal layer takes them above post-NMS 512 for speed
     (proposals.py): a train step's 2000 greedy steps become 24 blocks.
-The matrix variant and the reference's ``nms_new`` belong to the legacy 2D
-path (ROADMAP.md, Queue 1 item 8).
+  * ``nms_matrix``: the whole (N, N) suppression mask built once, then a
+    fixpoint of mask products (one host sync a round): the legacy 2D
+    proposal layer's NMS (faster_rcnn_2d.py).
+``nms_np`` and ``nms_new_np`` are the host loops.
 """
 
 import numpy as np
@@ -144,16 +146,57 @@ def _nms_blocked_core(boxes, scores, valid, max_out, iou_threshold, block,
             hit = (kept[:, :, None] & (iou_bt >= iou_threshold)).any(dim=1)
             supp[:, end:] |= hit
     kept = torch.cat(kept_blocks, dim=1)[:, :n]
+    keep_idx, keep_valid = _pack_kept(kept, order, max_out)
+    return (keep_idx.reshape(*lead, max_out),
+            keep_valid.reshape(*lead, max_out), converged.reshape(lead))
 
-    # the first max_out kept (in score order) into fixed slots
+
+def _pack_kept(kept, order, max_out):
+    """The first max_out kept boxes (kept (B, N) bool in score order;
+    order (B, N) their indices) into fixed slots: keep_idx (B, max_out)
+    int64, 0 in unused slots, and keep_valid (B, max_out) bool."""
     rank = kept.long().cumsum(dim=1) - 1
     slot = torch.where(kept & (rank < max_out), rank, max_out)
-    keep_idx = torch.zeros(B, max_out + 1, dtype=torch.long, device=dev)
+    keep_idx = torch.zeros(kept.shape[0], max_out + 1, dtype=torch.long,
+                           device=kept.device)
     keep_idx = keep_idx.scatter(1, slot, order)[:, :max_out]
     n_kept = kept.sum(dim=1, keepdim=True).clamp(max=max_out)
-    keep_valid = torch.arange(max_out, device=dev) < n_kept
-    return (keep_idx.mul(keep_valid).reshape(*lead, max_out),
-            keep_valid.reshape(*lead, max_out), converged.reshape(lead))
+    keep_valid = torch.arange(max_out, device=kept.device) < n_kept
+    return keep_idx.mul(keep_valid), keep_valid
+
+
+def nms_matrix(boxes, scores, valid, max_out, iou_threshold=0.7):
+    """Exact greedy NMS by a fixpoint on the sorted suppression mask
+    (ops/nms.py:26-80), for one frame.
+
+    boxes (N, 4), scores (N,), valid (N,) bool. The boxes are sorted by
+    score (stable, descending), the (N, N) mask "i suppresses j" (IoU >=
+    iou_threshold, i < j, both valid) is built once as float32, and
+      kept[j] <- valid[j] and no kept i < j suppresses j
+    is iterated from kept = valid until nothing changes: one (N,) x (N, N)
+    float32 product and one host sync a round. The product counts 0/1
+    values, so it is exact in float32 (and in TF32, which cuBLAS uses only
+    when torch.backends.cuda.matmul.allow_tf32 is set). Returns keep_idx
+    (max_out,) int64 (0 in unused slots) and keep_valid (max_out,) bool.
+    """
+    active = valid & torch.isfinite(scores)
+    masked = torch.where(active, scores, NEG_INF)
+    # descending and stable: ties keep their index order, as jnp.argsort
+    # of the negated scores does
+    order = torch.sort(masked, descending=True, stable=True)[1]
+    boxes_s = boxes.float()[order]
+    valid_s = active[order]
+    sup = ((bbox_overlaps(boxes_s, boxes_s) >= iou_threshold)
+           .triu_(1).logical_and_(valid_s[:, None])
+           .logical_and_(valid_s[None, :]).float())
+    kept = valid_s
+    while True:
+        new = valid_s & (kept.float() @ sup < 0.5)
+        if torch.equal(new, kept):
+            break
+        kept = new
+    keep_idx, keep_valid = _pack_kept(kept[None], order[None], max_out)
+    return keep_idx[0], keep_valid[0]
 
 
 def nms_np(dets, thresh):
@@ -178,4 +221,32 @@ def nms_np(dets, thresh):
         inter = w * h
         ovr = inter / (areas[i] + areas - inter)
         suppressed |= ovr >= thresh
+    return keep
+
+
+def nms_new_np(dets, thresh):
+    """The reference's nms_new (ops/nms.py:288-313, lib/utils/nms.pyx:70-123):
+    greedy NMS that also suppresses near-containment (intersection over
+    either box's area > 0.95). dets: (N,5) [x1,y1,x2,y2,score] -> keep
+    list."""
+    x1, y1, x2, y2, scores = (dets[:, 0], dets[:, 1], dets[:, 2], dets[:, 3],
+                              dets[:, 4])
+    areas = (x2 - x1 + 1) * (y2 - y1 + 1)
+    order = scores.argsort()[::-1]
+    suppressed = np.zeros(dets.shape[0], bool)
+    keep = []
+    for i in order:
+        if suppressed[i]:
+            continue
+        keep.append(int(i))
+        xx1 = np.maximum(x1[i], x1)
+        yy1 = np.maximum(y1[i], y1)
+        xx2 = np.minimum(x2[i], x2)
+        yy2 = np.minimum(y2[i], y2)
+        w = np.maximum(0.0, xx2 - xx1 + 1)
+        h = np.maximum(0.0, yy2 - yy1 + 1)
+        inter = w * h
+        ovr = inter / (areas[i] + areas - inter)
+        suppressed |= ((ovr >= thresh) | (inter / areas > 0.95)
+                       | (inter / areas[i] > 0.95))
     return keep

@@ -13,6 +13,10 @@ torch.profiler trace of three iterations.
 batched detection over an imdb, per-class threshold and NMS, the top-300
 cap, the detections pickles and the KITTI result writing and AP.
 
+``train_net_2d`` and ``test_net_2d`` (solver.py:440-668) are the legacy 2D
+Faster R-CNN's loops: end-to-end training with momentum SGD, and the VOC
+or KITTI-2D evaluation.
+
 A prefetch thread loads each batch from disk and copies it to the device
 on a side stream while the previous batch computes; the previous batch's
 host post-processing overlaps the current batch's device work. With a
@@ -35,6 +39,7 @@ from mv3d_tf_tpu_torch.data.loader import (RoIDataLayer, get_minibatch,
                                            load_image_bgr, pad_image)
 from mv3d_tf_tpu_torch.eval import build_detect_batch_fn, frame_detections
 from mv3d_tf_tpu_torch.models import mv3d
+from mv3d_tf_tpu_torch.ops.nms import nms_np
 from mv3d_tf_tpu_torch.utils.checkpoint import (latest_snapshot,
                                                 load_checkpoint,
                                                 load_pretrained,
@@ -442,3 +447,185 @@ def test_net(params, imdb, weights_filename="default", max_per_image=300,
     imdb.evaluate_detections(all_boxes, all_boxes_cnr, output_dir,
                              all_boxes_cnr_r=all_boxes_cnr_r)
     return result
+
+
+# --------------------------------------------------------------------------
+# The legacy 2D Faster R-CNN (solver.py:440-668, the reference's
+# lib/fast_rcnn/train.py and test.py)
+# --------------------------------------------------------------------------
+
+def _prep_image_2d(path, bucket_hw, target_size=None, max_size=None):
+    """Load, scale (data/blob.prep_im_for_blob) and pad to the static bucket
+    (solver.py:444-457). Returns (image (H,W,3) float32 mean-subtracted,
+    im_info [h, w, scale] float32)."""
+    from mv3d_tf_tpu_torch.data.blob import prep_im_for_blob
+    target_size = cfg.TRAIN.SCALES[0] if target_size is None else target_size
+    max_size = cfg.TRAIN.MAX_SIZE if max_size is None else max_size
+    im, scale = prep_im_for_blob(load_image_bgr(path),
+                                 cfg.PIXEL_MEANS.reshape(1, 1, 3),
+                                 target_size, max_size)
+    h = min(im.shape[0], bucket_hw[0])
+    w = min(im.shape[1], bucket_hw[1])
+    out = np.zeros((bucket_hw[0], bucket_hw[1], 3), np.float32)
+    out[:h, :w] = im[:h, :w]
+    return out, np.array([h, w, scale], np.float32)
+
+
+def _snapshot_2d(params, n_classes):
+    """The params a 2D snapshot holds: bbox_pred unnormalized when the
+    targets were normalized (solver.py:595-609)."""
+    from mv3d_tf_tpu_torch.faster_rcnn_2d import snapshot_unnormalize_2d
+    if not cfg.TRAIN.BBOX_NORMALIZE_TARGETS_PRECOMPUTED:
+        return params
+    return snapshot_unnormalize_2d(params, cfg.TRAIN.BBOX_NORMALIZE_MEANS,
+                                   cfg.TRAIN.BBOX_NORMALIZE_STDS, n_classes)
+
+
+def train_net_2d(imdb, roidb, output_dir, pretrained_model=None,
+                 max_iters=10000, compute_dtype=None, seed=None,
+                 bucket_hw=(608, 1024), max_gt=32, log=print,
+                 device="cuda"):
+    """Train the legacy 2D Faster R-CNN end to end (solver.py:525-609, the
+    cfg.TRAIN.HAS_RPN branch) on ``device`` (the card unless the caller asks
+    for the CPU); returns the params.
+
+    Momentum SGD with the staircase lr decay, conv1/conv2 frozen, one image
+    an iteration in an epoch permutation from np.random.RandomState(
+    cfg.RNG_SEED), scaled by prep_im_for_blob and padded to ``bucket_hw``;
+    bbox targets normalized when cfg.TRAIN.BBOX_NORMALIZE_TARGETS_PRECOMPUTED
+    is set, and then unnormalized in the snapshots. The params start from
+    vggnet.init_params_2d with a generator seeded from ``seed``
+    (cfg.RNG_SEED if None), then ``pretrained_model``; the same generator
+    gives each iteration's draws (faster_rcnn_2d.make_draws_2d). Snapshots
+    ``<prefix>_iter_<N>.pt`` hold the params, SGD's momentum and the
+    scheduler. With HAS_RPN off (the config default) the reference trains
+    Fast R-CNN over precomputed proposals, which the port does not have yet:
+    it raises.
+    """
+    from mv3d_tf_tpu_torch import faster_rcnn_2d as F2
+    from mv3d_tf_tpu_torch.models import vggnet
+
+    if not cfg.TRAIN.HAS_RPN:
+        raise NotImplementedError(
+            "cfg.TRAIN.HAS_RPN is off: Fast R-CNN training over precomputed "
+            "proposals (train_net_fast_rcnn) is not ported (ROADMAP.md, "
+            "Queue 1 item 8); set TRAIN.HAS_RPN True for end-to-end training")
+    device = torch.device(device)
+    gen = torch.Generator(device=device).manual_seed(
+        cfg.RNG_SEED if seed is None else seed)
+    params = vggnet.init_params_2d(gen, n_classes=imdb.num_classes,
+                                   device=device)
+    if pretrained_model is not None:
+        log("Loading pretrained model weights from {:s}".format(
+            pretrained_model))
+        load_pretrained(params, pretrained_model)
+
+    feat_h, feat_w = bucket_hw[0] // 16, bucket_hw[1] // 16
+    step, make_opt = F2.build_train_step_2d(
+        feat_h, feat_w, lr=cfg.TRAIN.LEARNING_RATE,
+        momentum=cfg.TRAIN.MOMENTUM, stepsize=cfg.TRAIN.STEPSIZE,
+        gamma=cfg.TRAIN.GAMMA, rois_per_image=cfg.TRAIN.BATCH_SIZE,
+        pre_nms_top_n=cfg.TRAIN.RPN_PRE_NMS_TOP_N,
+        post_nms_top_n=cfg.TRAIN.RPN_POST_NMS_TOP_N,
+        n_classes=imdb.num_classes, compute_dtype=compute_dtype,
+        bbox_normalize=cfg.TRAIN.BBOX_NORMALIZE_TARGETS_PRECOMPUTED)
+    opt, sched = make_opt(params)
+    draw_args = (feat_h * feat_w * vggnet.NUM_ANCHORS_2D,
+                 cfg.TRAIN.RPN_POST_NMS_TOP_N + max_gt, cfg.TRAIN.BATCH_SIZE,
+                 params["fc7"].weight.shape[0], 0.5, device)
+
+    rng = np.random.RandomState(cfg.RNG_SEED)
+    perm = rng.permutation(len(roidb))
+    cur = 0
+    timer = Timer()
+    for it in range(max_iters):
+        if cur >= len(perm):
+            perm = rng.permutation(len(roidb))
+            cur = 0
+        entry = roidb[perm[cur]]
+        image, im_info = _prep_image_2d(
+            entry["image_path"] if "image_path" in entry
+            else imdb.image_path_at(perm[cur]), bucket_hw)
+        cur += 1
+        gt = np.zeros((max_gt, 5), np.float32)
+        gt_valid = np.zeros(max_gt, bool)
+        inds = np.where(entry["gt_classes"] != 0)[0][:max_gt]
+        gt[:len(inds), :4] = entry["boxes"][inds] * im_info[2]
+        gt[:len(inds), 4] = entry["gt_classes"][inds]
+        gt_valid[:len(inds)] = True
+        batch = {"image": image, "im_info": im_info, "gt_boxes": gt,
+                 "gt_valid": gt_valid}
+        draws = F2.make_draws_2d(gen, *draw_args)
+        timer.tic()
+        m = step(params, opt, sched, batch, draws)
+        loss = m["loss"].item()          # waits for the step
+        timer.toc()
+        if (it + 1) % cfg.TRAIN.DISPLAY == 0:
+            log("iter: %d / %d, total loss: %.4f (%.3fs/iter)"
+                % (it + 1, max_iters, loss, timer.average_time))
+        if (it + 1) % cfg.TRAIN.SNAPSHOT_ITERS == 0:
+            save_checkpoint(output_dir, it + 1,
+                            _snapshot_2d(params, imdb.num_classes), opt,
+                            sched)
+    save_checkpoint(output_dir, max_iters,
+                    _snapshot_2d(params, imdb.num_classes), opt, sched)
+    return params
+
+
+def test_net_2d(params, imdb, weights_filename="default", max_per_image=100,
+                thresh=0.05, compute_dtype=None, bucket_hw=(608, 1024),
+                log=print):
+    """Evaluate the 2D detector over an imdb (solver.py:612-668, the
+    reference's test.py:216-346) on the params' device: each image scaled
+    by TEST.SCALES/MAX_SIZE, faster_rcnn_2d.build_im_detect_2d at the TEST
+    proposal budget, per-class threshold and host NMS at TEST.NMS, the
+    max_per_image cap, detections.pkl, then the imdb's evaluation (VOC AP
+    for voc_*, the 2D AP table for kitti2d_*), which it returns. The JAX
+    package passes no output_dir to the evaluation, so its kitti2d run
+    raises there; the port passes the detections' directory."""
+    from mv3d_tf_tpu_torch.faster_rcnn_2d import build_im_detect_2d
+
+    num_images = imdb.num_images
+    k = imdb.num_classes
+    all_boxes = [[[] for _ in range(num_images)] for _ in range(k)]
+    output_dir = get_output_dir(imdb, weights_filename)
+    detect = build_im_detect_2d(
+        bucket_hw[0] // 16, bucket_hw[1] // 16,
+        pre_nms_top_n=cfg.TEST.RPN_PRE_NMS_TOP_N,
+        post_nms_top_n=cfg.TEST.RPN_POST_NMS_TOP_N,
+        compute_dtype=compute_dtype)
+
+    timer = Timer()
+    for i in range(num_images):
+        image, im_info = _prep_image_2d(imdb.image_path_at(i), bucket_hw,
+                                        cfg.TEST.SCALES[0], cfg.TEST.MAX_SIZE)
+        timer.tic()
+        out = {key: _numpy(v) for key, v in
+               detect(params, image, im_info).items()}
+        timer.toc()
+        scores = out["scores"]
+        boxes = out["boxes"] / im_info[2]       # back to image coordinates
+        valid = out["valid"]
+        for j in range(1, k):
+            inds = np.where(valid & (scores[:, j] > thresh))[0]
+            dets = np.hstack([boxes[inds, 4 * j:4 * (j + 1)],
+                              scores[inds, j:j + 1]]).astype(np.float32)
+            all_boxes[j][i] = dets[nms_np(dets, cfg.TEST.NMS)]
+        if max_per_image > 0:
+            flat = np.concatenate([all_boxes[j][i][:, -1]
+                                   for j in range(1, k)
+                                   if len(all_boxes[j][i])] or [np.zeros(0)])
+            if len(flat) > max_per_image:
+                t = np.sort(flat)[-max_per_image]
+                for j in range(1, k):
+                    if len(all_boxes[j][i]):
+                        all_boxes[j][i] = all_boxes[j][i][
+                            all_boxes[j][i][:, -1] >= t]
+        log("im_detect: {:d}/{:d} {:.3f}s".format(i + 1, num_images,
+                                                  timer.average_time))
+
+    os.makedirs(output_dir, exist_ok=True)
+    with open(os.path.join(output_dir, "detections.pkl"), "wb") as f:
+        pickle.dump(all_boxes, f, pickle.HIGHEST_PROTOCOL)
+    log("Evaluating detections")
+    return imdb.evaluate_detections(all_boxes, output_dir)

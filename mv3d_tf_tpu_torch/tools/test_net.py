@@ -11,8 +11,14 @@ the plain versions on the CPU), the detections pickles under
 output/<EXP_DIR>/<imdb>/<weights>/, the KITTI result files and the AP
 tables. ``--weights`` takes a reference-style .npy weight dict or a
 snapshot the port wrote; without it the port's own random init
-(``mv3d.init_params`` from a torch generator seeded 0) stands in. Multi-host sharding (``--host_id``, ``--merge_shards``) and the
-legacy 2D networks (``VGGnet*``) are not ported.
+(``mv3d.init_params`` from a torch generator seeded 0) stands in.
+Multi-host sharding (``--host_id``, ``--merge_shards``) is not ported.
+
+``--network VGGnet_test`` (or any ``VGGnet*``) runs the legacy 2D Faster
+R-CNN through solver.test_net_2d instead, over ``--imdb voc_<year>_<split>
+--devkit_path <VOCdevkit>`` or ``kitti2d_<split> --kitti_path <kitti>``:
+the detections pickle and the VOC AP (or the KITTI 2D AP table), with
+``vggnet.init_params_2d`` seeded 0 standing in for missing weights.
 """
 
 import argparse
@@ -75,24 +81,23 @@ def main(argv=None):
     args = parser.parse_args(argv)
     print("Called with args:")
     print(args)
-    if args.network_name.startswith("VGGnet"):
-        raise SystemExit(
-            "--network {}: the legacy 2D Faster R-CNN networks are not "
-            "ported (ROADMAP.md, Queue 1 item 8)".format(args.network_name))
     if args.host_id is not None or args.merge_shards:
         raise SystemExit(
             "--host_id / --merge_shards: multi-host evaluation is not "
             "ported (ROADMAP.md, Queue 1 item 7)")
-    if not (args.network_name.endswith("_test")
-            or args.network_name.endswith("_train")):
-        raise SystemExit("Unknown network: {}".format(args.network_name))
 
     import torch
 
+    from mv3d_tf_tpu_torch.models.factory import get_network
+    try:
+        is_2d = get_network(args.network_name).is_2d
+    except KeyError as e:
+        raise SystemExit(e.args[0])
+
     from mv3d_tf_tpu_torch.config import cfg, cfg_from_file, cfg_from_list
     from mv3d_tf_tpu_torch.data.kitti import get_imdb
-    from mv3d_tf_tpu_torch.models import mv3d
-    from mv3d_tf_tpu_torch.solver import test_net
+    from mv3d_tf_tpu_torch.models import mv3d, vggnet
+    from mv3d_tf_tpu_torch.solver import test_net, test_net_2d
     from mv3d_tf_tpu_torch.utils.checkpoint import load_pretrained
 
     if args.cfg_file is not None:
@@ -107,17 +112,23 @@ def main(argv=None):
         print("Waiting for {} to exist...".format(args.model))
         time.sleep(10)
 
-    imdb = get_imdb(args.imdb_name, kitti_path=args.kitti_path)
+    imdb = get_imdb(args.imdb_name, kitti_path=args.kitti_path,
+                    devkit_path=args.devkit_path)
     print("Use network `{:s}` in testing".format(args.network_name))
 
     device = torch.device(args.device)
-    params = mv3d.init_params(torch.Generator(device=device).manual_seed(0),
-                              device=device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = (vggnet.init_params_2d(gen, n_classes=imdb.num_classes,
+                                    device=device) if is_2d
+              else mv3d.init_params(gen, device=device))
     weights_filename = "default"
     if args.model:
         load_pretrained(params, args.model)
         weights_filename = os.path.splitext(os.path.basename(args.model))[0]
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else None
+    if is_2d:
+        return test_net_2d(params, imdb, weights_filename=weights_filename,
+                           compute_dtype=dtype)
     quant_cfg = None
     if args.int8:
         quant_cfg = {"stem": args.int8_stem,

@@ -10,8 +10,14 @@ Runs solver.train_net on the card (``--device cpu`` for the plain versions
 on the CPU): snapshots ``<prefix>_iter_<N>.pt`` with the Adam and LR
 scheduler state under output/<EXP_DIR>/<imdb>/, and ``--resume`` continues
 from the latest of them. Without ``--rand`` numpy and the torch generator
-are seeded from cfg.RNG_SEED. The legacy 2D networks (``VGGnet*``) are not
-ported.
+are seeded from cfg.RNG_SEED.
+
+``--network VGGnet_train`` (or any ``VGGnet*``) trains the legacy 2D Faster
+R-CNN end to end through solver.train_net_2d (momentum SGD, conv1/conv2
+frozen) over ``--imdb voc_<year>_<split> --devkit_path <VOCdevkit>`` or
+``kitti2d_<split> --kitti_path <kitti>``, with ``TRAIN.HAS_RPN True`` (the
+end2end cfg); with it off the run raises, as Fast R-CNN over precomputed
+proposals is not ported. The 2D loop does not resume.
 """
 
 import argparse
@@ -58,10 +64,14 @@ def main(argv=None):
     args = parser.parse_args(argv)
     print("Called with args:")
     print(args)
-    if args.network_name.startswith("VGGnet"):
-        raise SystemExit(
-            "--network {}: the legacy 2D Faster R-CNN networks are not "
-            "ported (ROADMAP.md, Queue 1 item 8)".format(args.network_name))
+    from mv3d_tf_tpu_torch.models.factory import get_network
+    try:
+        is_2d = get_network(args.network_name).is_2d
+    except KeyError as e:
+        raise SystemExit(e.args[0])
+    if is_2d and args.resume:
+        raise SystemExit("--resume: the 2D training loop does not resume "
+                         "(solver.train_net_2d, as in the JAX package)")
 
     import numpy as np
     import torch
@@ -69,7 +79,7 @@ def main(argv=None):
     from mv3d_tf_tpu_torch.config import (cfg, cfg_from_file, cfg_from_list,
                                           get_output_dir)
     from mv3d_tf_tpu_torch.data.kitti import get_imdb, prepare_roidb
-    from mv3d_tf_tpu_torch.solver import train_net
+    from mv3d_tf_tpu_torch.solver import train_net, train_net_2d
 
     if args.cfg_file is not None:
         cfg_from_file(args.cfg_file)
@@ -80,9 +90,15 @@ def main(argv=None):
 
     if not args.randomize:
         np.random.seed(cfg.RNG_SEED)
-    imdb = get_imdb(args.imdb_name, kitti_path=args.kitti_path)
+    imdb = get_imdb(args.imdb_name, kitti_path=args.kitti_path,
+                    devkit_path=args.devkit_path)
     print("Loaded dataset `{:s}` for training".format(imdb.name))
-    roidb = prepare_roidb(imdb)
+    if is_2d:
+        roidb = imdb.roidb
+        for i, entry in enumerate(roidb):
+            entry.setdefault("image_path", imdb.image_path_at(i))
+    else:
+        roidb = prepare_roidb(imdb)
     print("{:d} roidb entries".format(len(roidb)))
     output_dir = get_output_dir(imdb, None)
     print("Output will be saved to `{:s}`".format(output_dir))
@@ -92,6 +108,11 @@ def main(argv=None):
               else torch.device("cpu"))
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else None
     seed = int(np.random.rand() * 1e6) if args.randomize else None
+    if is_2d:
+        return train_net_2d(imdb, roidb, output_dir,
+                            pretrained_model=args.pretrained_model,
+                            max_iters=args.max_iters, compute_dtype=dtype,
+                            seed=seed, device=device)
     return train_net(imdb, roidb, output_dir,
                      pretrained_model=args.pretrained_model,
                      max_iters=args.max_iters, compute_dtype=dtype,

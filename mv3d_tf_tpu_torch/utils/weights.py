@@ -2,7 +2,9 @@
 
 The JAX package keeps a flat dict ``{name: {"weights", "biases"}}`` of
 numpy-convertible arrays with the reference layer names (conv1_1 ...
-conv5_3, the ``_2`` image trunk, rpn_conv/3x3, fc6_1 ... bbox_pred); conv
+conv5_3, the ``_2`` image trunk, rpn_conv/3x3, fc6_1 ... bbox_pred; the
+legacy 2D net's conv1_1 ... conv5_3, rpn_conv/3x3, rpn_cls_score,
+rpn_bbox_pred, fc6, fc7, cls_score and bbox_pred); conv
 weights are HWIO and fc weights (in, out). The port keeps an
 ``nn.ModuleDict`` of Conv2d (OIHW) and Linear ((out, in)) layers. The
 layout change happens here and nowhere else. Both packages flatten pooled
@@ -14,6 +16,7 @@ import torch
 
 from mv3d_tf_tpu_torch.models import vgg
 from mv3d_tf_tpu_torch.models.mv3d import N_CLASSES, NUM_ANCHORS
+from mv3d_tf_tpu_torch.models.vggnet import N_CLASSES_2D, NUM_ANCHORS_2D
 
 
 def _to_port(w):
@@ -141,6 +144,24 @@ def jax_param_shapes(bev_channels=9, fc_dim=2048, pooled=7):
     return shapes
 
 
+def jax_param_shapes_2d(n_classes=N_CLASSES_2D, fc_dim=4096, pooled=7):
+    """{name: weight shape} of the legacy 2D net's JAX layout
+    (vggnet.py:27-48)."""
+    shapes = {}
+    cin = 3
+    for name, cout, _ in vgg.VGG_LAYERS:
+        shapes[name] = (3, 3, cin, cout)
+        cin = cout
+    shapes.update({
+        "rpn_conv/3x3": (3, 3, 512, 512),
+        "rpn_cls_score": (1, 1, 512, NUM_ANCHORS_2D * 2),
+        "rpn_bbox_pred": (1, 1, 512, NUM_ANCHORS_2D * 4),
+        "fc6": (512 * pooled * pooled, fc_dim), "fc7": (fc_dim, fc_dim),
+        "cls_score": (fc_dim, n_classes), "bbox_pred": (fc_dim, n_classes * 4),
+    })
+    return shapes
+
+
 def _fc_row_perm(channels, pooled=7):
     """Row permutation from the reference's channel-major fc flatten
     (c, h, w) to the NHWC flatten (h, w, c) of models/mv3d.fc_apply
@@ -245,10 +266,21 @@ def he_normal_params(seed, bev_channels=9, fc_dim=2048, pooled=7):
     std of 8-bit pixels after mean subtraction, so that trunk also sees
     unit-scale inputs; bbox_pred keeps the JAX init's 10x smaller scale.
     """
+    return _he_normal(jax_param_shapes(bev_channels, fc_dim, pooled),
+                      {"conv1_1_2": 1.0 / 64, "bbox_pred": 0.1}, seed)
+
+
+def he_normal_params_2d(seed, n_classes=N_CLASSES_2D, fc_dim=4096, pooled=7):
+    """he_normal_params for the legacy 2D net: its image conv1_1 divided by
+    64 and bbox_pred by 10, as there."""
+    return _he_normal(jax_param_shapes_2d(n_classes, fc_dim, pooled),
+                      {"conv1_1": 1.0 / 64, "bbox_pred": 0.1}, seed)
+
+
+def _he_normal(shapes, gain, seed):
     rng = np.random.default_rng(seed)
-    gain = {"conv1_1_2": 1.0 / 64, "bbox_pred": 0.1}
     out = {}
-    for name, shape in jax_param_shapes(bev_channels, fc_dim, pooled).items():
+    for name, shape in shapes.items():
         std = np.sqrt(2.0 / np.prod(shape[:-1])) * gain.get(name, 1.0)
         w = rng.standard_normal(shape, dtype=np.float32)
         out[name] = {"weights": w * np.float32(std),

@@ -36,19 +36,22 @@ def test_cli_help(module, tmp_path):
 
 def test_test_net_refusals(tmp_path):
     """No arguments prints the help and exits 1 (tools/test_net.py:55-57);
-    multi-host sharding and the legacy 2D networks name their ROADMAP.md
-    items."""
+    multi-host sharding names its ROADMAP.md item; the legacy 2D network
+    VGGnet_test is taken and goes on to the dataset, where one not ported
+    (coco) names its item."""
     code = (
         "import sys\n"
         "from mv3d_tf_tpu_torch.tools.test_net import main\n"
         "for argv, want in (([], '1'),\n"
         "                   (['--host_id', '0'], 'Queue 1 item 7'),\n"
         "                   (['--merge_shards'], 'Queue 1 item 7'),\n"
-        "                   (['--network', 'VGGnet_test'], 'Queue 1 item 8')):\n"
+        "                   (['--network', 'VGGnet_test', '--imdb',\n"
+        "                     'coco_2014_val'], 'Queue 1 item 9')):\n"
         "    try:\n"
         "        main(argv)\n"
-        "    except SystemExit as e:\n"
-        "        assert want in str(e.code), (argv, e.code)\n"
+        "    except (SystemExit, KeyError) as e:\n"
+        "        msg = str(e.code if isinstance(e, SystemExit) else e)\n"
+        "        assert want in msg, (argv, msg)\n"
         "    else:\n"
         "        raise AssertionError(argv)\n" + _NO_JAX)
     proc = _run(["-c", code], str(tmp_path))

@@ -573,12 +573,16 @@ for extra in (["--iters", "2"], ["--iters", "3", "--resume"]):
           "TRAIN.SNAPSHOT_ITERS", "1", "TRAIN.DISPLAY", "1"])
 print(sorted(os.listdir(os.path.join(tmp, "output", "default",
                                      "kitti_train"))))
-for argv, want in (([], "1"), (["--network", "VGGnet_train"],
+# VGGnet_train is taken; with TRAIN.HAS_RPN off (the config default) the
+# 2D loop names the Fast R-CNN item
+for argv, want in (([], "1"), (["--network", "VGGnet_train", "--imdb",
+                                "kitti2d_train", "--kitti_path", root],
                                "Queue 1 item 8")):
     try:
         main(argv)
-    except SystemExit as e:
-        assert want in str(e.code), (argv, e.code)
+    except (SystemExit, NotImplementedError) as e:
+        msg = str(e.code if isinstance(e, SystemExit) else e)
+        assert want in msg, (argv, msg)
     else:
         raise AssertionError(argv)
 bad = [m for m in sys.modules if m.split(".")[0] in
@@ -592,8 +596,9 @@ def test_train_net_cli_on_the_cpu_without_jax(tmp_path):
     """python -m ...tools.train_net's main with --device cpu over a 2-frame
     train split at small shapes (its step builder patched, as above): two
     iterations, then --resume to three; one snapshot an iteration; no
-    arguments prints the help and exits 1; VGGnet_train names the legacy
-    2D item; nothing of jax or the JAX package is loaded."""
+    arguments prints the help and exits 1; VGGnet_train over kitti2d_train
+    with TRAIN.HAS_RPN off names the Fast R-CNN item; nothing of jax or
+    the JAX package is loaded."""
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", _CLI, str(tmp_path)],
                           cwd=str(tmp_path), env=env, capture_output=True,
