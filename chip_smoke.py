@@ -55,7 +55,16 @@ versions; im_detect_2d on a 608x1024 image in float32 and bf16 (pre-NMS
 12000, post-NMS 2000) against the plain pool, with nms_matrix's keep set
 held to the host greedy loop; full-width 2D train steps (momentum SGD,
 conv1/conv2 frozen); and tools.train_net / tools.test_net with VGGnet*
-and tools.demo on a synthetic VOC tree.
+and tools.demo on a synthetic VOC tree. Then Fast R-CNN over precomputed
+proposals, the 2D config's default: the ROI gradient kernel over a batched
+map (8 pyramid levels of 38x64x512) against its plain version, the 3-D call
+held to the B = 1 call and the plain version bit for bit; the full-width
+Fast R-CNN step (2 images, 128 rois) at 2 pyramid levels and at
+kitti_rcnn.yml's 8, in float32 and bf16, its gradients through the kernel
+pair held to the plain pair's; and the alternating-optimisation flow:
+rpn_generate's proposal files, PascalVOC.region_proposal_roidb,
+tools.train_net VGGnet_train with HAS_RPN off in a subprocess without jax,
+and tools.test_net VGGnet_test on its snapshot.
 Every failed check raises, so the exit code is non-zero; without a CUDA
 device it exits non-zero before printing any result.
 The last line is {"ok": true, "device": {...}}; the line before it is the
@@ -85,14 +94,17 @@ from mv3d_tf_tpu_torch import geometry as G
 from mv3d_tf_tpu_torch import kernels
 from mv3d_tf_tpu_torch import proposals as proposals_mod
 from mv3d_tf_tpu_torch import quant as Q
+from mv3d_tf_tpu_torch import rpn_generate
 from mv3d_tf_tpu_torch import solver as solver_mod
 from mv3d_tf_tpu_torch import train as train_mod
-from mv3d_tf_tpu_torch.config import cfg, get_output_dir
+from mv3d_tf_tpu_torch.config import cfg, cfg_from_file, get_output_dir
+from mv3d_tf_tpu_torch.data import multiscale as MS
 from mv3d_tf_tpu_torch.data import synthetic
 from mv3d_tf_tpu_torch.data.kitti import get_imdb, prepare_roidb
 from mv3d_tf_tpu_torch.data.kitti_raw import KittiRaw
 from mv3d_tf_tpu_torch.data.kitti_eval import (evaluate_kitti_bev,
                                                evaluate_kitti_official)
+from mv3d_tf_tpu_torch.data.pascal_voc import PascalVOC
 from mv3d_tf_tpu_torch.eval import (PIXEL_MEANS, build_detect_batch_fn,
                                     build_detect_fn, detect_from_features,
                                     frame_detections)
@@ -326,11 +338,12 @@ def roi_entry(feat, rois, out, scale=1.0 / 8):
 
 def roi_bwd_entry(feat, rois, out, dy, dfeat, scale=1.0 / 8):
     """One launch of the backward kernel's C entry point, without the
-    wrapper: the kernel alone, adding into dfeat."""
+    wrapper: the kernel alone, adding into dfeat. feat (H,W,C) is the
+    launch with B = 1."""
     fn = getattr(kernels.library(), roi_pool_cuda_mod._BWD_ENTRY[feat.dtype])
-    H, W, C = feat.shape
+    B, H, W, C = feat.shape if feat.dim() == 4 else (1, *feat.shape)
     args = (feat.data_ptr(), rois.data_ptr(), out.data_ptr(), dy.data_ptr(),
-            dfeat.data_ptr(), H, W, C, rois.shape[0], 7, scale,
+            dfeat.data_ptr(), B, H, W, C, rois.shape[0], 7, scale,
             torch.cuda.current_stream().cuda_stream)
     return lambda keep=(feat, rois, out, dy, dfeat): kernels.check(
         fn(*args), "roi_pool_bwd entry")
@@ -3055,6 +3068,394 @@ def phase_clis_2d(smi):
     return total
 
 
+# the Fast R-CNN step over precomputed proposals (cfg.TRAIN.HAS_RPN off):
+# 2 images a batch, 128 rois, at SCALES_BASE (1.0,) (2 levels) and at
+# kitti_rcnn.yml's [1, 2, 3, 4] with IS_MULTISCALE (8 levels)
+FAST_RCNN_IMS, FAST_RCNN_STEPS, BATCHED_LEVELS = 2, 3, 8
+KITTI_RCNN_YML = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              "experiments", "cfgs", "kitti_rcnn.yml")
+
+
+def batched_bwd_rois(gen, levels):
+    """(rois, check set) on `levels` frames of the 2D map: 128 rois
+    (make_rois' random and edge rois) dealt across the frames in random
+    order; the check set adds rois whose frame column truncates (2.7) or
+    lies past the last frame (levels, levels + 3.5: clamped to it) and the
+    stress rois, at 1/16, on the last frame."""
+    rois = make_rois(gen, TRAIN_ROIS_2D - 6, *BUCKET_2D, levels)
+    rois = rois[torch.randperm(rois.shape[0], generator=gen).cuda()]
+    odd = rois[:3].clone()
+    odd[:, 0] = torch.tensor([2.7, levels, levels + 3.5])
+    # stress_rois at 1/8 of half the image: doubled, the same cells at 1/16
+    stress = stress_rois(BUCKET_2D[0] // 2, BUCKET_2D[1] // 2, levels - 1)
+    stress[:, 1:] *= 2
+    return rois, torch.cat([rois, odd, stress])
+
+
+def phase_roi_bwd_batched(gen, smi):
+    """The backward kernel over a batched map, the Fast R-CNN step's pyramid:
+    BATCHED_LEVELS levels of 38x64x512 at 1/16, the rois of every level in
+    one call (batched_bwd_rois), against the batched plain version within
+    BWD_RTOL * max|ref| + BWD_ATOL, float32 and bf16, on a post-ReLU and a
+    few-level (tied) map; dfeat's total equals the non-empty bins' dy.
+    Then the 3-D call, the launch with B = 1: on phase_roi_bwd's BEV map
+    (75x75x512) 25 rois of 14x14 cells tile the map, so no two bins share
+    a cell and every sum is exact; the 3-D call, the 4-D call with B = 1
+    and the plain version give the same dfeat bit for bit, with the rois'
+    frame column at 5 (clamped to 0), in both dtypes and on both maps.
+    Prints the times at 128 rois (kernel alone, wrapper, plain) beside the
+    bound; returns the float32 numbers."""
+    H, W = FEAT_2D
+    L = BATCHED_LEVELS
+    x = torch.randn((L, H, W, 512), generator=gen).cuda()
+    maps = {"sparse": F.relu(x), "levels": (x * 2).round().clamp(0, 4) / 2}
+    rois, check = batched_bwd_rois(gen, L)
+    frames = sorted(set(check[:, 0].int().clamp(0, L - 1).tolist()))
+    if frames != list(range(L)):
+        raise AssertionError("batched rois reach frames %s" % frames)
+    hs, he, ws, we = bin_bounds(check, 7, SCALE_2D, H, W).unbind(1)
+    nonempty = ((he > hs)[:, :, None] & (we > ws)[:, None, :])[..., None]
+    stats = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for kind, m in maps.items():
+            feat = m.to(dtype)
+            out = roi_pool_cuda(feat, check, 7, SCALE_2D)
+            if not torch.equal(out, roi_pool(feat, check, 7, SCALE_2D)):
+                raise AssertionError("roi_pool batched %s %s: kernel != plain"
+                                     % (dtype, kind))
+            dy = torch.rand(out.shape, generator=gen).cuda()
+            got = roi_pool_bwd_cuda(feat, check, out, dy, 7, SCALE_2D)
+            ref = roi_pool_bwd(feat, check, out, dy, 7, SCALE_2D)
+            err = max_err(got, ref)
+            tol = BWD_RTOL * ref.abs().max().item() + BWD_ATOL
+            what = "roi_pool_bwd batched (%d,38,64,512) %s %s rois=%d" % (
+                L, dtype, kind, check.shape[0])
+            if got.shape != feat.shape or not err <= tol:
+                raise AssertionError("%s: max |diff| %g > %g" % (what, err,
+                                                                 tol))
+            mass = got.double().sum().item()
+            want = (dy.double() * nonempty).sum().item()
+            if not abs(mass - want) <= 1e-5 * abs(want):
+                raise AssertionError("%s: dfeat sums to %r, the non-empty "
+                                     "bins' dy to %r" % (what, mass, want))
+            print("%s: max |diff| %g <= %g, mass %.6f of %.6f"
+                  % (what, err, tol, mass, want))
+            if kind != "sparse":
+                continue
+            o = roi_pool_cuda(feat, rois, 7, SCALE_2D)
+            d = torch.rand(o.shape, generator=gen).cuda()
+            scratch = torch.zeros(feat.shape, device="cuda")
+            k = cuda_ms(roi_bwd_entry(feat, rois, o, d, scratch, SCALE_2D))
+            w = cuda_ms(lambda: roi_pool_bwd_cuda(feat, rois, o, d, 7,
+                                                  SCALE_2D))
+            p = cuda_ms(lambda: roi_pool_bwd(feat, rois, o, d, 7, SCALE_2D),
+                        iters=3, warmup=1)
+            b = bound([(nbytes(feat, rois, o, d, scratch),
+                        2 * bin_cells_total(rois, H, W, SCALE_2D) * 512)],
+                      F32_PER_S)
+            stats[dtype] = dict(ms=k, wrapper_ms=w, plain_ms=p, **b)
+            print("roi_pool_bwd batched time %s (%d,38,64,512) rois=128: "
+                  "kernel alone %.4f ms, wrapper %.4f ms (with its dfeat "
+                  "torch.zeros), plain %.4f ms, bound %.4f ms (%s); on [%s]"
+                  % (dtype, L, k, w, p, b["bound_ms"], b["bound_by"], smi))
+    shape = BWD_VIEWS["bev"][0]
+    x3 = torch.randn(shape, generator=gen).cuda()
+    tiles = torch.tensor([[5.0, 112 * i, 112 * j, 112 * i + 104,
+                           112 * j + 104] for i in range(5) for j in range(5)],
+                         device="cuda")
+    for dtype in (torch.float32, torch.bfloat16):
+        for kind, m in (("sparse", F.relu(x3)),
+                        ("levels", (x3 * 2).round().clamp(0, 4) / 2)):
+            feat = m.to(dtype)
+            out = roi_pool_cuda(feat, tiles)
+            dy = torch.rand(out.shape, generator=gen).cuda()
+            ref = roi_pool_bwd(feat, tiles, out, dy)
+            three = roi_pool_bwd_cuda(feat, tiles, out, dy)
+            one = roi_pool_bwd_cuda(feat[None], tiles, out, dy)
+            if not (torch.equal(three, ref) and torch.equal(one[0], ref)):
+                raise AssertionError(
+                    "roi_pool_bwd 3-D %s %s: 3-D %g, B=1 %g off the plain "
+                    "version" % (dtype, kind, max_err(three, ref),
+                                 max_err(one[0], ref)))
+    print("roi_pool_bwd 3-D call (75,75,512), 25 disjoint 14x14-cell rois "
+          "with frame column 5: the 3-D call, the B=1 call and the plain "
+          "version bit for bit, f32 and bf16, sparse and tied maps")
+    return stats[torch.float32]
+
+
+def fast_rcnn_roidb(tmp):
+    """A synthetic VOC tree (4 375x500 JPEGs) and PascalVOC's region-proposal
+    roidb over it, from RPN proposal files of each gt box jittered 16 times
+    and 48 random boxes, with max_classes and max_overlaps."""
+    devkit = synthetic.generate_voc(os.path.join(tmp, "VOCdevkit"),
+                                    num_images=4, seed=SEED + 13)
+    imdb = PascalVOC("trainval", "2007", devkit)
+    rng = np.random.RandomState(SEED + 14)
+    d = os.path.join(devkit, "region_proposals", "RPN", "training")
+    os.makedirs(d)
+    for index in imdb.image_index:
+        gt = imdb._load_pascal_annotation(index)["boxes"].astype(np.float64)
+        xy = rng.uniform(0, 400, (48, 2))
+        boxes = np.vstack([g + rng.uniform(-12, 12, (16, 4)) for g in gt]
+                          + [np.hstack([xy, xy + rng.uniform(16, 200,
+                                                             (48, 2))])])
+        boxes = np.clip(boxes, 0, [499, 374, 499, 374])
+        np.savetxt(os.path.join(d, index + ".txt"),
+                   np.hstack([boxes, rng.rand(len(boxes), 1)]))
+    imdb.roidb_handler = imdb.region_proposal_roidb
+    roidb = imdb.roidb
+    for i, e in enumerate(roidb):
+        e["image_path"] = imdb.image_path_at(i)
+        e["max_classes"] = e["gt_overlaps"].argmax(axis=1)
+        e["max_overlaps"] = e["gt_overlaps"].max(axis=1)
+    return roidb
+
+
+def phase_fast_rcnn(np2d, smi):
+    """faster_rcnn_2d.build_fast_rcnn_train_step at full width (VGG16, fc
+    4096, 21 classes, 2 images of 128 rois a batch, 608x1024 bucket) over
+    fast_rcnn_roidb's proposals, the batches built on the host by
+    data/multiscale (get_minibatch_multiscale, pad_minibatch_multiscale):
+    at SCALES_BASE (1.0,) (2 levels) and under kitti_rcnn.yml (IS_MULTISCALE,
+    SCALES_BASE [1, 2, 3, 4]: 8 levels), float32 and bf16, fresh params
+    each: a warm-up and FAST_RCNN_STEPS timed steps, finite metrics and a
+    positive loss every step, conv1/conv2 bit for bit unchanged and fc6
+    and conv3_1 moved, one forward and one backward ROI launch a step
+    (counts zeroed just before, read just after). Then per pyramid, in
+    float32, one forward and backward through the kernel pair against the
+    plain pair on the same draws: the loss within 1e-6 and every gradient
+    within 1e-4 of its max. Each run starts from a device copy of one
+    conversion of np2d. Returns (launches, {(levels, dtype): p50})."""
+    total, p50 = {}, {}
+    start = params_from_jax(np2d, device="cuda")
+    with tempfile.TemporaryDirectory() as tmp, saved_cfg(tmp):
+        roidb = fast_rcnn_roidb(tmp)
+        for yml in (None, KITTI_RCNN_YML):
+            if yml:
+                cfg_from_file(yml)
+            levels = len(cfg.TRAIN.SCALES_BASE) * FAST_RCNN_IMS
+            MS.add_bbox_regression_targets(roidb, 21)
+            rng = np.random.RandomState(SEED + 15)
+            batches = []
+            for i in range(1 + FAST_RCNN_STEPS):
+                entries = [roidb[(FAST_RCNN_IMS * i + j) % len(roidb)]
+                           for j in range(FAST_RCNN_IMS)]
+                blobs = MS.get_minibatch_multiscale(entries, 21, rng=rng)
+                batches.append({k: torch.from_numpy(v).cuda() for k, v in
+                                MS.pad_minibatch_multiscale(
+                                    blobs, BUCKET_2D,
+                                    cfg.TRAIN.BATCH_SIZE).items()})
+            b0 = batches[0]
+            used = sorted(set(b0["rois"][b0["roi_valid"], 0].int().tolist()))
+            if b0["data"].shape != (levels, *BUCKET_2D, 3) or \
+                    not (b0["labels"] > 0).any():
+                raise AssertionError("fast rcnn %d levels: batch %s, %d fg"
+                                     % (levels, tuple(b0["data"].shape),
+                                        int((b0["labels"] > 0).sum())))
+            draw_args = (cfg.TRAIN.BATCH_SIZE, 4096, 0.5, "cuda")
+            for name, dtype in (("f32", None), ("bf16", torch.bfloat16)):
+                params = copy.deepcopy(start)
+                frozen = {k: [t.detach().clone()
+                              for t in params[k].parameters()]
+                          for k in ("conv1_1", "conv1_2", "conv2_1",
+                                    "conv2_2")}
+                watch = {k: params[k].weight.detach().clone()
+                         for k in ("conv3_1", "fc6")}
+                step, make_opt = F2.build_fast_rcnn_train_step(
+                    lr=cfg.TRAIN.LEARNING_RATE, momentum=cfg.TRAIN.MOMENTUM,
+                    stepsize=cfg.TRAIN.STEPSIZE, gamma=cfg.TRAIN.GAMMA,
+                    compute_dtype=dtype)
+                opt, sched = make_opt(params)
+                gen = torch.Generator(device="cuda").manual_seed(SEED + 16)
+                zero_all_launches()
+                results = []
+                for batch in batches:
+                    m, ms = timed(step, params, opt, sched, batch,
+                                  F2.make_draws_fast_rcnn(gen, *draw_args))
+                    if not (all(torch.isfinite(v) for v in m.values())
+                            and m["loss"].item() > 0):
+                        raise AssertionError("fast rcnn %d levels %s: "
+                                             "metrics %s" % (
+                                                 levels, name,
+                                                 {k: v.item() for k, v
+                                                  in m.items()}))
+                    results.append((m["loss"].item(), ms))
+                launches = all_launches()
+                want = dict(dict.fromkeys(launches, 0),
+                            roi_pool=len(batches), roi_pool_bwd=len(batches))
+                if launches != want:
+                    raise AssertionError("fast rcnn %d levels %s launched %s "
+                                         "!= %s" % (levels, name, launches,
+                                                    want))
+                add_launches(total, launches)
+                moved = [k for k in frozen if not all(
+                    torch.equal(a, b) for a, b in zip(params[k].parameters(),
+                                                      frozen[k]))]
+                still = [k for k, w in watch.items()
+                         if torch.equal(params[k].weight, w)]
+                if moved or still:
+                    raise AssertionError("fast rcnn %s: frozen layers moved "
+                                         "%s, trained layers still %s"
+                                         % (name, moved, still))
+                times = [ms for _, ms in results[1:]]
+                p50[(levels, name)] = float(np.median(times))
+                print("fast rcnn step %d levels %s 608x1024 (rois of levels "
+                      "%s): p50 %.3f ms/step over %d steps (%s) after a %.3f "
+                      "ms warm-up; losses %s; conv1/conv2 bit for bit "
+                      "unchanged; on [%s]" % (
+                          levels, name, used, p50[(levels, name)],
+                          FAST_RCNN_STEPS, ", ".join("%.3f" % t
+                                                     for t in times),
+                          results[0][1],
+                          ", ".join("%.4f" % v for v, _ in results), smi))
+                del params, opt, step
+            draws = F2.make_draws_fast_rcnn(
+                torch.Generator(device="cuda").manual_seed(1), *draw_args)
+            grads = {}
+            for name, pool in (("kernel", roi_pool_train),
+                               ("plain", roi_pool_train_plain)):
+                params = copy.deepcopy(start)
+                loss = F2.build_fast_rcnn_forward_losses(pool=pool)(
+                    params, b0, draws)["loss"]
+                loss.backward()
+                grads[name] = (loss.item(), {
+                    k: p.grad for k, p in params.named_parameters()
+                    if p.grad is not None})
+                del params, loss
+            (loss_k, g_k), (loss_p, g_p) = grads["kernel"], grads["plain"]
+            if not abs(loss_k - loss_p) <= 1e-6 * abs(loss_p) \
+                    or set(g_k) != set(g_p):
+                raise AssertionError("fast rcnn %d levels loss: kernel pair "
+                                     "%r, plain pair %r" % (levels, loss_k,
+                                                            loss_p))
+            worst = 0.0
+            for k, g in g_p.items():
+                err, scale = max_err(g_k[k], g), g.abs().max().item()
+                if not err <= 1e-4 * scale:
+                    raise AssertionError("fast rcnn %d levels gradient of %s: "
+                                         "max |diff| %g > 1e-4 * %g"
+                                         % (levels, k, err, scale))
+                worst = max(worst, err / scale if scale else 0.0)
+            print("f32 fast rcnn step %d levels through the kernel pair vs "
+                  "the plain pair: loss %.7f vs %.7f; worst gradient max "
+                  "|diff| / max |g| %.3g over %d tensors" % (
+                      levels, loss_k, loss_p, worst, len(g_p)))
+            del grads
+    return total, p50
+
+
+_ALT_OPT_TRAIN = """
+import json, sys
+import chip_smoke as C
+from mv3d_tf_tpu_torch.data.kitti import get_imdb
+from mv3d_tf_tpu_torch.tools import train_net
+devkit, tmp = sys.argv[1:3]
+# the proposal roidb, picked as the JAX package's tests pick it
+imdb = get_imdb("voc_2007_trainval", devkit_path=devkit)
+imdb.roidb_handler = imdb.region_proposal_roidb
+C.zero_all_launches()
+train_net.main(["--network", "VGGnet_train", "--imdb", "voc_2007_trainval",
+                "--devkit_path", devkit, "--iters", "2", "--set", "ROOT_DIR",
+                tmp, "DATA_DIR", tmp + "/data", "TRAIN.DISPLAY", "1"])
+launches = C.all_launches()
+bad = [m for m in sys.modules if m.split(".")[0] in
+       ("jax", "jaxlib", "mv3d_tf_tpu")]
+assert not bad, "loaded: %s" % bad
+print("launches " + json.dumps(launches))
+"""
+
+
+def phase_alt_opt(np2d, smi):
+    """The alternating-optimisation flow on a synthetic VOC tree (4 375x500
+    JPEGs) at full width: rpn_generate.imdb_proposals_det over the
+    trainval split (bf16 RPN, He weights) writes one proposal file an
+    image; in a subprocess that loads nothing of jax or the JAX package,
+    PascalVOC.region_proposal_roidb reads them (set as the imdb's
+    roidb_handler) and tools.train_net --network VGGnet_train trains Fast
+    R-CNN 2 iterations with the shipped config (TRAIN.HAS_RPN off, bf16),
+    writing a snapshot; tools.test_net --network VGGnet_test evaluates that
+    snapshot over the test split. Each run's launches are zeroed just
+    before and read just after (in the subprocess by itself): none for the
+    proposals, 1 forward and 1 backward an iteration, 1 forward an image.
+    Returns the counts."""
+    total = {}
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp, saved_cfg(tmp):
+        devkit = synthetic.generate_voc(os.path.join(tmp, "VOCdevkit"),
+                                        num_images=4, seed=SEED + 17)
+        imdb = PascalVOC("trainval", "2007", devkit)
+        params = params_from_jax(np2d, device="cuda")
+        zero_all_launches()
+        t0 = time.perf_counter()
+        dets = rpn_generate.imdb_proposals_det(params, imdb, log=None,
+                                               compute_dtype=torch.bfloat16)
+        secs = time.perf_counter() - t0
+        launches = all_launches()
+        if any(launches.values()):
+            raise AssertionError("rpn_generate launched %s" % launches)
+        del params
+        d = os.path.join(devkit, "region_proposals", "RPN", "training")
+        os.makedirs(d)
+        for index, rows in zip(imdb.image_index, dets):
+            if not (len(rows) and np.isfinite(rows).all()):
+                raise AssertionError("proposals of %s: %s" % (index,
+                                                               rows.shape))
+            np.savetxt(os.path.join(d, index + ".txt"), rows)
+        print("rpn_generate.imdb_proposals_det bf16: %d images, %s proposals "
+              "each, %.2f s" % (len(dets), [len(r) for r in dets], secs))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", _ALT_OPT_TRAIN, devkit, tmp], cwd=tmp,
+            env=dict(os.environ, PYTHONPATH=here), capture_output=True,
+            text=True, timeout=600)
+        secs = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError("alt-opt train_net subprocess failed:\n%s"
+                                 % proc.stderr[-4000:])
+        lines = proc.stdout.splitlines()
+        for line in lines:
+            if line.startswith(("iter: ", "Wrote snapshot", "Loaded dataset")) \
+                    or line.endswith("roidb entries"):
+                print(line)
+        launches = json.loads(lines[-1][len("launches "):])
+        want = dict(dict.fromkeys(launches, 0), roi_pool=2, roi_pool_bwd=2)
+        if launches != want:
+            raise AssertionError("alt-opt train_net launched %s != %s"
+                                 % (launches, want))
+        add_launches(total, launches)
+        losses = [float(re.search(r"total loss: (\S+) ", line).group(1))
+                  for line in lines if line.startswith("iter: ")]
+        snap = os.path.join(tmp, "output", "default", "voc_2007_trainval",
+                            "VGGnet_fast_rcnn_iter_2.pt")
+        if len(losses) != 2 or not np.isfinite(losses).all() \
+                or not os.path.getsize(snap):
+            raise AssertionError("alt-opt train_net: losses %s" % losses)
+        print("tools.train_net VGGnet_train over region proposals, HAS_RPN "
+              "off, 2 iterations (subprocess, no jax): %.2f s, losses %s, "
+              "snapshot %.0f MB, launches %s, on [%s]" % (
+                  secs, losses, os.path.getsize(snap) / 1e6,
+                  {k: v for k, v in launches.items() if v}, smi))
+        zero_all_launches()
+        t0 = time.perf_counter()
+        aps, _ = printed_lines(test_net.main, [
+            "--network", "VGGnet_test", "--imdb", "voc_2007_test",
+            "--weights", snap, "--devkit_path", devkit])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = all_launches()
+        want = dict(dict.fromkeys(launches, 0), roi_pool=4)
+        if launches != want or len(aps) != 20 or not all(
+                0.0 <= v <= 1.0 for v in aps.values()):
+            raise AssertionError("alt-opt test_net: launches %s, APs %s"
+                                 % (launches, aps))
+        add_launches(total, launches)
+        print("tools.test_net VGGnet_test on the Fast R-CNN snapshot, 4 "
+              "images: %.2f s, VOC mean AP %.4f (random weights), launches "
+              "%s, on [%s]" % (secs, np.mean(list(aps.values())),
+                               {k: v for k, v in launches.items() if v}, smi))
+    return total
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; "
@@ -3113,9 +3514,21 @@ def main():
     del np2d
     clis_2d = phase_clis_2d(smi)
     print("the legacy 2D phases: %.1f s" % (time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    phase_roi_bwd_batched(gen, smi)
+    t1 = time.perf_counter()
+    np2d = he_normal_params_2d(SEED)
+    fast_rcnn, _ = phase_fast_rcnn(np2d, smi)
+    t2 = time.perf_counter()
+    alt_opt = phase_alt_opt(np2d, smi)
+    del np2d
+    t3 = time.perf_counter()
+    print("the Fast R-CNN phases: %.1f s (the batched gradient %.1f, the "
+          "steps %.1f, the alternating-optimisation flow %.1f)"
+          % (t3 - t0, t1 - t0, t2 - t1, t3 - t2))
     new_paths = {}
     for counts in (fused, clis, trained, demo, accuracy, tools, detect_2d,
-                   train_2d, clis_2d):
+                   train_2d, clis_2d, fast_rcnn, alt_opt):
         add_launches(new_paths, counts)
     loaded = [m for m in sys.modules
               if m.split(".")[0] in ("jax", "jaxlib", "mv3d_tf_tpu")]
@@ -3126,7 +3539,8 @@ def main():
     # read_lidar run, the scan-to-detections run, the int8 detector's run,
     # the s2d_fused detectors' run, the evaluation CLIs' runs, the
     # train_net runs, the demo's runs, the accuracy_eval and tools runs,
-    # and the 2D detector's, train step's and CLIs' runs
+    # the 2D detector's, train step's and CLIs' runs, and the Fast R-CNN
+    # steps' and the alternating-optimisation flow's runs
     print(json.dumps({"kernels": [
         {"name": "roi_pool", "route": "cuda", "source": ROI_SOURCE,
          "replaces": "mv3d_tf_tpu/ops/roi_pool_pallas.py:71",

@@ -1,5 +1,8 @@
-// Gradient of ROI max-pooling w.r.t. a single-frame NHWC feature map, with
-// float32 or bfloat16 features and float32 dy and dfeat.
+// Gradient of ROI max-pooling w.r.t. an NHWC feature map of B frames
+// (B = 1 for a single frame), with float32 or bfloat16 features and float32
+// dy and dfeat. A roi's frame is its column 0, truncated and clamped to
+// [0, B-1] (csrc/roi_bin.cuh, as in the forward); rois of every frame may
+// come in one call, in any order.
 //
 // Replaces the TPU kernel mv3d_tf_tpu/ops/roi_pool_pallas.py:
 // roi_pool_pallas_bwd (pl.pallas_call at :461). It computes what that kernel
@@ -199,17 +202,19 @@ __global__ void __launch_bounds__(kMaxThreads)
                         const float* __restrict__ rois,
                         const T* __restrict__ out,
                         const float* __restrict__ dy,
-                        float* __restrict__ dfeat, int H, int W, int C,
-                        int pooled, float scale, int L) {
+                        float* __restrict__ dfeat, int B, int H, int W,
+                        int C, int pooled, float scale, int L) {
   constexpr int V = sizeof(P) / sizeof(T);
   extern __shared__ int part[];   // [thread][V] tie counts
-  const RoiBin b = flat_bin(rois, blockIdx.x, pooled, scale, 1, H, W);
+  const RoiBin b = flat_bin(rois, blockIdx.x, pooled, scale, B, H, W);
   const int n = bin_cells(b);
   if (n == 0) return;   // an empty bin: no cell, no gradient
   const int S = blockDim.x / L;
   const int slice = threadIdx.x / L, lane = threadIdx.x - slice * L;
   const int CV = C / V;
-  const P* f = reinterpret_cast<const P*>(feat);
+  const size_t frame = (size_t)b.frame * H * W;   // the frame's first cell
+  const P* f = reinterpret_cast<const P*>(feat) + frame * CV;
+  dfeat += frame * C;
   for (int c0 = 0; c0 < CV; c0 += L) {   // once, unless CV > kMaxThreads
     const int cv = c0 + lane;
     const bool on = cv < CV;
@@ -242,7 +247,8 @@ __global__ void __launch_bounds__(kMaxThreads)
 
 template <typename T, typename P>
 int launch_as(const void* feat, const float* rois, const void* out,
-              const float* dy, float* dfeat, int H, int W, int C, int R,
+              const float* dy, float* dfeat, int B, int H, int W, int C,
+              int R,
               int pooled, float scale, cudaStream_t stream) {
   constexpr int V = sizeof(P) / sizeof(T);
   const int CV = C / V;
@@ -253,21 +259,21 @@ int launch_as(const void* feat, const float* rois, const void* out,
   if (grid > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
   roi_pool_bwd_kernel<T, P><<<(unsigned)grid, threads,
                               threads * V * sizeof(int), stream>>>(
-      (const T*)feat, rois, (const T*)out, dy, dfeat, H, W, C, pooled, scale,
-      L);
+      (const T*)feat, rois, (const T*)out, dy, dfeat, B, H, W, C, pooled,
+      scale, L);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch(const void* feat, const float* rois, const void* out,
-           const float* dy, float* dfeat, int H, int W, int C, int R,
+           const float* dy, float* dfeat, int B, int H, int W, int C, int R,
            int pooled, float scale, void* stream) {
   const bool packed = C % (16 / sizeof(T)) == 0 &&
                       ((uintptr_t)feat | (uintptr_t)out | (uintptr_t)dy |
                        (uintptr_t)dfeat) % 16 == 0;
-  return packed ? launch_as<T, uint4>(feat, rois, out, dy, dfeat, H, W, C, R,
-                                      pooled, scale, (cudaStream_t)stream)
-                : launch_as<T, T>(feat, rois, out, dy, dfeat, H, W, C, R,
+  return packed ? launch_as<T, uint4>(feat, rois, out, dy, dfeat, B, H, W, C,
+                                      R, pooled, scale, (cudaStream_t)stream)
+                : launch_as<T, T>(feat, rois, out, dy, dfeat, B, H, W, C, R,
                                   pooled, scale, (cudaStream_t)stream);
 }
 
@@ -275,17 +281,18 @@ int launch(const void* feat, const float* rois, const void* out,
 
 extern "C" int mv3d_roi_pool_bwd_f32(const void* feat, const float* rois,
                                      const void* out, const float* dy,
-                                     float* dfeat, int H, int W, int C, int R,
-                                     int pooled, float scale, void* stream) {
-  return launch<float>(feat, rois, out, dy, dfeat, H, W, C, R, pooled, scale,
-                       stream);
+                                     float* dfeat, int B, int H, int W, int C,
+                                     int R, int pooled, float scale,
+                                     void* stream) {
+  return launch<float>(feat, rois, out, dy, dfeat, B, H, W, C, R, pooled,
+                       scale, stream);
 }
 
 extern "C" int mv3d_roi_pool_bwd_bf16(const void* feat, const float* rois,
                                       const void* out, const float* dy,
-                                      float* dfeat, int H, int W, int C,
-                                      int R, int pooled, float scale,
+                                      float* dfeat, int B, int H, int W,
+                                      int C, int R, int pooled, float scale,
                                       void* stream) {
-  return launch<__nv_bfloat16>(feat, rois, out, dy, dfeat, H, W, C, R, pooled,
-                               scale, stream);
+  return launch<__nv_bfloat16>(feat, rois, out, dy, dfeat, B, H, W, C, R,
+                               pooled, scale, stream);
 }

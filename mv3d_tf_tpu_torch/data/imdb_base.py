@@ -1,12 +1,9 @@
 """The image-database base of mv3d_tf_tpu/data/imdb_base.py (the
 reference's lib/datasets/imdb.py): the lazy cached roidb, its cache path,
-proposal recall and box-list roidb construction. Host code in numpy; the
-box overlaps are the port's ops/iou.bbox_overlaps on CPU tensors.
-
-Flip augmentation, ``evaluate_proposals`` and ``merge_roidbs`` serve only
-the Fast R-CNN path over precomputed proposals (the MV3D and the 2D
-end-to-end training loops do not flip) and wait for it (ROADMAP.md,
-Queue 1 item 8).
+horizontal flip augmentation, proposal recall (both the imdb and the
+SubCNN form), box-list roidb construction and roidb merging. Host code in
+numpy; the box overlaps are the port's ops/iou.bbox_overlaps on CPU
+tensors.
 """
 
 import os
@@ -17,6 +14,10 @@ import torch
 
 from mv3d_tf_tpu_torch.config import cfg
 from mv3d_tf_tpu_torch.ops.iou import bbox_overlaps as _bbox_overlaps
+
+
+# np.trapz became np.trapezoid in numpy 2.0 (same sum)
+_trapezoid = getattr(np, "trapezoid", None) or np.trapz
 
 
 def bbox_overlaps(boxes, query_boxes):
@@ -81,6 +82,29 @@ class Imdb:
     def image_path_at(self, i):
         raise NotImplementedError
 
+    def _image_width(self, i):
+        from PIL import Image
+        with Image.open(self.image_path_at(i)) as im:
+            return im.size[0]
+
+    def append_flipped_images(self):
+        """Double the roidb with horizontally flipped entries
+        (imdb.py:104-119)."""
+        for i in range(self.num_images):
+            entry = self.roidb[i]
+            width = self._image_width(i)
+            boxes = entry["boxes"].copy()
+            oldx1 = boxes[:, 0].copy()
+            oldx2 = boxes[:, 2].copy()
+            boxes[:, 0] = width - oldx2 - 1
+            boxes[:, 2] = width - oldx1 - 1
+            assert (boxes[:, 2] >= boxes[:, 0]).all()
+            flipped = dict(entry)
+            flipped["boxes"] = boxes
+            flipped["flipped"] = True
+            self.roidb.append(flipped)
+        self._image_index = self._image_index * 2
+
     def evaluate_recall(self, candidate_boxes=None, thresholds=None,
                         area="all", limit=None):
         """Proposal recall against gt at IoU thresholds (imdb.py:121-209,
@@ -125,6 +149,42 @@ class Imdb:
         return {"ar": recalls.mean(), "recalls": recalls,
                 "thresholds": thresholds, "gt_overlaps": gt_overlaps}
 
+    def evaluate_proposals(self, candidate_boxes, ar_thresh=0.5):
+        """Average recall of proposals, the SubCNN form
+        (lib/datasets/imdb2.py:161-201): greedy one-to-one box-gt matching
+        per image, recall over the thresholds ar_thresh:0.001:1.0, and
+        AR = 2 * the trapezoid integral. An image without candidates adds
+        no gt (imdb2.py:170-171). Returns (ar, gt_overlaps, recalls,
+        thresholds)."""
+        gt_overlaps = np.zeros(0)
+        for i in range(self.num_images):
+            entry = self.roidb[i]
+            gt_inds = np.where(entry["gt_classes"] > 0)[0]
+            gt_boxes = entry["boxes"][gt_inds]
+            boxes = candidate_boxes[i]
+            if boxes.shape[0] == 0:
+                continue
+            overlaps = bbox_overlaps(boxes.astype(np.float32),
+                                     gt_boxes.astype(np.float32))
+            _gt_overlaps = np.zeros(gt_boxes.shape[0])
+            for j in range(gt_boxes.shape[0]):
+                argmax_overlaps = overlaps.argmax(axis=0)
+                max_overlaps = overlaps.max(axis=0)
+                gt_ind = max_overlaps.argmax()
+                box_ind = argmax_overlaps[gt_ind]
+                _gt_overlaps[j] = overlaps[box_ind, gt_ind]
+                overlaps[box_ind, :] = -1
+                overlaps[:, gt_ind] = -1
+            gt_overlaps = np.hstack((gt_overlaps, _gt_overlaps))
+        num_pos = gt_overlaps.size
+        gt_overlaps = np.sort(gt_overlaps)
+        step = 0.001
+        thresholds = np.minimum(np.arange(ar_thresh, 1.0 + step, step), 1.0)
+        recalls = np.array([(gt_overlaps >= t).sum() / float(max(num_pos, 1))
+                            for t in thresholds])
+        ar = 2 * _trapezoid(recalls, thresholds)
+        return ar, gt_overlaps, recalls, thresholds
+
     def create_roidb_from_box_list(self, box_list, gt_roidb):
         """Proposal boxes and gt -> roidb entries with overlap matrices
         (imdb.py:211-238)."""
@@ -150,3 +210,16 @@ class Imdb:
                 "flipped": False,
             })
         return roidb
+
+    @staticmethod
+    def merge_roidbs(a, b):
+        """Concatenate the box sets of two aligned roidbs into a
+        (imdb.py:240-250)."""
+        assert len(a) == len(b)
+        for i in range(len(a)):
+            a[i]["boxes"] = np.vstack((a[i]["boxes"], b[i]["boxes"]))
+            a[i]["gt_classes"] = np.hstack((a[i]["gt_classes"],
+                                            b[i]["gt_classes"]))
+            a[i]["gt_overlaps"] = np.vstack((a[i]["gt_overlaps"],
+                                             b[i]["gt_overlaps"]))
+        return a

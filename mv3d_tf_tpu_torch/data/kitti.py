@@ -261,17 +261,31 @@ def get_imdb(name, kitti_path=None, devkit_path=None):
     """datasets.factory.get_imdb (lib/datasets/factory.py:29-85, the JAX
     package's data/kitti.py:299-336): kitti_{train,val,trainval,test},
     kitti_raw_<sequence> (a sequence directory under kitti_path,
-    data/kitti_raw.py), kitti2d_<split> (data/kitti_2d.py, under kitti_path)
-    and voc_<year>_<split> (data/pascal_voc.py, under devkit_path); one
-    instance per name and data root (the JAX package keys by name alone, so
-    a second root would get the first one's imdb)."""
-    root = kitti_path if not name.startswith("voc_") else devkit_path
+    data/kitti_raw.py), kitti_tracking_<split>_<sequence> (under
+    kitti_path), kitti2d_<split> (data/kitti_2d.py, under kitti_path),
+    voc_<year>_<split> (data/pascal_voc.py, under devkit_path),
+    coco_<year>_<split> and nissan / nthu (under kitti_path, else
+    devkit_path), pascal3d_<split> and imagenet3d_<split> (under
+    devkit_path; data/extra_datasets.py); one instance per name and data
+    root (the JAX package keys by name alone, so a second root would get
+    the first one's imdb)."""
+    if name.startswith(("voc_", "pascal3d_", "imagenet3d_")):
+        root = devkit_path
+    elif name.startswith("coco_") or name in ("nissan", "nthu"):
+        root = kitti_path or devkit_path
+    else:
+        root = kitti_path
     key = (name, None if root is None else osp.abspath(root))
     if key in _IMDB_FACTORY:
         return _IMDB_FACTORY[key]
     split = name[len("kitti_"):] if name.startswith("kitti_") else None
+    # the kitti_raw_ and kitti_tracking_ names come before the kitti_ splits
     if name.startswith("kitti_raw_"):
         imdb = KittiRaw(name[len("kitti_raw_"):], root=kitti_path)
+    elif name.startswith("kitti_tracking_"):
+        from mv3d_tf_tpu_torch.data.extra_datasets import KittiTracking
+        _, _, image_set, seq = name.split("_", 3)
+        imdb = KittiTracking(image_set, seq, root=root)
     elif name.startswith("kitti2d_"):
         from mv3d_tf_tpu_torch.data.kitti_2d import Kitti2D
         imdb = Kitti2D(name[len("kitti2d_"):], kitti_path=kitti_path)
@@ -281,12 +295,25 @@ def get_imdb(name, kitti_path=None, devkit_path=None):
         from mv3d_tf_tpu_torch.data.pascal_voc import PascalVOC
         _, year, image_set = name.split("_", 2)
         imdb = PascalVOC(image_set, year, devkit_path)
+    elif name.startswith("coco_"):
+        from mv3d_tf_tpu_torch.data.extra_datasets import Coco
+        _, year, image_set = name.split("_", 2)
+        imdb = Coco(image_set, year, data_path=root)
+    elif name.startswith("pascal3d_"):
+        from mv3d_tf_tpu_torch.data.extra_datasets import Pascal3D
+        imdb = Pascal3D(name[len("pascal3d_"):], root)
+    elif name.startswith("imagenet3d_"):
+        from mv3d_tf_tpu_torch.data.extra_datasets import Imagenet3D
+        imdb = Imagenet3D(name[len("imagenet3d_"):], root)
+    elif name in ("nissan", "nthu"):
+        from mv3d_tf_tpu_torch.data.extra_datasets import ImageListDataset
+        imdb = ImageListDataset(name, image_dir=root)
     else:
         raise KeyError(
-            "unknown dataset {!r}: the port reads kitti_{{{}}}, "
-            "kitti_raw_<sequence>, kitti2d_<split> and voc_<year>_<split>; "
-            "the JAX package's other datasets (kitti_tracking, coco, "
-            "pascal3d, imagenet3d, nissan, nthu) are not ported (ROADMAP.md, "
-            "Queue 1 item 9)".format(name, ",".join(KITTI_SPLITS)))
+            "Unknown dataset: {} (kitti_{{{}}}, kitti_raw_<sequence>, "
+            "kitti_tracking_<split>_<sequence>, kitti2d_<split>, "
+            "voc_<year>_<split>, coco_<year>_<split>, pascal3d_<split>, "
+            "imagenet3d_<split>, nissan, nthu)".format(
+                name, ",".join(KITTI_SPLITS)))
     _IMDB_FACTORY[key] = imdb
     return imdb

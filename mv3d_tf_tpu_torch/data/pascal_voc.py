@@ -1,10 +1,10 @@
 """PASCAL VOC for the legacy 2D path (mv3d_tf_tpu/data/pascal_voc.py, the
 reference's lib/datasets/pascal_voc.py and voc_eval.py): the VOC<year>
 layout, XML annotations, VOC result files and the per-class AP (11-point
-before 2010, area under the curve after), host-side numpy.
-
-The proposal roidbs (region proposals, selective search) serve the Fast
-R-CNN path over precomputed proposals and wait for it (ROADMAP.md).
+before 2010, area under the curve after), host-side numpy; and the
+proposal roidbs the Fast R-CNN path trains over: region proposals (the
+text files of rpn_generate.imdb_proposals_det) and selective search (the
+.mat files).
 """
 
 import os
@@ -14,7 +14,8 @@ import xml.etree.ElementTree as ET
 
 import numpy as np
 
-from mv3d_tf_tpu_torch.data.imdb_base import Imdb
+from mv3d_tf_tpu_torch.config import cfg
+from mv3d_tf_tpu_torch.data.imdb_base import Imdb, bbox_overlaps
 
 VOC_CLASSES = ("__background__",
                "aeroplane", "bicycle", "bird", "boat", "bottle", "bus",
@@ -81,6 +82,109 @@ class PascalVOC(Imdb):
             overlaps[ix, cls] = 1.0
         return {"boxes": boxes, "gt_classes": gt_classes,
                 "gt_overlaps": overlaps, "flipped": False}
+
+    # -- proposal roidbs (pascal_voc2.py:432-586, the SubCNN variant) -----
+
+    def region_proposal_roidb(self):
+        """gt and precomputed region proposals in one roidb
+        (pascal_voc2.py:432-469). The proposals are the per-image text
+        files <devkit>/region_proposals/<cfg.REGION_PROPOSAL>/
+        {training,testing}/<index>.txt of rows [x1 y1 x2 y2 score], as
+        rpn_generate.imdb_proposals_det writes them. Cached as a pickle."""
+        cache_file = osp.join(
+            self.cache_path, "{}_{}_region_proposal_roidb.pkl".format(
+                self.name, cfg.REGION_PROPOSAL))
+        if osp.exists(cache_file):
+            with open(cache_file, "rb") as fid:
+                return pickle.load(fid)
+        if self._image_set != "test":
+            gt = self.gt_roidb()
+            roidb = Imdb.merge_roidbs(
+                self._load_rpn_roidb(gt, cfg.REGION_PROPOSAL), gt)
+        else:
+            roidb = self._load_rpn_roidb(None, cfg.REGION_PROPOSAL)
+        with open(cache_file, "wb") as fid:
+            pickle.dump(roidb, fid, pickle.HIGHEST_PROTOCOL)
+        return roidb
+
+    def _load_rpn_roidb(self, gt_roidb, model):
+        """One image's proposal file each (pascal_voc2.py:470-500); boxes
+        with x2 <= x1 or y2 <= y1 are dropped, as the reference drops
+        them."""
+        prefix = osp.join(model, "testing" if self._image_set == "test"
+                          else "training")
+        box_list = []
+        for index in self._image_index:
+            filename = osp.join(self._devkit_path, "region_proposals",
+                                prefix, index + ".txt")
+            assert osp.exists(filename), \
+                "RPN data not found at: {}".format(filename)
+            raw = np.loadtxt(filename, dtype=float)
+            if raw.ndim == 1:
+                raw = raw.reshape((0, 5) if raw.size == 0 else (1, 5))
+            keep = np.where((raw[:, 2] > raw[:, 0])
+                            & (raw[:, 3] > raw[:, 1]))[0]
+            box_list.append(raw[keep, :4])
+        return self.create_roidb_from_box_list(box_list, gt_roidb)
+
+    def selective_search_roidb(self):
+        """gt and the selective-search proposals of
+        <devkit>/selective_search_data/<name>.mat in one roidb
+        (pascal_voc2.py:502-528). Cached as a pickle."""
+        cache_file = osp.join(self.cache_path,
+                              self.name + "_selective_search_roidb.pkl")
+        if osp.exists(cache_file):
+            with open(cache_file, "rb") as fid:
+                return pickle.load(fid)
+        if self._image_set != "test":
+            gt = self.gt_roidb()
+            roidb = Imdb.merge_roidbs(
+                self._load_selective_search_roidb(gt), gt)
+        else:
+            roidb = self._load_selective_search_roidb(None)
+        with open(cache_file, "wb") as fid:
+            pickle.dump(roidb, fid, pickle.HIGHEST_PROTOCOL)
+        return roidb
+
+    def _load_selective_search_roidb(self, gt_roidb):
+        """The .mat boxes are [y1 x1 y2 x2], 1-based: reordered with
+        (1,0,3,2), minus 1 (pascal_voc2.py:530-543)."""
+        import scipy.io as sio
+        filename = osp.join(self._devkit_path, "selective_search_data",
+                            self.name + ".mat")
+        assert osp.exists(filename), \
+            "Selective search data not found at: {}".format(filename)
+        raw = sio.loadmat(filename)["boxes"].ravel()
+        box_list = [raw[i][:, (1, 0, 3, 2)] - 1 for i in range(len(raw))]
+        return self.create_roidb_from_box_list(box_list, gt_roidb)
+
+    def evaluate_proposals(self, all_boxes, output_dir=None):
+        """Proposal recall at IoU 0.5 over the gt roidb
+        (pascal_voc2.py:634-649, computed here instead of in MATLAB).
+        all_boxes[cls][im] rows are [x1, y1, x2, y2, score]. Prints and
+        returns the recall."""
+        del output_dir
+        gt_roidb = self.gt_roidb()
+        n_gt = 0
+        n_hit = 0
+        for i, entry in enumerate(gt_roidb):
+            gt = entry["boxes"].astype(np.float32)
+            if len(gt) == 0:
+                continue
+            props = np.vstack([
+                np.asarray(all_boxes[c][i]).reshape(-1, 5)[:, :4]
+                for c in range(1, self.num_classes)
+                if len(all_boxes[c][i])]) if self.num_classes > 1 else \
+                np.zeros((0, 4), np.float32)
+            n_gt += len(gt)
+            if len(props) == 0:
+                continue
+            ov = bbox_overlaps(gt, props.astype(np.float32))
+            n_hit += int((ov.max(axis=1) >= 0.5).sum())
+        recall = n_hit / max(n_gt, 1)
+        print("proposal recall@0.5: {:.4f} ({}/{})".format(
+            recall, n_hit, n_gt))
+        return recall
 
     def _results_file_template(self):
         d = osp.join(self._devkit_path, "results", "VOC" + self._year, "Main")

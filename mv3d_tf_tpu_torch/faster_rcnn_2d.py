@@ -1,6 +1,8 @@
 """The legacy 2D Faster R-CNN stages (mv3d_tf_tpu/faster_rcnn_2d.py): the
 proposal layer, both target layers, im_detect, the 4-term loss, the
-momentum-SGD train step and the snapshot unnormalization, on tensors.
+momentum-SGD train steps (end to end, and Fast R-CNN over precomputed
+proposals on an image pyramid) and the snapshot unnormalization, on
+tensors.
 
 The JAX module implements the canonical py-faster-rcnn semantics (classic
 bbox_transform decode, 2D anchor targets), not the reference's broken 2D
@@ -15,9 +17,10 @@ have one shape, so they are the same numbers (faster_rcnn_2d.py:147-161).
 
 The ROI pools run the hand kernels on a card: ``roi_pool_fast`` in
 im_detect, ``roi_pool_train`` (forward and gradient kernel, the even split
-of dy among tied cells) in the train step; JAX pools with its XLA
-roi_pool, the same function. The head runs in float32 whatever the trunk's
-dtype.
+of dy among tied cells) in the train steps, over one frame end to end and
+over the batched pyramid levels in the Fast R-CNN step; JAX pools with its
+XLA roi_pool, the same function. The head runs in float32 whatever the
+trunk's dtype.
 """
 
 import functools
@@ -233,6 +236,22 @@ def compute_losses_2d(rpn_cls_score, rpn_bbox_pred, rpn_labels,
         smooth_l1(deltas - rpn_bbox_targets).sum(dim=1),
         (rpn_labels == 1).float())
 
+    cross_entropy, loss_box = rcnn_losses_2d(
+        cls_score, bbox_pred, roi_labels, roi_bbox_targets,
+        bbox_inside_weights, bbox_outside_weights, roi_valid)
+    return {"loss": cross_entropy + loss_box + rpn_cross_entropy
+            + rpn_loss_box,
+            "rpn_cross_entropy": rpn_cross_entropy,
+            "rpn_loss_box": rpn_loss_box, "cross_entropy": cross_entropy,
+            "loss_box": loss_box}
+
+
+def rcnn_losses_2d(cls_score, bbox_pred, roi_labels, roi_bbox_targets,
+                   bbox_inside_weights, bbox_outside_weights, roi_valid):
+    """The head's two terms: CE over the valid rois and the mean over them of
+    sum(outside_w * smoothL1(inside_w * (pred - target)))
+    (faster_rcnn_2d.py:242-250, :360-368). Returns (cross_entropy,
+    loss_box)."""
     rvalid = roi_valid.float()
     rce = F.cross_entropy(cls_score.float(), roi_labels.long(),
                           reduction="none")
@@ -240,12 +259,22 @@ def compute_losses_2d(rpn_cls_score, rpn_bbox_pred, rpn_labels,
     diff = bbox_inside_weights * (bbox_pred.float() - roi_bbox_targets)
     loss_box = _masked_mean(
         (bbox_outside_weights * smooth_l1(diff)).sum(dim=1), rvalid)
+    return cross_entropy, loss_box
 
-    return {"loss": cross_entropy + loss_box + rpn_cross_entropy
-            + rpn_loss_box,
-            "rpn_cross_entropy": rpn_cross_entropy,
-            "rpn_loss_box": rpn_loss_box, "cross_entropy": cross_entropy,
-            "loss_box": loss_box}
+
+def _uniform(generator, device, *shape):
+    return torch.rand(shape, generator=generator,
+                      device=generator.device).to(device)
+
+
+def make_draws_fast_rcnn(generator, rois_per_batch, fc_dim, keep_prob,
+                         device):
+    """The Fast R-CNN step's draws from ``generator``, moved to ``device``:
+    the head's two boolean dropout keep masks (rois_per_batch, fc_dim), the
+    torch counterpart of the JAX step's key (faster_rcnn_2d.py:355,
+    vggnet.py:76)."""
+    return {"drop": tuple(_uniform(generator, device, rois_per_batch,
+                                   fc_dim) < keep_prob for _ in range(2))}
 
 
 def make_draws_2d(generator, n_anchors, n_all, rois_per_image, fc_dim,
@@ -256,14 +285,12 @@ def make_draws_2d(generator, n_anchors, n_all, rois_per_image, fc_dim,
     feat_h * feat_w * 9, n_all = post-NMS proposals + gt rows. Returns
     anchor_fg, anchor_bg (n_anchors,), roi_fg, roi_bg (n_all,) uniforms and
     drop: two boolean keep masks (rois_per_image, fc_dim)."""
-    def uniform(*shape):
-        return torch.rand(shape, generator=generator,
-                          device=generator.device).to(device)
-
-    return {"anchor_fg": uniform(n_anchors), "anchor_bg": uniform(n_anchors),
-            "roi_fg": uniform(n_all), "roi_bg": uniform(n_all),
-            "drop": tuple(uniform(rois_per_image, fc_dim) < keep_prob
-                          for _ in range(2))}
+    draws = {key: _uniform(generator, device, n)
+             for key, n in (("anchor_fg", n_anchors), ("anchor_bg", n_anchors),
+                            ("roi_fg", n_all), ("roi_bg", n_all))}
+    draws.update(make_draws_fast_rcnn(generator, rois_per_image, fc_dim,
+                                      keep_prob, device))
+    return draws
 
 
 def build_forward_losses_2d(feat_h, feat_w, rois_per_image=128,
@@ -336,7 +363,12 @@ def build_train_step_2d(feat_h, feat_w, lr=0.001, momentum=0.9,
         n_classes=n_classes, keep_prob=keep_prob,
         compute_dtype=compute_dtype, bbox_normalize=bbox_normalize,
         pool=pool)
+    return _sgd_step(forward_losses, lr, momentum, stepsize, gamma)
 
+
+def _sgd_step(forward_losses, lr, momentum, stepsize, gamma):
+    """(train_step, make_optimizer) around forward_losses(params, batch,
+    draws), as build_train_step_2d documents them."""
     def make_optimizer(params):
         opt = torch.optim.SGD(vggnet.freeze_2d_grads(params), lr=lr,
                               momentum=momentum, dampening=0)
@@ -351,6 +383,63 @@ def build_train_step_2d(feat_h, feat_w, lr=0.001, momentum=0.9,
         return {k: v.detach() for k, v in metrics.items()}
 
     return train_step, make_optimizer
+
+
+_FAST_RCNN_KEYS = ("data", "rois", "labels", "bbox_targets",
+                   "bbox_inside_weights", "bbox_outside_weights", "roi_valid")
+
+
+def build_fast_rcnn_forward_losses(keep_prob=0.5, compute_dtype=None,
+                                   pool=roi_pool_train):
+    """The Fast R-CNN step's forward and 2-term loss
+    (faster_rcnn_2d.py:346-369). Returns forward_losses(params, batch,
+    draws) -> {"loss", "cross_entropy", "loss_box"} of 0-d tensors.
+
+    batch holds data/multiscale.pad_minibatch_multiscale's arrays (or
+    tensors): data (n_levels, H, W, 3) the pyramid slabs, rois
+    (rois_per_batch, 5) [level, x1, y1, x2, y2], labels, the three
+    (rois_per_batch, 4K) bbox arrays and roi_valid. The trunk runs over all
+    levels at once, ``pool`` (the differentiable ROI pool) over the batched
+    conv5_3 at 1/16, each roi from its level; draws come from
+    make_draws_fast_rcnn."""
+    def forward_losses(params, batch, draws):
+        dev = next(params.parameters()).device
+        b = {k: torch.as_tensor(batch[k], device=dev)
+             for k in _FAST_RCNN_KEYS}
+        c5 = vggnet.trunk_apply_2d(params, b["data"].float(),
+                                   dtype=compute_dtype)
+        pooled = pool(c5, b["rois"].float(), spatial_scale=SPATIAL_SCALE)
+        cls_score, _, bbox_pred = vggnet.head_2d(
+            params, pooled.float(), train=True, masks=draws["drop"],
+            keep_prob=keep_prob)
+        cross_entropy, loss_box = rcnn_losses_2d(
+            cls_score, bbox_pred, b["labels"], b["bbox_targets"].float(),
+            b["bbox_inside_weights"].float(),
+            b["bbox_outside_weights"].float(), b["roi_valid"])
+        return {"loss": cross_entropy + loss_box,
+                "cross_entropy": cross_entropy, "loss_box": loss_box}
+
+    return forward_losses
+
+
+def build_fast_rcnn_train_step(lr=0.001, momentum=0.9, stepsize=50000,
+                               gamma=0.1, keep_prob=0.5, compute_dtype=None,
+                               pool=roi_pool_train):
+    """The Fast R-CNN train step over precomputed proposals, the
+    cfg.TRAIN.HAS_RPN = False branch (faster_rcnn_2d.py:319-382): the
+    image pyramid's levels through the trunk, the host-sampled rois pooled
+    from their levels, the head in train mode, CE plus weighted smooth-L1
+    over the valid rois (no RPN terms), conv1/conv2 frozen, momentum SGD
+    with the staircase decay.
+
+    Returns (train_step, make_optimizer) as build_train_step_2d does, with
+    batch and draws those of build_fast_rcnn_forward_losses. The JAX
+    function also takes n_levels, bucket_hw, rois_per_batch and n_classes
+    and ignores them (its shapes come from the batch); the port takes the
+    shapes from the batch alone."""
+    forward_losses = build_fast_rcnn_forward_losses(
+        keep_prob=keep_prob, compute_dtype=compute_dtype, pool=pool)
+    return _sgd_step(forward_losses, lr, momentum, stepsize, gamma)
 
 
 def snapshot_unnormalize_2d(params, means=(0., 0., 0., 0.),

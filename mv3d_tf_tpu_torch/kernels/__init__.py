@@ -38,10 +38,10 @@ _SIGNATURES = {
     "mv3d_roi_pool_f32": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
     "mv3d_roi_pool_bf16": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
     "mv3d_roi_pool_s8": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
-    "mv3d_roi_pool_bwd_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
-                              _P),
-    "mv3d_roi_pool_bwd_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
-                               _P),
+    "mv3d_roi_pool_bwd_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                              _F, _P),
+    "mv3d_roi_pool_bwd_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                               _F, _P),
     "mv3d_stem_s2d_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "mv3d_stem_s2d_bf16": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "mv3d_bev_place_f32": (_P, _P, _P, _P, _L, _L, _I, _I, _P),

@@ -14,8 +14,9 @@ A batched feature map (B,H,W,C) is indexed by each roi's frame column.
 formula: the CPU tests hold ``bin_bounds`` and the plain pool to the JAX
 package on them, chip_smoke.py the kernels to the plain versions.
 
-The train path's pool (``roi_pool_train``) is single-frame, and its
-gradient is the TPU kernel's even-split equality replay (``roi_pool_bwd``).
+The train path's pool (``roi_pool_train``) takes a single or batched map
+(the Fast R-CNN step pools an image pyramid), and its gradient is the TPU
+kernel's even-split equality replay (``roi_pool_bwd``).
 """
 
 import torch
@@ -140,20 +141,23 @@ def roi_pool_fast(feat, rois, pooled=7, spatial_scale=1.0 / 8):
                      + str(feat.device))
 
 
-def bin_cells(feat, bounds):
+def bin_cells(feat, bounds, frame=None):
     """Every cell of every bin of a block of rois, one (kh, kw) offset into
-    the bins at a time. feat (H,W,C); bounds (r, 4, P) from bin_bounds.
-    Yields (cell (r,P,P) flat index into the (H*W) cells, values (r,P,P,C),
-    inside (r,P,P): whether the offset lies inside that bin), offsets in
-    row-major order."""
+    the bins at a time. feat (H,W,C), or (B,H,W,C) with frame (r,) the
+    rois' frames (from _as_batch); bounds (r, 4, P) from bin_bounds.
+    Yields (cell (r,P,P) flat index into the (B*H*W) cells, values
+    (r,P,P,C), inside (r,P,P): whether the offset lies inside that bin),
+    offsets in row-major order."""
     if bounds.shape[0] == 0:
         return
-    H, W, C = feat.shape
+    f = feat if feat.dim() == 4 else feat[None]
+    B, H, W, C = f.shape
     hs, he, ws, we = bounds.long().unbind(1)              # (r, P) each
     hlen, wlen = he - hs, we - ws
-    flat = feat.reshape(H * W, C)
+    flat = f.reshape(B * H * W, C)
+    base = 0 if frame is None else frame.long()[:, None, None] * (H * W)
     for kh in range(int(hlen.max().clamp(min=0))):
-        rows = (hs + kh).clamp(max=H - 1)[:, :, None] * W
+        rows = base + (hs + kh).clamp(max=H - 1)[:, :, None] * W
         for kw in range(int(wlen.max().clamp(min=0))):
             cell = rows + (ws + kw).clamp(max=W - 1)[:, None, :]
             inside = (kh < hlen)[:, :, None] & (kw < wlen)[:, None, :]
@@ -161,37 +165,42 @@ def bin_cells(feat, bounds):
 
 
 def roi_pool_bwd(feat, rois, out, dy, pooled=7, spatial_scale=1.0 / 8):
-    """Gradient of the ROI max-pool w.r.t. a single-frame map, the plain
-    version of kernel csrc/roi_pool_bwd.cu (roi_pool_pallas.py:333-467).
+    """Gradient of the ROI max-pool w.r.t. a single or batched map, the
+    plain version of kernel csrc/roi_pool_bwd.cu (roi_pool_pallas.py:
+    333-467, which takes one frame).
 
     Equality replay with an even split: the cells of bin (r,ph,pw) whose
     value equals out[r,ph,pw,c] (compared in float32) share
     dy[r,ph,pw,c] * (1 / count) each; overlapping bins and rois add; empty
-    bins, and a NaN max (equal to no cell), give nothing. feat (H,W,C)
-    float32/bfloat16, rois (R,5), out (R,P,P,C) the forward's output, dy
-    (R,P,P,C). Returns dfeat (H,W,C) float32. Rois go in blocks of _CHUNK.
+    bins, and a NaN max (equal to no cell), give nothing. feat (H,W,C) or
+    (B,H,W,C) float32/bfloat16, a roi's frame its column 0 truncated and
+    clamped to [0, B-1] as in the forward (_as_batch); rois (R,5), out
+    (R,P,P,C) the forward's output, dy (R,P,P,C). Returns dfeat in feat's
+    shape, float32. Rois go in blocks of _CHUNK.
     """
-    H, W, C = feat.shape
+    f, frame = _as_batch(feat, rois)
+    B, H, W, C = f.shape
     bounds = bin_bounds(rois, pooled, spatial_scale, H, W)
-    dfeat = torch.zeros((H * W, C), dtype=torch.float32, device=feat.device)
+    dfeat = torch.zeros((B * H * W, C), dtype=torch.float32,
+                        device=feat.device)
     for i in range(0, rois.shape[0], _CHUNK):
-        b = bounds[i:i + _CHUNK]
+        b, fr = bounds[i:i + _CHUNK], frame[i:i + _CHUNK]
         o = out[i:i + _CHUNK].float()
         cnt = torch.zeros_like(o)
-        for _, cells, inside in bin_cells(feat, b):
+        for _, cells, inside in bin_cells(f, b, fr):
             cnt += (inside[..., None] & (cells.float() == o)).float()
         share = dy[i:i + _CHUNK].float() * (1.0 / cnt.clamp(min=1.0))
-        for cell, cells, inside in bin_cells(feat, b):
+        for cell, cells, inside in bin_cells(f, b, fr):
             hit = inside[..., None] & (cells.float() == o)
             dfeat.index_add_(0, cell.reshape(-1),
                              torch.where(hit, share, 0.0).reshape(-1, C))
-    return dfeat.reshape(H, W, C)
+    return dfeat.reshape(feat.shape)
 
 
 class RoIPoolTrain(torch.autograd.Function):
-    """Differentiable single-frame ROI pool. On a CUDA tensor the forward
-    is the ROI kernel and the backward the backward kernel; on a CPU tensor
-    both are the plain versions. rois get no gradient."""
+    """Differentiable ROI pool of a single or batched map. On a CUDA tensor
+    the forward is the ROI kernel and the backward the backward kernel; on
+    a CPU tensor both are the plain versions. rois get no gradient."""
 
     @staticmethod
     def forward(ctx, feat, rois, pooled, spatial_scale):
@@ -219,11 +228,11 @@ class RoIPoolTrain(torch.autograd.Function):
 
 
 def roi_pool_train(feat, rois, pooled=7, spatial_scale=1.0 / 8):
-    """The train path's ROI pool (roi_pool.py:207-223): feat (H,W,C) on a
-    CUDA device (both kernels) or the CPU (both plain versions); any other
-    device raises."""
-    if feat.dim() != 3:
-        raise ValueError("roi_pool_train: feat must be one frame (H,W,C)")
+    """The train path's ROI pool (roi_pool.py:207-223): feat (H,W,C) or
+    (B,H,W,C), a roi's frame its column 0, on a CUDA device (both kernels)
+    or the CPU (both plain versions); any other device raises."""
+    if feat.dim() not in (3, 4):
+        raise ValueError("roi_pool_train: feat must be (H,W,C) or (B,H,W,C)")
     if not (feat.is_cuda or feat.device.type == "cpu"):
         raise ValueError("roi_pool_train: no ROI pool for device "
                          + str(feat.device))

@@ -60,10 +60,11 @@ def roi_pool_bwd_cuda(feat, rois, out, dy, pooled=7, spatial_scale=1.0 / 8):
     """Gradient of the ROI max-pool on the card (csrc/roi_pool_bwd.cu), the
     Hopper replacement of roi_pool_pallas.py:roi_pool_pallas_bwd.
 
-    feat (H,W,C) float32/bfloat16, rois (R,5) float32, out (R,P,P,C) the
-    forward's output in feat's dtype, dy (R,P,P,C) float32, all contiguous
-    on one CUDA device. Returns dfeat (H,W,C) float32. The plain version is
-    ops/roi_pool.py:roi_pool_bwd."""
+    feat (H,W,C) or (B,H,W,C) float32/bfloat16, rois (R,5) float32 with
+    column 0 the frame (a 3-D map is the launch with B = 1), out (R,P,P,C)
+    the forward's output in feat's dtype, dy (R,P,P,C) float32, all
+    contiguous on one CUDA device. Returns dfeat in feat's shape, float32.
+    The plain version is ops/roi_pool.py:roi_pool_bwd."""
     tensors = (feat, rois, out, dy)
     if not all(t.is_cuda and t.device == feat.device for t in tensors):
         raise ValueError("roi_pool_bwd_cuda: inputs must be on one CUDA "
@@ -74,10 +75,10 @@ def roi_pool_bwd_cuda(feat, rois, out, dy, pooled=7, spatial_scale=1.0 / 8):
                                                   feat.dtype, out.dtype))
     if rois.dtype != torch.float32 or dy.dtype != torch.float32:
         raise TypeError("roi_pool_bwd_cuda: rois and dy must be float32")
-    if feat.dim() != 3 or rois.dim() != 2 or rois.shape[1] != 5:
-        raise ValueError("roi_pool_bwd_cuda: feat must be (H,W,C) and rois "
-                         "(R,5)")
-    H, W, C = feat.shape
+    if feat.dim() not in (3, 4) or rois.dim() != 2 or rois.shape[1] != 5:
+        raise ValueError("roi_pool_bwd_cuda: feat must be (H,W,C) or "
+                         "(B,H,W,C) and rois (R,5)")
+    B, H, W, C = feat.shape if feat.dim() == 4 else (1, *feat.shape)
     R = rois.shape[0]
     shape = (R, pooled, pooled, C)
     if tuple(out.shape) != shape or tuple(dy.shape) != shape:
@@ -86,7 +87,7 @@ def roi_pool_bwd_cuda(feat, rois, out, dy, pooled=7, spatial_scale=1.0 / 8):
                                      tuple(dy.shape)))
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("roi_pool_bwd_cuda: inputs must be contiguous")
-    dfeat = torch.zeros((H, W, C), dtype=torch.float32, device=feat.device)
+    dfeat = torch.zeros(feat.shape, dtype=torch.float32, device=feat.device)
     if R == 0 or C == 0:
         return dfeat
     lib = kernels.library()
@@ -94,7 +95,7 @@ def roi_pool_bwd_cuda(feat, rois, out, dy, pooled=7, spatial_scale=1.0 / 8):
         roi_pool_bwd_cuda.launches += 1
         err = getattr(lib, _BWD_ENTRY[feat.dtype])(
             feat.data_ptr(), rois.data_ptr(), out.data_ptr(), dy.data_ptr(),
-            dfeat.data_ptr(), H, W, C, R, pooled, spatial_scale,
+            dfeat.data_ptr(), B, H, W, C, R, pooled, spatial_scale,
             torch.cuda.current_stream().cuda_stream)
     kernels.check(err, "roi_pool_bwd_cuda")
     return dfeat

@@ -13,9 +13,10 @@ torch.profiler trace of three iterations.
 batched detection over an imdb, per-class threshold and NMS, the top-300
 cap, the detections pickles and the KITTI result writing and AP.
 
-``train_net_2d`` and ``test_net_2d`` (solver.py:440-668) are the legacy 2D
-Faster R-CNN's loops: end-to-end training with momentum SGD, and the VOC
-or KITTI-2D evaluation.
+``train_net_2d``, ``train_net_fast_rcnn`` and ``test_net_2d``
+(solver.py:440-668) are the legacy 2D Faster R-CNN's loops: training with
+momentum SGD, end to end or (HAS_RPN off) Fast R-CNN over precomputed
+proposals on an image pyramid, and the VOC or KITTI-2D evaluation.
 
 A prefetch thread loads each batch from disk and copies it to the device
 on a side stream while the previous batch computes; the previous batch's
@@ -481,6 +482,84 @@ def _snapshot_2d(params, n_classes):
                                    cfg.TRAIN.BBOX_NORMALIZE_STDS, n_classes)
 
 
+def train_net_fast_rcnn(imdb, roidb, output_dir, pretrained_model=None,
+                        max_iters=10000, compute_dtype=None, seed=None,
+                        bucket_hw=(608, 1024), ims_per_batch=2, log=print,
+                        device="cuda"):
+    """Train Fast R-CNN over precomputed proposals (solver.py:460-522, the
+    reference's HAS_RPN = False branch, minibatch2.py:16-96) on ``device``
+    (the card unless the caller asks for the CPU); returns the params.
+
+    roidb carries proposal boxes with max_classes / max_overlaps (e.g.
+    PascalVOC.region_proposal_roidb or selective_search_roidb);
+    multiscale.add_bbox_regression_targets adds the normalized targets.
+    Each iteration takes ims_per_batch images of an epoch permutation from
+    np.random.RandomState(cfg.RNG_SEED), whose state also draws the rois
+    (multiscale.get_minibatch_multiscale): a pyramid of
+    len(cfg.TRAIN.SCALES_BASE) levels per image, cfg.TRAIN.BATCH_SIZE rois,
+    padded to ``bucket_hw``. The params start from vggnet.init_params_2d
+    with a generator seeded from ``seed`` (cfg.RNG_SEED if None), then
+    ``pretrained_model``; the same generator gives the dropout masks
+    (faster_rcnn_2d.make_draws_fast_rcnn). The snapshots
+    ``<prefix>_iter_<N>.pt`` always unnormalize bbox_pred with the
+    per-class means and stds of the targets (solver.py:511-520), and hold
+    SGD's momentum and the scheduler.
+    """
+    from mv3d_tf_tpu_torch import faster_rcnn_2d as F2
+    from mv3d_tf_tpu_torch.data import multiscale as ms
+    from mv3d_tf_tpu_torch.models import vggnet
+
+    device = torch.device(device)
+    gen = torch.Generator(device=device).manual_seed(
+        cfg.RNG_SEED if seed is None else seed)
+    params = vggnet.init_params_2d(gen, n_classes=imdb.num_classes,
+                                   device=device)
+    if pretrained_model is not None:
+        log("Loading pretrained model weights from {:s}".format(
+            pretrained_model))
+        load_pretrained(params, pretrained_model)
+
+    means, stds = ms.add_bbox_regression_targets(roidb, imdb.num_classes)
+    step, make_opt = F2.build_fast_rcnn_train_step(
+        lr=cfg.TRAIN.LEARNING_RATE, momentum=cfg.TRAIN.MOMENTUM,
+        stepsize=cfg.TRAIN.STEPSIZE, gamma=cfg.TRAIN.GAMMA,
+        compute_dtype=compute_dtype)
+    opt, sched = make_opt(params)
+    draw_args = (cfg.TRAIN.BATCH_SIZE, params["fc7"].weight.shape[0], 0.5,
+                 device)
+
+    def snapshot(it):
+        save_checkpoint(output_dir, it, F2.snapshot_unnormalize_2d(
+            params, means, stds, imdb.num_classes), opt, sched)
+
+    rng = np.random.RandomState(cfg.RNG_SEED)
+    perm = rng.permutation(len(roidb))
+    cur = 0
+    timer = Timer()
+    for it in range(max_iters):
+        if cur + ims_per_batch > len(perm):
+            perm = rng.permutation(len(roidb))
+            cur = 0
+        entries = [roidb[perm[cur + j]] for j in range(ims_per_batch)]
+        cur += ims_per_batch
+        blobs = ms.get_minibatch_multiscale(entries, imdb.num_classes,
+                                            rng=rng)
+        batch = ms.pad_minibatch_multiscale(blobs, bucket_hw,
+                                            cfg.TRAIN.BATCH_SIZE)
+        draws = F2.make_draws_fast_rcnn(gen, *draw_args)
+        timer.tic()
+        m = step(params, opt, sched, batch, draws)
+        loss = m["loss"].item()          # waits for the step
+        timer.toc()
+        if (it + 1) % cfg.TRAIN.DISPLAY == 0:
+            log("iter: %d / %d, total loss: %.4f (%.3fs/iter)"
+                % (it + 1, max_iters, loss, timer.average_time))
+        if (it + 1) % cfg.TRAIN.SNAPSHOT_ITERS == 0:
+            snapshot(it + 1)
+    snapshot(max_iters)
+    return params
+
+
 def train_net_2d(imdb, roidb, output_dir, pretrained_model=None,
                  max_iters=10000, compute_dtype=None, seed=None,
                  bucket_hw=(608, 1024), max_gt=32, log=print,
@@ -498,18 +577,19 @@ def train_net_2d(imdb, roidb, output_dir, pretrained_model=None,
     (cfg.RNG_SEED if None), then ``pretrained_model``; the same generator
     gives each iteration's draws (faster_rcnn_2d.make_draws_2d). Snapshots
     ``<prefix>_iter_<N>.pt`` hold the params, SGD's momentum and the
-    scheduler. With HAS_RPN off (the config default) the reference trains
-    Fast R-CNN over precomputed proposals, which the port does not have yet:
-    it raises.
+    scheduler. With HAS_RPN off (the config default; the end2end YAML turns
+    it on) it trains Fast R-CNN over the roidb's precomputed proposals
+    instead: train_net_fast_rcnn, image pyramid included (solver.py:
+    536-541).
     """
     from mv3d_tf_tpu_torch import faster_rcnn_2d as F2
     from mv3d_tf_tpu_torch.models import vggnet
 
     if not cfg.TRAIN.HAS_RPN:
-        raise NotImplementedError(
-            "cfg.TRAIN.HAS_RPN is off: Fast R-CNN training over precomputed "
-            "proposals (train_net_fast_rcnn) is not ported (ROADMAP.md, "
-            "Queue 1 item 8); set TRAIN.HAS_RPN True for end-to-end training")
+        return train_net_fast_rcnn(
+            imdb, roidb, output_dir, pretrained_model=pretrained_model,
+            max_iters=max_iters, compute_dtype=compute_dtype, seed=seed,
+            bucket_hw=bucket_hw, log=log, device=device)
     device = torch.device(device)
     gen = torch.Generator(device=device).manual_seed(
         cfg.RNG_SEED if seed is None else seed)

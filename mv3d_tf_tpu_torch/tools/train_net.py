@@ -12,12 +12,18 @@ scheduler state under output/<EXP_DIR>/<imdb>/, and ``--resume`` continues
 from the latest of them. Without ``--rand`` numpy and the torch generator
 are seeded from cfg.RNG_SEED.
 
-``--network VGGnet_train`` (or any ``VGGnet*``) trains the legacy 2D Faster
-R-CNN end to end through solver.train_net_2d (momentum SGD, conv1/conv2
-frozen) over ``--imdb voc_<year>_<split> --devkit_path <VOCdevkit>`` or
-``kitti2d_<split> --kitti_path <kitti>``, with ``TRAIN.HAS_RPN True`` (the
-end2end cfg); with it off the run raises, as Fast R-CNN over precomputed
-proposals is not ported. The 2D loop does not resume.
+``--network VGGnet_train`` (or any ``VGGnet*``) trains the legacy 2D
+network through solver.train_net_2d (momentum SGD, conv1/conv2 frozen) over
+``--imdb voc_<year>_<split> --devkit_path <VOCdevkit>``, ``kitti2d_<split>
+--kitti_path <kitti>`` or another 2D dataset of data/kitti.get_imdb: end
+to end with ``TRAIN.HAS_RPN True`` (the end2end cfg), and with it off (the
+default) Fast R-CNN over the precomputed proposals of the imdb's roidb
+(solver.train_net_fast_rcnn; experiments/cfgs/kitti_rcnn.yml adds the image
+pyramid). For that branch each entry gets max_classes and max_overlaps
+from its gt_overlaps, as the reference's roi_data_layer/roidb.py
+prepare_roidb gives them (the JAX tool does not, so its run stops at
+multiscale.add_bbox_regression_targets' "call prepare_roidb first"). The
+2D loops do not resume.
 """
 
 import argparse
@@ -97,6 +103,10 @@ def main(argv=None):
         roidb = imdb.roidb
         for i, entry in enumerate(roidb):
             entry.setdefault("image_path", imdb.image_path_at(i))
+            if not cfg.TRAIN.HAS_RPN and "max_classes" not in entry:
+                overlaps = entry["gt_overlaps"]
+                entry["max_classes"] = overlaps.argmax(axis=1)
+                entry["max_overlaps"] = overlaps.max(axis=1)
     else:
         roidb = prepare_roidb(imdb)
     print("{:d} roidb entries".format(len(roidb)))

@@ -156,6 +156,6 @@ def test_get_imdb_reads_kitti_splits_only(trees, tmp_path, monkeypatch):
     imdb = TK.get_imdb("kitti_val", kitti_path=trees[1])
     assert imdb.num_images == 1
     assert TK.get_imdb("kitti_val", kitti_path=trees[1]) is imdb
-    for name in ("coco_2014_val", "nissan"):
-        with pytest.raises(KeyError, match="ROADMAP"):
+    for name in ("coco", "kitti_minival", "nissan_val"):
+        with pytest.raises(KeyError, match="Unknown dataset: " + name):
             TK.get_imdb(name)

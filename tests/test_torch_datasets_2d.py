@@ -180,8 +180,9 @@ def test_kitti_2d_roidb_results_and_ap_equal_jax(data_dirs, capsys):
 
 def test_get_imdb_reads_voc_and_kitti2d(data_dirs):
     """voc_<year>_<split> under devkit_path, kitti2d_<split> under
-    kitti_path, one instance per name and root; the other 2D datasets name
-    their ROADMAP.md item."""
+    kitti_path, one instance per name and root; a name of no dataset
+    raises KeyError, naming the known ones (the other 2D datasets are
+    tests/test_torch_datasets_extra.py's)."""
     devkit = TS.generate_voc(str(data_dirs / "VOCdevkit"), num_images=2)
     voc = TK.get_imdb("voc_2007_test", devkit_path=devkit)
     assert isinstance(voc, TP.PascalVOC) and voc.num_images == 2
@@ -189,7 +190,7 @@ def test_get_imdb_reads_voc_and_kitti2d(data_dirs):
     root = _kitti_layout(str(data_dirs / "kitti2d"))
     k2 = TK.get_imdb("kitti2d_train", kitti_path=root)
     assert isinstance(k2, TK2.Kitti2D) and k2.name == "kitti2d_train"
-    for name in ("kitti_tracking_training_0001", "coco_2014_val",
-                 "pascal3d_val", "imagenet3d_val", "nissan", "nthu"):
-        with pytest.raises(KeyError, match="Queue 1 item 9"):
+    for name in ("kitti_minival", "coco", "pascal3d", "nissan_2014",
+                 "imagenet"):
+        with pytest.raises(KeyError, match="Unknown dataset: " + name):
             TK.get_imdb(name, kitti_path=root)

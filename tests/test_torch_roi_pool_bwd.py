@@ -129,7 +129,7 @@ def test_train_pool_and_bwd_kernel_reject_other_devices():
     with pytest.raises(ValueError):
         T.roi_pool_train(feat.to("meta"), rois.to("meta"))
     with pytest.raises(ValueError):
-        T.roi_pool_train(feat[None], rois)         # one frame only
+        T.roi_pool_train(feat[None, None], rois)   # neither 3-D nor 4-D
     with pytest.raises(ValueError):   # the kernel wrapper takes no CPU tensor
         roi_pool_bwd_cuda(feat, rois, torch.zeros(2, 7, 7, 8),
                           torch.zeros(2, 7, 7, 8))

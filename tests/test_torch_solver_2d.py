@@ -1,7 +1,8 @@
 """The port's legacy 2D solver loops against the JAX package's on CPU, on a
 synthetic VOC tree at a small bucket: train_net_2d (HAS_RPN on) with JAX's
-draws injected, its snapshot unnormalization, the HAS_RPN-off refusal, and
-test_net_2d on the same weights. fc6/fc7 are narrowed to 64 in both
+draws injected, its snapshot unnormalization, the HAS_RPN-off dispatch to
+Fast R-CNN over selective-search proposals, and test_net_2d on the same
+weights. fc6/fc7 are narrowed to 64 in both
 packages by monkeypatching init_params_2d (the full 25088x4096 fc6 would
 make the runs slow); the trunk is full width. rpn_generate and the 2D CLIs
 are tests/test_torch_tools_2d.py's."""
@@ -188,11 +189,50 @@ def test_train_net_2d_snapshot_unnormalizes(devkit, small, monkeypatch):
 
 
 def test_train_net_2d_refuses_without_rpn(devkit, small, monkeypatch):
+    """With HAS_RPN off train_net_2d no longer refuses: it trains Fast
+    R-CNN (solver.train_net_fast_rcnn) over a selective-search roidb (a
+    .mat of [y1 x1 y2 x2] 1-based boxes: each gt box, shifted and
+    shrunk copies) one iteration, and its snapshot holds JAX's
+    snapshot_unnormalize_2d of the params the run returns, with the
+    per-class target stats of JAX's add_bbox_regression_targets on the
+    same roidb, bit for bit."""
+    import copy
+
+    import scipy.io as sio
+
+    from mv3d_tf_tpu.data import multiscale as JM
+    from mv3d_tf_tpu.faster_rcnn_2d import snapshot_unnormalize_2d
     monkeypatch.setattr(tcfg.TRAIN, "HAS_RPN", False)
     _, timdb = _imdbs(devkit, "train")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        TS.train_net_2d(timdb, _roidb(timdb), str(small / "x"), max_iters=1,
-                        device="cpu")
+    gt = [e["boxes"].astype(np.float64) for e in timdb.gt_roidb()]
+    cell = np.empty((1, len(gt)), object)
+    for i, g in enumerate(gt):
+        boxes = np.vstack([g, g + 6, g + [4, 4, -4, -4], g + [-9, 3, 9, 3]])
+        cell[0, i] = boxes[:, (1, 0, 3, 2)] + 1
+    ss = os.path.join(devkit, "selective_search_data")
+    os.makedirs(ss, exist_ok=True)
+    sio.savemat(os.path.join(ss, "voc_2007_train.mat"), {"boxes": cell})
+    timdb.roidb_handler = timdb.selective_search_roidb
+    roidb = _roidb(timdb)
+    for e in roidb:
+        e["max_classes"] = e["gt_overlaps"].argmax(axis=1)
+        e["max_overlaps"] = e["gt_overlaps"].max(axis=1)
+    means, stds = JM.add_bbox_regression_targets(copy.deepcopy(roidb), 21)
+    out_dir = str(small / "frcn")
+    params = TS.train_net_2d(timdb, roidb, out_dir, max_iters=1,
+                             bucket_hw=BUCKET, log=lambda s: None,
+                             device="cpu")
+    want = snapshot_unnormalize_2d(params_to_jax(params), means, stds, 21)
+    blob = torch.load(os.path.join(out_dir, "VGGnet_fast_rcnn_iter_1.pt"),
+                      weights_only=True)["params"]
+    np.testing.assert_array_equal(
+        blob["bbox_pred.weight"].numpy().T,
+        np.asarray(want["bbox_pred"]["weights"], np.float32))
+    np.testing.assert_array_equal(
+        blob["bbox_pred.bias"].numpy(),
+        np.asarray(want["bbox_pred"]["biases"], np.float32))
+    assert not torch.equal(blob["bbox_pred.weight"],
+                           params["bbox_pred"].weight)
 
 
 def test_test_net_2d_matches_jax(devkit, small):

@@ -37,8 +37,8 @@ def test_cli_help(module, tmp_path):
 def test_test_net_refusals(tmp_path):
     """No arguments prints the help and exits 1 (tools/test_net.py:55-57);
     multi-host sharding names its ROADMAP.md item; the legacy 2D network
-    VGGnet_test is taken and goes on to the dataset, where one not ported
-    (coco) names its item."""
+    VGGnet_test is taken and goes on to the dataset, where a name of no
+    dataset raises KeyError."""
     code = (
         "import sys\n"
         "from mv3d_tf_tpu_torch.tools.test_net import main\n"
@@ -46,7 +46,7 @@ def test_test_net_refusals(tmp_path):
         "                   (['--host_id', '0'], 'Queue 1 item 7'),\n"
         "                   (['--merge_shards'], 'Queue 1 item 7'),\n"
         "                   (['--network', 'VGGnet_test', '--imdb',\n"
-        "                     'coco_2014_val'], 'Queue 1 item 9')):\n"
+        "                     'coco2014'], 'Unknown dataset')):\n"
         "    try:\n"
         "        main(argv)\n"
         "    except (SystemExit, KeyError) as e:\n"

@@ -573,18 +573,25 @@ for extra in (["--iters", "2"], ["--iters", "3", "--resume"]):
           "TRAIN.SNAPSHOT_ITERS", "1", "TRAIN.DISPLAY", "1"])
 print(sorted(os.listdir(os.path.join(tmp, "output", "default",
                                      "kitti_train"))))
-# VGGnet_train is taken; with TRAIN.HAS_RPN off (the config default) the
-# 2D loop names the Fast R-CNN item
-for argv, want in (([], "1"), (["--network", "VGGnet_train", "--imdb",
-                                "kitti2d_train", "--kitti_path", root],
-                               "Queue 1 item 8")):
-    try:
-        main(argv)
-    except (SystemExit, NotImplementedError) as e:
-        msg = str(e.code if isinstance(e, SystemExit) else e)
-        assert want in msg, (argv, msg)
-    else:
-        raise AssertionError(argv)
+# VGGnet_train with TRAIN.HAS_RPN off (the config default) trains Fast
+# R-CNN over the imdb's roidb: fc 8 and a 48x64 bucket at CPU sizes
+from mv3d_tf_tpu_torch import solver
+from mv3d_tf_tpu_torch.models import vggnet
+vggnet.init_params_2d = functools.partial(vggnet.init_params_2d, fc_dim=8)
+solver.train_net_2d = functools.partial(solver.train_net_2d,
+                                        bucket_hw=(48, 64))
+assert not cfg.TRAIN.HAS_RPN
+main(["--network", "VGGnet_train", "--imdb", "kitti2d_train", "--kitti_path",
+      root, "--device", "cpu", "--dtype", "float32", "--iters", "1",
+      "--set", "TRAIN.BATCH_SIZE", "8"])
+print(sorted(os.listdir(os.path.join(tmp, "output", "default",
+                                     "kitti2d_train"))))
+try:
+    main([])
+except SystemExit as e:
+    assert e.code == 1, e.code
+else:
+    raise AssertionError("no arguments")
 bad = [m for m in sys.modules if m.split(".")[0] in
        ("jax", "jaxlib", "mv3d_tf_tpu")]
 assert not bad, "loaded: %s" % bad
@@ -595,9 +602,10 @@ print("ok")
 def test_train_net_cli_on_the_cpu_without_jax(tmp_path):
     """python -m ...tools.train_net's main with --device cpu over a 2-frame
     train split at small shapes (its step builder patched, as above): two
-    iterations, then --resume to three; one snapshot an iteration; no
-    arguments prints the help and exits 1; VGGnet_train over kitti2d_train
-    with TRAIN.HAS_RPN off names the Fast R-CNN item; nothing of jax or
+    iterations, then --resume to three; one snapshot an iteration;
+    VGGnet_train over kitti2d_train with TRAIN.HAS_RPN off (the default)
+    trains Fast R-CNN one iteration (fc 8, a 48x64 bucket) and writes its
+    snapshot; no arguments prints the help and exits 1; nothing of jax or
     the JAX package is loaded."""
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", _CLI, str(tmp_path)],
@@ -610,4 +618,5 @@ def test_train_net_cli_on_the_cpu_without_jax(tmp_path):
             "'VGGnet_fast_rcnn_iter_3.pt']") in lines
     assert any(line.startswith("Resumed from") and line.endswith("(iter 2)")
                for line in lines)
-    assert sum(line.startswith("iter: ") for line in lines) == 3
+    assert sum(line.startswith("iter: ") for line in lines) == 4
+    assert "['VGGnet_fast_rcnn_iter_1.pt']" in lines
