@@ -65,6 +65,16 @@ pair held to the plain pair's; and the alternating-optimisation flow:
 rpn_generate's proposal files, PascalVOC.region_proposal_roidb,
 tools.train_net VGGnet_train with HAS_RPN off in a subprocess without jax,
 and tools.test_net VGGnet_test on its snapshot.
+Then the multi-device layer and the last tools: multi-host tools.test_net
+over the tree's 8 val frames (two shard processes without jax, then the
+merge, byte for byte the plain run's); bench_ab, microbench_int8,
+prenms_knee, profile_detect and profile_loo once each; parallel/mesh.py on
+two ranks sharing the card over gloo, which first run the dry run's own
+spec and checks (the data-parallel train step in f32 and bf16, its
+all-reduced gradients held to the mean-loss gradients taken frame by
+frame, one NCCL rank beside it; frame-parallel bf16 detection at B=4;
+row-sharded detection of one frame in f32 and bf16, the stems and ROI
+kernels on band shapes); and tools.gpu_selfcheck in a process of its own.
 Every failed check raises, so the exit code is non-zero; without a CUDA
 device it exits non-zero before printing any result.
 The last line is {"ok": true, "device": {...}}; the line before it is the
@@ -77,6 +87,7 @@ import copy
 import io
 import json
 import os
+import pickle
 import re
 import shutil
 import subprocess
@@ -86,6 +97,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from mv3d_tf_tpu_torch import eval as eval_mod
@@ -111,7 +123,7 @@ from mv3d_tf_tpu_torch.eval import (PIXEL_MEANS, build_detect_batch_fn,
 from mv3d_tf_tpu_torch.models import mv3d
 from mv3d_tf_tpu_torch.data.blob import make_bird_view
 from mv3d_tf_tpu_torch.models.vgg import (conv2d, layer, max_pool_2x2_valid,
-                                          module_key)
+                                          module_key, trunk_apply)
 from mv3d_tf_tpu_torch.ops import bev, conv_s8_cuda
 from mv3d_tf_tpu_torch.ops import conv_s8 as S8
 from mv3d_tf_tpu_torch.ops import roi_pool_cuda as roi_pool_cuda_mod
@@ -138,7 +150,11 @@ from mv3d_tf_tpu_torch.ops.stem_s2d import (group_max, hwio,
 from mv3d_tf_tpu_torch.ops.stem_s2d_cuda import (stem_s2d_fused_cuda,
                                                  stem_s2d_fused_plain)
 from mv3d_tf_tpu_torch.ops.vgg_stem_cuda import vgg_stem_cuda, vgg_stem_plain
-from mv3d_tf_tpu_torch.tools import (accuracy_eval, demo_mv, profile_bev,
+from mv3d_tf_tpu_torch.parallel import dryrun as PD
+from mv3d_tf_tpu_torch.parallel import mesh as PM
+from mv3d_tf_tpu_torch.tools import (accuracy_eval, bench_ab, demo_mv,
+                                     microbench_int8, prenms_knee,
+                                     profile_bev, profile_detect, profile_loo,
                                      profile_stages, profile_train, profiling,
                                      quant_check, read_lidar, test_net,
                                      trace_detect, trace_train, tracklet2label)
@@ -3456,6 +3472,521 @@ def phase_alt_opt(np2d, smi):
     return total
 
 
+
+# --------------------------------------------------------------------------
+# The multi-device layer and the last MV3D tools
+# --------------------------------------------------------------------------
+
+# after one Adam step from equal params (lr 1e-5): a parameter moves by +-lr
+# wherever its gradient is not noise, so two runs whose gradients differ in
+# rounding can differ by 2 lr where a gradient is noise (ROADMAP.md), plus
+# the rounding of the parameter itself. No gradient can miss this bound, so
+# it stands only beside the gradients' own
+ADAM_NOISE = 2 * 1e-5 * (1 + 1e-3)
+
+# the all-reduced gradients against the mean-loss gradients taken frame by
+# frame apart from parallel/mesh.py, of each leaf's largest: f32 as
+# tests/test_torch_train.py holds the port's to JAX's; bf16 four bf16 ulps
+# (cuDNN's weight gradients and the ROI gradient's float atomics are not
+# reproducible run to run). Dropping a rank's frame or taking the sum as
+# the mean is off by 0.5 or more
+GRAD_RTOL = {torch.float32: 1e-4, torch.bfloat16: 2 ** -5}
+
+# a bf16 trunk's conv5_3 against the same trunk on other shapes (cuDNN's
+# algorithms round differently): 13 convs of bf16 rounding, of the max
+TRUNK_BF16_RTOL = 2 ** -6
+
+# the bf16 row-sharded detector's valid BEV boxes within 1 pixel of one of
+# the single-frame detector's, at the least
+BF16_SET_MATCH = 0.9
+
+
+def set_match(got, ref, px=1.0):
+    """How many of got's valid BEV boxes (class 1) lie within px of one of
+    ref's."""
+    g = got["boxes_bv"][got["valid"]][:, 4:8].float().cpu()
+    r = ref["boxes_bv"][ref["valid"]][:, 4:8].float().cpu()
+    if not len(g) or not len(r):
+        return 0
+    return int(((g[:, None] - r[None]).abs().amax(-1).amin(1) <= px).sum())
+
+
+def close_dets(got, ref, tol, keys=("scores", "boxes_bv", "boxes_cnr_r")):
+    """(valid equal, worst max |got - ref| / max |ref| over keys)."""
+    same_valid = torch.equal(got["valid"].cpu(), ref["valid"].cpu())
+    worst = max(max_err(got[k].float().cpu(), ref[k].float().cpu())
+                / max(ref[k].float().abs().max().item(), 1e-6) for k in keys)
+    return same_valid and worst <= tol, worst
+
+
+def full_frames(rng, n):
+    bev = rng.rand(n, 601, 601, 9).astype(np.float32)
+    image = (rng.rand(n, 384, 1248, 3) * 255).astype(np.float32)
+    return bev, image, np.stack([profiling.example_calib()] * n)
+
+
+def mean_step(base, mesh, kw, batch, draws):
+    """One mean-gradient step over the frames from a copy of the params
+    base on the card: parallel/mesh.build_parallel_train_step on mesh
+    (None: one process, no group). Returns (params on the CPU, their
+    gradients, metrics, ms)."""
+    params = copy.deepcopy(base)
+    step, make_opt = PM.build_parallel_train_step(mesh, **kw)
+    opt = make_opt(params)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics = step(params, opt, batch, draws)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    out = {k: {"weight": m.weight.detach().cpu(), "bias": m.bias.detach().cpu()}
+           for k, m in params.items()}
+    grads = {k: {"weight": m.weight.grad.cpu(), "bias": m.bias.grad.cpu()}
+             for k, m in params.items()}
+    return out, grads, {k: v.item() for k, v in metrics.items()}, ms
+
+
+def frame_grads(base, kw, batch, draws):
+    """The mean-loss gradients over the frames of batch, frame by frame
+    through train.build_forward_losses and torch.autograd.grad on the
+    card: a reference apart from parallel/mesh.py. {layer: {"weight",
+    "bias"}} on the CPU, zeros where a leaf gets no gradient."""
+    forward_losses = build_forward_losses(**kw)
+    names = [(k, s) for k in base for s in ("weight", "bias")]
+    leaves = [getattr(base[k], s) for k, s in names]
+    total = [torch.zeros_like(t) for t in leaves]
+    n = len(draws)
+    for i in range(n):
+        f = forward_losses(base, {k: v[i] for k, v in batch.items()},
+                           draws[i])
+        for t, g in zip(total, torch.autograd.grad(
+                f["loss"] / n, leaves, allow_unused=True)):
+            if g is not None:
+                t += g
+    out = {k: {} for k in base}
+    for (k, s), t in zip(names, total):
+        out[k][s] = t.cpu()
+    return out
+
+
+def grad_diff(got, ref):
+    """The worst leaf's max |got - ref| over its largest |ref| (a None
+    gradient a zero one), and that leaf."""
+    worst = (0.0, None)
+    for k in ref:
+        for s, r in ref[k].items():
+            g = got[k][s]
+            g = torch.zeros_like(r) if g is None else g
+            err = max_err(g, r) / max(r.abs().max().item(), 1e-30)
+            worst = max(worst, (err, k + "." + s), key=lambda e: e[0])
+    return worst
+
+
+def params_diff(a, b):
+    return max(max_err(a[k][s], b[k][s]) for k in a for s in ("weight", "bias"))
+
+
+def stem_band_rows(params, x, sfx):
+    """The bf16 literal stem kernel on each two-rank band's input rows
+    (PM.band_slice) against the kernel on the whole frame, on the rows
+    that see no cut edge (two stem rows in from a cut): the number of
+    rows compared and whether every one is equal bit for bit."""
+    p = (*layer(params, "conv1_1" + sfx), *layer(params, "conv1_2" + sfx))
+    h = x.shape[1]
+    whole = vgg_stem_cuda(x, *p)
+    rows, same = 0, True
+    for band in PM.row_bands(PM.feature_rows(h), 2):
+        start, stop = PM.band_slice(band, h)
+        y = vgg_stem_cuda(x[:, start:stop].contiguous(), *p)
+        lo = 2 if start > 0 else 0
+        hi = y.shape[1] - (2 if stop < h else 0)
+        off = start // 2
+        same = same and torch.equal(y[:, lo:hi],
+                                    whole[:, off + lo:off + hi])
+        rows += hi - lo
+    return rows, same
+
+
+def phase_parallel(np_params, smi):
+    """parallel/mesh.py at full width on two ranks sharing cuda:0 over gloo
+    (NCCL refuses two ranks on one GPU), one spawn: first
+    parallel/dryrun.dryrun_multidevice(2)'s own spec and checks, then this
+    phase's parallel/dryrun.run_checks spec on the same ranks. The
+    data-parallel train step (one full-width frame a rank, 3-6 gt cars,
+    pre-NMS 12000, post-NMS 2000, 128 rois, Adam lr 1e-5) in f32 and bf16:
+    its all-reduced gradients held to the mean-loss gradients taken frame
+    by frame apart from parallel/mesh.py (GRAD_RTOL), its metrics within
+    1e-5 of the total, its parameters after Adam within 2 lr of the
+    one-process mean-gradient step's; the frame-parallel bf16 detector
+    over B=4 frames held per frame to the one-process batched detector on
+    the same two-frame halves (valid equal, within STEM_TOL of each max);
+    the row-sharded detector on one frame in f32 and bf16, both stems' and
+    the ROI kernels on band shapes, held to the single-frame detector: f32
+    valid equal and within 1e-5 of each max; bf16 valid equal, the stem
+    kernel's band rows bit for bit the whole frame's, the banded conv5_3
+    maps within TRUNK_BF16_RTOL, the head on them bit for bit, and at least
+    BF16_SET_MATCH of the boxes within 1 pixel of the single frame's. Then
+    one rank with NCCL, held to the reference gradients and the
+    one-process step as the two gloo ranks are. Returns the ranks' (both
+    specs') launches and the NCCL run's."""
+    rng = np.random.RandomState(SEED + 14)
+    frames = [train_batch(rng)[0] for _ in range(2)]
+    batch = {k: torch.stack([f[k] for f in frames]) for k in frames[0]}
+    gen = torch.Generator().manual_seed(SEED + 14)
+    draws = [make_draws(gen, FEAT * FEAT * 4, TRAIN_POST_NMS + MAX_GT,
+                        TRAIN_ROIS, FC_DIM, 0.5, "cpu") for _ in range(2)]
+    train_kw = dict(pre_nms_top_n=TRAIN_PRE_NMS, post_nms_top_n=TRAIN_POST_NMS,
+                    rois_per_image=TRAIN_ROIS)
+    det_kw = dict(pre_nms_top_n=PRE_NMS, post_nms_top_n=POST_NMS)
+    bev, image, calib = full_frames(rng, 4)
+    dtypes = ((torch.float32, None), (torch.bfloat16, torch.bfloat16))
+    spec = {"seed": SEED, "fc_dim": FC_DIM, "return_params": True,
+            "train": [{"batch": {k: v.cpu() for k, v in batch.items()},
+                       "draws": draws, "timed_steps": 2,
+                       "kwargs": dict(train_kw, compute_dtype=dt)}
+                      for _, dt in dtypes],
+            "detect": {"bev": bev, "image": image, "calib": calib,
+                       "timed_calls": 2,
+                       "kwargs": dict(det_kw, compute_dtype=torch.bfloat16)},
+            "spatial": [{"bev": bev[0], "image": image[0], "calib": calib[0],
+                         "timed_calls": 2,
+                         "kwargs": dict(det_kw, compute_dtype=dt)}
+                        for _, dt in dtypes]}
+    t0 = time.perf_counter()
+    dry, ranks = PD.dryrun_multidevice(2, device="cuda", backend="gloo",
+                                       extra=[spec])
+    total, dry_launches = {}, {}
+    for r in dry:
+        for part in r["train"] + [r["detect"]] + r["spatial"]:
+            add_launches(dry_launches, part["launches"])
+    if not (dry_launches.get("roi_pool") and dry_launches.get("roi_pool_bwd")):
+        raise AssertionError("the dry run launched %s" % dry_launches)
+    add_launches(total, dry_launches)
+    print("parallel: 2 ranks on cuda:0 over gloo, one spawn for the dry run "
+          "(fc 2048, launches %s) and this phase: %.1f s; replicate (one "
+          "broadcast of %d parameters) %.1f / %.1f ms"
+          % (dry_launches, time.perf_counter() - t0,
+             sum(v["weights"].size + v["biases"].size
+                 for v in np_params.values()),
+             ranks[0]["broadcast_ms"], ranks[1]["broadcast_ms"]))
+    for r in ranks:
+        for part in r["train"] + [r["detect"]] + r["spatial"]:
+            add_launches(total, part["launches"])
+    dev_draws = [PD._draws_to(d, "cuda") for d in draws]
+    base = params_from_jax(np_params, device="cuda")
+    for (name, dt), res in zip(dtypes, ranks[0]["train"]):
+        kw = dict(train_kw, compute_dtype=dt)
+        tol = GRAD_RTOL[name]
+        grads_ref = frame_grads(base, kw, batch, dev_draws)
+        grads_noise, _ = grad_diff(frame_grads(base, kw, batch, dev_draws),
+                                   grads_ref)
+        ref, _, ref_m, ref_ms = mean_step(base, None, kw, batch, dev_draws)
+        loss = abs(ref_m["loss"])
+        worst_m = max(abs(res["metrics"][k] - v) for k, v in ref_m.items())
+        worst_g, leaf = grad_diff(res["grads"], grads_ref)
+        # the check can fail: rank 0's frame alone in place of the sum
+        half = frame_grads(base, kw, {k: v[:1] for k, v in batch.items()},
+                           dev_draws[:1])
+        dropped, _ = grad_diff({k: {s: v / 2 for s, v in d.items()}
+                                for k, d in half.items()}, grads_ref)
+        worst_p = params_diff(res["params"], ref)
+        if (worst_m > 1e-5 * loss or not worst_g <= tol or dropped <= tol
+                or worst_p > ADAM_NOISE):
+            raise AssertionError(
+                "parallel train %s: metrics off by %.3g (loss %.4f), "
+                "gradients by %.3g at %s (tolerance %.3g; rank 0's frame "
+                "alone %.3g), params by %.3g (bound 2 lr)"
+                % (name, worst_m, loss, worst_g, leaf, tol, dropped, worst_p))
+        dist.init_process_group("nccl", init_method="file://" + os.path.join(
+            tempfile.mkdtemp(), "store"), rank=0, world_size=1)
+        try:
+            zero_all_launches()
+            nccl, nccl_g, nccl_m, nccl_ms = mean_step(
+                base, PM.make_mesh(device="cuda"), kw, batch, dev_draws)
+            add_launches(total, {k: v for k, v in all_launches().items()
+                                 if k in ("roi_pool", "roi_pool_bwd")})
+        finally:
+            dist.destroy_process_group()
+        worst_n = params_diff(nccl, ref)
+        worst_ng, _ = grad_diff(nccl_g, grads_ref)
+        off_m = max(abs(nccl_m[k] - v) for k, v in ref_m.items())
+        if (not worst_ng <= tol or worst_n > ADAM_NOISE
+                or off_m > 1e-5 * loss):
+            raise AssertionError(
+                "parallel train %s, one NCCL rank: gradients off by %.3g "
+                "(tolerance %.3g), params by %.3g, metrics %s vs %s"
+                % (name, worst_ng, tol, worst_n, nccl_m, ref_m))
+        print("parallel train step %s, 2 gloo ranks x 1 frame: %s ms "
+              "(first, then warm), loss %.6f; all-reduced gradients within "
+              "%.3g of each leaf's max (worst %s; tolerance %.3g) of the "
+              "frame-by-frame reference, which differs from itself run "
+              "twice by %.3g, and from rank 0's frame alone by %.3g; "
+              "metrics within %.2g; after Adam, params within %.3g (bound "
+              "2 lr) of the one-process mean step over the 2 frames (%.1f "
+              "ms); 1 NCCL rank over both frames %.1f ms, gradients within "
+              "%.3g, params within %.3g; on [%s]"
+              % (name, ", ".join("%.1f" % t for t in res["ms"]),
+                 res["metrics"]["loss"], worst_g, leaf, tol, grads_noise,
+                 dropped, worst_m, worst_p, ref_ms, nccl_ms, worst_ng,
+                 worst_n, smi))
+    del ranks[0]["train"], ranks[1]["train"]
+
+    params = base
+    det = ranks[0]["detect"]
+    batched = build_detect_batch_fn(compute_dtype=torch.bfloat16, **det_kw)
+    worst = 0.0
+    for half in (0, 2):
+        ref = batched(params, *(torch.from_numpy(a[half:half + 2]).cuda()
+                                for a in (bev, image, calib)))
+        for i in range(2):
+            ok, err = close_dets({k: v[half + i] for k, v in det["out"].items()},
+                                 {k: v[i] for k, v in ref.items()}, STEM_TOL)
+            worst = max(worst, err)
+            if not ok:
+                raise AssertionError("frame-parallel detect frame %d: valid "
+                                     "differs or off by %.3g" % (half + i, err))
+    single = {}
+    for name, dt in dtypes:
+        detect = build_detect_fn(compute_dtype=dt, **det_kw)
+        args = [torch.from_numpy(a[0]).cuda() for a in (bev, image, calib)]
+        timed(detect, params, *args)
+        single[name] = [timed(detect, params, *args) for _ in range(2)]
+    print("frame-parallel detect bf16 B=4 over 2 ranks: %s ms a call (first, "
+          "then warm); each frame within %.3g of the one-process B=2 call on "
+          "its half, valid equal; on [%s]"
+          % (", ".join("%.1f" % t for t in det["ms"]), worst, smi))
+    frame = [torch.from_numpy(a[:1]).cuda() for a in (bev, image, calib)]
+    frame[1] = frame[1] - torch.from_numpy(PIXEL_MEANS).cuda()
+    for (name, dt), sp in zip(dtypes, ranks[0]["spatial"]):
+        ref = single[name][-1][0]
+        n_got, n_ref = int(sp["out"]["valid"].sum()), int(ref["valid"].sum())
+        ok, err = close_dets(sp["out"], ref, 1e-5)
+        line = ("row-sharded detect %s, one frame over 2 ranks (bands of %s "
+                "feature rows, halo %d input rows): %s ms vs the single-frame "
+                "detector's %s ms; valid %d vs %d"
+                % (name, [b - a for a, b in PM.row_bands(75, 2)],
+                   PM.trunk_geometry()[1],
+                   ", ".join("%.1f" % t for t in sp["ms"]),
+                   ", ".join("%.1f" % t for _, t in single[name]), n_got,
+                   n_ref))
+        if dt is None:
+            if n_got != n_ref or not ok:
+                raise AssertionError("%s: off by %.3g of the max" % (line, err))
+            print("%s, within %.3g of each max (%s); on [%s]" % (
+                line, err, "bit-identical" if err == 0 else "not bit for bit",
+                smi))
+            continue
+        # bf16: the trunks on band shapes round as cuDNN picks for those
+        # shapes, and the random weights' near-flat RPN scores then reorder
+        # the NMS (ROADMAP Queue 3). Held: the stem kernel's band rows to the
+        # whole frame's bit for bit, the banded maps to the whole frame's
+        # within bf16 rounding, the dict to the head on the banded maps bit
+        # for bit, and the boxes to the single frame's as a set
+        with torch.inference_mode():
+            maps, worst, stem_rows, stem_same = [], 0.0, 0, True
+            for x, sfx in ((frame[0], ""), (frame[1], "_2")):
+                rows, same = stem_band_rows(params, x, sfx)
+                stem_rows, stem_same = stem_rows + rows, stem_same and same
+                banded = torch.cat([
+                    PM.band_trunk(params, x, band, sfx, dt, "fused")
+                    for band in PM.row_bands(PM.feature_rows(x.shape[1]), 2)],
+                    1)
+                whole = trunk_apply(params, x, sfx, dt, "fused")
+                worst = max(worst, max_err(banded, whole)
+                            / whole.float().abs().max().item())
+                maps.append(banded)
+            head = detect_from_features(params, *maps, frame[2],
+                                        compute_dtype=dt, **det_kw)
+        same = [k for k in sp["out"] if k != "rois_img"
+                and not torch.equal(sp["out"][k], head[k][0].cpu())]
+        near = set_match(sp["out"], ref)
+        if (n_got != n_ref or same or not stem_same
+                or worst > TRUNK_BF16_RTOL or near < BF16_SET_MATCH * n_got):
+            raise AssertionError(
+                "%s; the stem's band rows equal the whole frame's: %s; the "
+                "head on the banded maps differs in %s; the banded maps off "
+                "by %.3g of the max (tolerance %.3g); %d of %d boxes within "
+                "1 pixel of the single frame's (at least %.2g)"
+                % (line, stem_same, same, worst, TRUNK_BF16_RTOL, near,
+                   n_got, BF16_SET_MATCH))
+        print("%s; the stem kernel's band rows bit-identical to the whole "
+              "frame's (%d rows); the dict bit-identical to the head on the "
+              "banded trunks' maps, which are within %.3g of the whole "
+              "frame's (bf16 rounding of cuDNN's band-shaped convs); %d of "
+              "%d valid boxes within 1 pixel of one of the single-frame "
+              "detector's; on [%s]"
+              % (line, stem_rows, worst, near, n_got, smi))
+    missing = [k for k in ("roi_pool", "roi_pool_bwd", "vgg_stem")
+               if not total.get(k)]
+    if missing:
+        raise AssertionError("the parallel paths launched no %s: %s"
+                             % (missing, total))
+    print("parallel paths' launches (both ranks, the dry run's and the NCCL "
+          "rank): %s" % total)
+    return total
+
+
+_SHARD_RUN = """
+import json, sys
+import chip_smoke as C
+from mv3d_tf_tpu_torch.tools import test_net
+root, weights, tmp, host = sys.argv[1:5]
+C.zero_all_launches()
+test_net.main(["--imdb", "kitti_val", "--kitti_path", root, "--weights",
+               weights, "--dtype", "bfloat16", "--host_id", host,
+               "--host_count", "2", "--set", "ROOT_DIR", tmp, "DATA_DIR",
+               tmp + "/data"])
+launches = C.all_launches()
+bad = [m for m in sys.modules if m.split(".")[0] in
+       ("jax", "jaxlib", "mv3d_tf_tpu")]
+assert not bad, "loaded: %s" % bad
+print("launches " + json.dumps(launches))
+"""
+
+
+def phase_multihost(root, weights, smi):
+    """Multi-host tools.test_net on the tree's 8 val frames in bf16: the
+    plain run here, then --host_id 0 and 1 --host_count 2 in two processes
+    at once (no jax), then --merge_shards here; the merged detections.pkl
+    and detections_cnr.pkl must equal the plain run's byte for byte. Each
+    shard's frame sits in its row of the plain run's batch of 8
+    (solver._batch_slots: cuDNN's bf16 conv4_2 on the image view rounds by
+    row). Returns the launches (the plain run's and the shards')."""
+    total = {}
+    here = os.path.dirname(os.path.abspath(__file__))
+    names = ("detections.pkl", "detections_cnr.pkl")
+    with tempfile.TemporaryDirectory() as tmp, saved_cfg(tmp):
+        argv = ["--imdb", "kitti_val", "--kitti_path", root, "--weights",
+                weights, "--dtype", "bfloat16"]
+        out_dir = os.path.join(tmp, "output", cfg.EXP_DIR, "kitti_val", "he")
+        zero_all_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            test_net.main(argv)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        add_launches(total, all_launches())
+        plain = {}
+        for n in names:
+            with open(os.path.join(out_dir, n), "rb") as f:
+                plain[n] = f.read()
+            os.remove(os.path.join(out_dir, n))
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", _SHARD_RUN, root, weights, tmp, str(h)],
+            cwd=tmp, env=dict(os.environ, PYTHONPATH=here),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for h in range(2)]
+        shard_launches = []
+        for h, p in enumerate(procs):
+            out, err = p.communicate(timeout=600)
+            if p.returncode != 0:
+                raise AssertionError("test_net --host_id %d failed:\n%s"
+                                     % (h, err[-4000:]))
+            shard_launches.append(json.loads(
+                out.splitlines()[-1][len("launches "):]))
+            add_launches(total, shard_launches[-1])
+        shards_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            test_net.main(argv + ["--host_count", "2", "--merge_shards"])
+        merge_s = time.perf_counter() - t0
+        differ = []
+        for n in names:
+            with open(os.path.join(out_dir, n), "rb") as f:
+                if f.read() != plain[n]:
+                    differ.append(n)
+        if differ:
+            with open(os.path.join(out_dir, names[0]), "rb") as f:
+                merged = pickle.loads(f.read())
+            single = pickle.loads(plain[names[0]])
+            frames = [i for i in range(len(single[1]))
+                      if not np.array_equal(single[1][i], merged[1][i])]
+            raise AssertionError("merged %s differ from the plain run's "
+                                 "(frames %s)" % (differ, frames))
+        want = dict.fromkeys(shard_launches[0], 0)
+        want.update(roi_pool=2, vgg_stem=2)
+        if any(s != want for s in shard_launches):
+            raise AssertionError("shard launches %s != %s each"
+                                 % (shard_launches, want))
+        print("multi-host tools.test_net bf16 over 8 val frames: plain run "
+              "%.2f s; 2 shard processes at once %.2f s (launches %s each); "
+              "merge %.2f s; detections.pkl and detections_cnr.pkl equal to "
+              "the plain run's byte for byte; on [%s]"
+              % (plain_s, shards_s, {k: v for k, v in want.items() if v},
+                 merge_s, smi))
+    return total
+
+
+def phase_selfcheck(smi):
+    """tools.gpu_selfcheck in a process of its own: every check [ok], exit
+    0. Its launches compare kernels with plain versions and are not
+    counted."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "mv3d_tf_tpu_torch.tools.gpu_selfcheck"],
+        cwd=here, env=dict(os.environ, PYTHONPATH=here), capture_output=True,
+        text=True, timeout=600)
+    for line in proc.stdout.splitlines():
+        print("gpu_selfcheck: " + line)
+    if proc.returncode != 0:
+        raise AssertionError("gpu_selfcheck exited %d:\n%s"
+                             % (proc.returncode, proc.stderr[-4000:]))
+    print("gpu_selfcheck: exit 0 in %.1f s on [%s]"
+          % (time.perf_counter() - t0, smi))
+
+
+def tool_json(fn, argv):
+    """fn(argv) with its stdout captured; its last line parsed as JSON."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        fn(argv)
+    return json.loads(buf.getvalue().splitlines()[-1])
+
+
+def phase_new_tools(root, weights, smi):
+    """The last MV3D tools, one short run each with its launches zeroed
+    just before and read just after, each required to launch its hand
+    kernels: bench_ab (bf16 B=8 detect, 3 iterations; --train, 2),
+    microbench_int8 (3 iterations), prenms_knee (the tree's 8 val frames,
+    K 6000 and 1024), profile_detect and profile_loo (B=8, 2 iterations,
+    three variants). Returns the summed launches."""
+    total = {}
+    runs = (
+        ("bench_ab detect", bench_ab.main, ["--batch", "8", "--iters", "3"],
+         ("roi_pool", "vgg_stem")),
+        ("bench_ab --train", bench_ab.main, ["--train", "--iters", "2"],
+         ("roi_pool", "roi_pool_bwd")),
+        ("microbench_int8", microbench_int8.main, ["--iters", "3"],
+         ("conv_s8", "matmul_s8")),
+        ("prenms_knee", prenms_knee.main,
+         ["--kitti_path", root, "--model", weights, "--frames", "8",
+          "--ks", "6000", "1024"], ("roi_pool", "vgg_stem")),
+        ("profile_detect", profile_detect.main,
+         ["--batch", "8", "--iters", "2"], ("roi_pool", "conv_s8",
+                                            "vgg_stem")),
+        ("profile_loo", profile_loo.main,
+         ["--batch", "8", "--iters", "2", "--variants",
+          "base,no roi pool,no proposal"], ("roi_pool", "vgg_stem")),
+    )
+    for name, fn, argv, need in runs:
+        zero_all_launches()
+        t0 = time.perf_counter()
+        res = tool_json(fn, argv)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = all_launches()
+        missing = [k for k in need if not launches[k]]
+        if missing:
+            raise AssertionError("%s launched no %s: %s"
+                                 % (name, missing, launches))
+        add_launches(total, launches)
+        print("%s (%.1f s, launches %s) on [%s]: %s"
+              % (name, secs, {k: v for k, v in launches.items() if v}, smi,
+                 json.dumps(res)))
+    return total
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; "
@@ -3504,8 +4035,12 @@ def main():
         t0 = time.perf_counter()
         accuracy = phase_accuracy_eval(root, smi)
         tools = phase_tools(np_params, root, weights, smi)
-    print("the accuracy_eval and tools phases: %.1f s"
-          % (time.perf_counter() - t0))
+        print("the accuracy_eval and tools phases: %.1f s"
+              % (time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        multihost = phase_multihost(root, weights, smi)
+        new_tools = phase_new_tools(root, weights, smi)
+        multi_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     phase_roi_2d(gen, smi)
     np2d = he_normal_params_2d(SEED)
@@ -3526,9 +4061,17 @@ def main():
     print("the Fast R-CNN phases: %.1f s (the batched gradient %.1f, the "
           "steps %.1f, the alternating-optimisation flow %.1f)"
           % (t3 - t0, t1 - t0, t2 - t1, t3 - t2))
+    t0 = time.perf_counter()
+    parallel = phase_parallel(np_params, smi)
+    phase_selfcheck(smi)
+    print("the multi-device and last tools' phases: %.1f s (multi-host "
+          "test_net and the tools %.1f, the parallel paths with the dry run, "
+          "and gpu_selfcheck %.1f)" % (multi_s + time.perf_counter() - t0,
+                                       multi_s, time.perf_counter() - t0))
     new_paths = {}
     for counts in (fused, clis, trained, demo, accuracy, tools, detect_2d,
-                   train_2d, clis_2d, fast_rcnn, alt_opt):
+                   train_2d, clis_2d, fast_rcnn, alt_opt, multihost,
+                   new_tools, parallel):
         add_launches(new_paths, counts)
     loaded = [m for m in sys.modules
               if m.split(".")[0] in ("jax", "jaxlib", "mv3d_tf_tpu")]
@@ -3539,8 +4082,10 @@ def main():
     # read_lidar run, the scan-to-detections run, the int8 detector's run,
     # the s2d_fused detectors' run, the evaluation CLIs' runs, the
     # train_net runs, the demo's runs, the accuracy_eval and tools runs,
-    # the 2D detector's, train step's and CLIs' runs, and the Fast R-CNN
-    # steps' and the alternating-optimisation flow's runs
+    # the 2D detector's, train step's and CLIs' runs, the Fast R-CNN
+    # steps' and the alternating-optimisation flow's runs, and the
+    # multi-host test_net's, the last tools', the parallel paths' (their
+    # ranks' counts) and the dry run's
     print(json.dumps({"kernels": [
         {"name": "roi_pool", "route": "cuda", "source": ROI_SOURCE,
          "replaces": "mv3d_tf_tpu/ops/roi_pool_pallas.py:71",

@@ -318,9 +318,22 @@ def _build_detector(params, imdb, indices, compute_dtype, quant_cfg, log):
         compute_dtype=compute_dtype, quant=qs, **q_kwargs)
 
 
+def _batch_slots(indices, B):
+    """The whole run's batches that indices meet, in order: frame i in row
+    i mod B of batch i // B, None in the rows of frames not in indices. A
+    frame takes its row of the single-process run in any shard: cuDNN's
+    bf16 conv4_2 on the image view (B x 48x156x512) rounds a frame's
+    outputs by the row it sits in, so a shard that packed its frames from
+    row 0 would differ from the single run in the last bit."""
+    batches = {}
+    for i in indices:
+        batches.setdefault(i // B, [None] * B)[i % B] = i
+    return list(batches.values())
+
+
 def test_net(params, imdb, weights_filename="default", max_per_image=300,
-             thresh=0.05, compute_dtype=None, log=print, detect_fn=None,
-             evaluate=True, batch_size=8, quant_cfg=None,
+             thresh=0.05, compute_dtype=None, log=print, frame_indices=None,
+             detect_fn=None, evaluate=True, batch_size=8, quant_cfg=None,
              return_cnr_r=False):
     """Evaluate over an imdb; returns (all_boxes, all_boxes_cnr), and
     all_boxes_cnr_r third with return_cnr_r (tools/accuracy_eval scores
@@ -335,7 +348,12 @@ def test_net(params, imdb, weights_filename="default", max_per_image=300,
     "int8_head", "calib_frames"} runs the int8 detector after calibrating
     it on the first frames. detect_fn injects a per-frame detector
     (tests), run one frame at a time on CPU tensors or the params' device;
-    evaluate=False skips the pickles and the AP.
+    evaluate=False skips the pickles and the AP. frame_indices restricts
+    the loop to those frames (a host's shard, parallel/multihost.py): the
+    slots of other frames stay empty. Each call takes the whole run's batch
+    size, each frame in its row of the whole run's batch (_batch_slots), the
+    other rows a neighbour frame, so a frame's bytes do not depend on the
+    shard that served it.
     """
     num_images = imdb.num_images
     k = imdb.num_classes
@@ -344,19 +362,21 @@ def test_net(params, imdb, weights_filename="default", max_per_image=300,
     all_boxes_cnr_r = [[[] for _ in range(num_images)] for _ in range(k)]
     output_dir = get_output_dir(imdb, weights_filename)
     device = _params_device(params)
-    indices = list(range(num_images))
+    indices = (list(range(num_images)) if frame_indices is None
+               else list(frame_indices))
 
-    def drain(chunk, det):
-        """Per-class NMS and slot assignment for one finished batch."""
+    def drain(slots, det):
+        """Per-class NMS and slot assignment for one finished batch; slots
+        holds each batch row's frame, None for a padding row."""
         det = {key: _numpy(v) for key, v in det.items()}
+        real = [(bi, i) for bi, i in enumerate(slots) if i is not None]
         if "nms_converged" in det:
-            conv = det["nms_converged"][:len(chunk)]
-            if not conv.all():
+            failed = [i for bi, i in real if not det["nms_converged"][bi]]
+            if failed:
                 raise RuntimeError(
                     "blocked_fixed NMS certificate failed on frames "
-                    "{} of batch {}".format(
-                        [chunk[i] for i in np.where(~conv)[0]], chunk))
-        for bi, i in enumerate(chunk):
+                    "{} of batch {}".format(failed, [i for _, i in real]))
+        for bi, i in real:
             one = {key: det[key][bi] for key in _DET_KEYS}
             per_cls = frame_detections(one, num_classes=k,
                                        score_thresh=thresh,
@@ -379,10 +399,9 @@ def test_net(params, imdb, weights_filename="default", max_per_image=300,
             log("im_detect: {:d}/{:d} {:.3f}s".format(
                 n + 1, len(indices), timer.average_time))
     elif indices:
-        B = max(1, min(batch_size, len(indices)))
+        B = max(1, min(batch_size, num_images))
         detect_batch = _build_detector(params, imdb, indices, compute_dtype,
                                        quant_cfg, log)
-        nb = -(-len(indices) // B)
         q = queue.Queue(maxsize=2)
         # images travel as their uint8 pixels and, under bf16 compute, the
         # BEV as bf16 (the trunks' first act is the same cast)
@@ -390,18 +409,20 @@ def test_net(params, imdb, weights_filename="default", max_per_image=300,
 
         def producer():
             try:
-                for b in range(nb):
-                    chunk = indices[b * B:(b + 1) * B]
-                    frames = [_load_eval_frame(imdb, i, image_dtype=np.uint8)
-                              for i in chunk]
-                    while len(frames) < B:      # pad the tail batch
-                        frames.append(frames[-1])
+                for slots in _batch_slots(indices, B):
+                    frames = [None if i is None else
+                              _load_eval_frame(imdb, i, image_dtype=np.uint8)
+                              for i in slots]
+                    first = next(f for f in frames if f is not None)
+                    for s in range(B):          # pad with a neighbour frame
+                        if frames[s] is None:
+                            frames[s] = frames[s - 1] if s else first
                     images, bevs, calibs = (
                         torch.from_numpy(np.stack([f[j] for f in frames]))
                         for j in range(3))
                     if bev_bf16:
                         bevs = bevs.to(torch.bfloat16)
-                    q.put((chunk, *_to_device([images, bevs, calibs],
+                    q.put((slots, *_to_device([images, bevs, calibs],
                                               device)))
                 q.put(None)
             except BaseException as e:          # propagate to the consumer
@@ -416,17 +437,17 @@ def test_net(params, imdb, weights_filename="default", max_per_image=300,
                 raise item
             if item is None:
                 break
-            chunk, (images, bevs, calibs), ready = item
+            slots, (images, bevs, calibs), ready = item
             _wait(ready, (images, bevs, calibs))
             timer.tic()
             det = detect_batch(params, bevs, images, calibs)
             if pending is not None:
                 drain(*pending)     # overlaps this batch's device work
-            pending = (chunk, det)
+            pending = (slots, det)
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
             timer.toc()
-            done += len(chunk)
+            done += sum(i is not None for i in slots)
             log("im_detect: {:d}/{:d} {:.3f}s/batch{}".format(
                 done, len(indices), timer.average_time, B))
         if pending is not None:

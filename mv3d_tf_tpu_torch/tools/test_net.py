@@ -12,7 +12,11 @@ output/<EXP_DIR>/<imdb>/<weights>/, the KITTI result files and the AP
 tables. ``--weights`` takes a reference-style .npy weight dict or a
 snapshot the port wrote; without it the port's own random init
 (``mv3d.init_params`` from a torch generator seeded 0) stands in.
-Multi-host sharding (``--host_id``, ``--merge_shards``) is not ported.
+``--host_id i --host_count N`` evaluates host i's contiguous frame shard
+and writes its shard pickle; ``--host_count N --merge_shards`` merges the N
+shards into the detections pickles (byte for byte a single run's) and
+evaluates them (parallel/multihost.py). The VGGnet* networks ignore these
+flags, as the JAX tool does.
 
 ``--network VGGnet_test`` (or any ``VGGnet*``) runs the legacy 2D Faster
 R-CNN through solver.test_net_2d instead, over ``--imdb voc_<year>_<split>
@@ -51,12 +55,14 @@ def build_parser():
     parser.add_argument("--dtype", dest="dtype", default="bfloat16",
                         choices=["bfloat16", "float32"])
     parser.add_argument("--host_id", dest="host_id", default=None, type=int,
-                        help="evaluate only this host's frame shard")
+                        help="evaluate only this host's frame shard "
+                             "(MV3D networks; VGGnet* ignores it)")
     parser.add_argument("--host_count", dest="host_count", default=1,
                         type=int, help="total hosts sharding the eval")
     parser.add_argument("--merge_shards", dest="merge_shards",
                         action="store_true",
-                        help="merge per-host shard pickles and evaluate")
+                        help="merge per-host shard pickles and evaluate "
+                             "(MV3D networks; VGGnet* ignores it)")
     parser.add_argument("--int8", dest="int8", action="store_true",
                         help="int8 PTQ eval (calibrates on the first "
                              "frames; tools/quant_check is the accuracy "
@@ -81,11 +87,6 @@ def main(argv=None):
     args = parser.parse_args(argv)
     print("Called with args:")
     print(args)
-    if args.host_id is not None or args.merge_shards:
-        raise SystemExit(
-            "--host_id / --merge_shards: multi-host evaluation is not "
-            "ported (ROADMAP.md, Queue 1 item 7)")
-
     import torch
 
     from mv3d_tf_tpu_torch.models.factory import get_network
@@ -116,19 +117,31 @@ def main(argv=None):
                     devkit_path=args.devkit_path)
     print("Use network `{:s}` in testing".format(args.network_name))
 
+    weights_filename = "default"
+    if args.model:
+        weights_filename = os.path.splitext(os.path.basename(args.model))[0]
+    if args.merge_shards and not is_2d:     # reads pickles, needs no params
+        from mv3d_tf_tpu_torch.parallel.multihost import merge_shards
+        return merge_shards(imdb, args.host_count,
+                            weights_filename=weights_filename)
     device = torch.device(args.device)
     gen = torch.Generator(device=device).manual_seed(0)
     params = (vggnet.init_params_2d(gen, n_classes=imdb.num_classes,
                                     device=device) if is_2d
               else mv3d.init_params(gen, device=device))
-    weights_filename = "default"
     if args.model:
         load_pretrained(params, args.model)
-        weights_filename = os.path.splitext(os.path.basename(args.model))[0]
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else None
     if is_2d:
         return test_net_2d(params, imdb, weights_filename=weights_filename,
                            compute_dtype=dtype)
+    if args.host_id is not None:
+        from mv3d_tf_tpu_torch.parallel.multihost import run_host_shard
+        path = run_host_shard(params, imdb, args.host_id, args.host_count,
+                              weights_filename=weights_filename,
+                              compute_dtype=dtype)
+        print("wrote shard " + path)
+        return path
     quant_cfg = None
     if args.int8:
         quant_cfg = {"stem": args.int8_stem,

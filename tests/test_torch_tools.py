@@ -1,5 +1,5 @@
 """The port's evaluation CLIs (tools/test_net.py, tools/quant_check.py) in
-subprocesses: --help, the refusals of what is not ported, and test_net end
+subprocesses: --help, test_net's refusals of bad arguments, and test_net end
 to end on the CPU over a synthetic tree the port writes, with no module of
 jax or the JAX package loaded."""
 
@@ -36,15 +36,12 @@ def test_cli_help(module, tmp_path):
 
 def test_test_net_refusals(tmp_path):
     """No arguments prints the help and exits 1 (tools/test_net.py:55-57);
-    multi-host sharding names its ROADMAP.md item; the legacy 2D network
-    VGGnet_test is taken and goes on to the dataset, where a name of no
-    dataset raises KeyError."""
+    the legacy 2D network VGGnet_test is taken and goes on to the dataset,
+    where a name of no dataset raises KeyError."""
     code = (
         "import sys\n"
         "from mv3d_tf_tpu_torch.tools.test_net import main\n"
         "for argv, want in (([], '1'),\n"
-        "                   (['--host_id', '0'], 'Queue 1 item 7'),\n"
-        "                   (['--merge_shards'], 'Queue 1 item 7'),\n"
         "                   (['--network', 'VGGnet_test', '--imdb',\n"
         "                     'coco2014'], 'Unknown dataset')):\n"
         "    try:\n"
