@@ -75,10 +75,16 @@ all-reduced gradients held to the mean-loss gradients taken frame by
 frame, one NCCL rank beside it; frame-parallel bf16 detection at B=4;
 row-sharded detection of one frame in f32 and bf16, the stems and ROI
 kernels on band shapes); and tools.gpu_selfcheck in a process of its own.
+After the last tools (before the legacy 2D phases): geometry.py on the card
+against the CPU (the BEV pixel maps equal on 200,000 boxes and on every
+multiple of 0.1 m, the projections within 1e-5 of the max) and the train ->
+test pipeline script, mv3d_tf_tpu_torch/scripts/mv3d.sh, on the train_net
+phase's synthetic tree in a subprocess: train_net 2 iterations at full
+width, test_net on its snapshot, neither process loading jax.
 Every failed check raises, so the exit code is non-zero; without a CUDA
 device it exits non-zero before printing any result.
 The last line is {"ok": true, "device": {...}}; the line before it is the
-card's name and power limit, and before that a JSON line per kernel.
+card's name and power limit, and before that the {"kernels": [...]} line.
 """
 
 import concurrent.futures
@@ -3987,10 +3993,287 @@ def phase_new_tools(root, weights, smi):
     return total
 
 
+
+# --------------------------------------------------------------------------
+# The rest of geometry.py and the train -> test pipeline script
+# --------------------------------------------------------------------------
+
+# the projections, the corners' mean and the inverse on the card against the
+# CPU: float32 sums in another order, of the max
+GEOM_REL = 1e-5
+# the rectifying rotation of tests/test_geometry.py (example_calib's is I)
+GEOM_R0 = np.array([[0.9999, 0.0098, -0.0074], [-0.0099, 0.9999, -0.0043],
+                    [0.0074, 0.0044, 0.9999]], np.float32)
+
+
+def seed0_boxes(n=200_000):
+    """tests/test_torch_geometry_rest.py:seed0_boxes: x in [0, 60), y in
+    [-30, 30), z 0, l in [1, 5), w in [1, 3), h 1.5 from RandomState(0);
+    a true division by RES puts 5 of them one BEV pixel off jitted JAX."""
+    rng = np.random.RandomState(0)
+    x, y = rng.uniform(0, 60, n), rng.uniform(-30, 30, n)
+    l, w = rng.uniform(1, 5, n), rng.uniform(1, 3, n)
+    return np.stack([x, y, np.zeros(n), l, w, np.full(n, 1.5)],
+                    1).astype(np.float32)
+
+
+def phase_geometry(smi):
+    """geometry.py on CUDA tensors against the same functions on the CPU.
+    The BEV pixel maps equal: lidar_to_bv_coord on every multiple of 0.1 m
+    of the crop (also against numpy's floor((v - min) * float32(10)), the
+    reciprocal rule of jitted JAX), lidar_3d_to_bv, lidar_to_bv and
+    corners_to_bv on the 200,000 seed-0 boxes, bv_to_lidar_coords on every
+    pixel. The projections (compute_corners_3d, camera_to_lidar_cnr,
+    cam_to_lidar_3d, project_to_image, lidar_cnr_to_img untruncated,
+    lidar_cnr_to_img_full), the corners' mean, the inverse extrinsics and
+    bbox_transform_cnr within GEOM_REL of the max, at the shapes of the JAX
+    package's tests; lidar_cnr_to_img's truncated boxes equal but where the
+    untruncated value lies within 1e-3 of an integer."""
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(SEED)
+    boxes = seed0_boxes()
+    tenths_x = (np.arange(0, 600) / 10).astype(np.float32)
+    tenths_y = (np.arange(-300, 300) / 10).astype(np.float32)
+    px = np.arange(601, dtype=np.float32)
+    batch = rng.randint(0, 4, (len(boxes), 1)).astype(np.float32)
+    near = np.stack([rng.uniform(5, 40, 256), rng.uniform(-15, 15, 256),
+                     rng.uniform(-2, 0, 256), rng.uniform(1, 5, 256),
+                     rng.uniform(0.5, 2.5, 256), rng.uniform(1, 2, 256)],
+                    1).astype(np.float32)
+    cnr = G.lidar_3d_to_corners(torch.from_numpy(near)).numpy()
+    cnr_all = G.lidar_3d_to_corners(torch.from_numpy(boxes)).numpy()
+    calib = profiling.example_calib()
+    tr, p2 = calib[3], calib[0]
+    r0 = np.concatenate([GEOM_R0.reshape(-1), np.zeros(3, np.float32)])
+    cam = np.concatenate([rng.uniform(-20, 40, (50, 3)),
+                          rng.uniform(1, 5, (50, 3))], 1).astype(np.float32)
+    pts = np.stack([rng.uniform(-10, 10, 200), rng.uniform(-2, 2, 200),
+                    rng.uniform(5, 60, 200)]).astype(np.float32)
+    gt = cnr + rng.uniform(-1, 1, cnr.shape).astype(np.float32)
+    equal = (
+        ("lidar_to_bv_coord tenths", G.lidar_to_bv_coord,
+         (tenths_x, tenths_y)),
+        ("lidar_3d_to_bv", G.lidar_3d_to_bv, (boxes,)),
+        ("lidar_to_bv", G.lidar_to_bv, (np.concatenate([batch, boxes], 1),)),
+        ("corners_to_bv", G.corners_to_bv,
+         (np.concatenate([cnr_all, cnr_all[::-1]], 1),)),
+        ("bv_to_lidar_coords", G.bv_to_lidar_coords, (px, px[::-1].copy())),
+    )
+    close = (
+        ("lidar_cnr_to_3d", G.lidar_cnr_to_3d, (gt, near[:, 3:6])),
+        ("compute_corners_3d", lambda b, ry: torch.stack(
+            [G.compute_corners_3d(b[i], ry[i]) for i in range(len(b))]),
+         (cam[:8], rng.uniform(-np.pi, np.pi, 8).astype(np.float32))),
+        ("_legacy_inverse_rt", G._legacy_inverse_rt, (tr,)),
+        ("camera_to_lidar_cnr (3, 8)", G.camera_to_lidar_cnr,
+         (gt[0].reshape(3, 8), tr)),
+        ("camera_to_lidar_cnr (N, 24)", G.camera_to_lidar_cnr, (gt[:50], tr)),
+        ("cam_to_lidar_3d", G.cam_to_lidar_3d, (cam, tr)),
+        ("project_to_image", G.project_to_image, (pts, p2)),
+        ("lidar_cnr_to_img untruncated",
+         lambda *a: G.lidar_cnr_to_img(*a, legacy_int=False), (cnr, tr, r0, p2)),
+        ("lidar_cnr_to_img_full", G.lidar_cnr_to_img_full, (cnr, tr, r0, p2)),
+        ("bbox_transform_cnr", G.bbox_transform_cnr, (cnr, gt)),
+    )
+
+    def both(fn, args):
+        """fn's outputs on the CPU and on the card, as CPU tensors."""
+        outs = []
+        for dev in ("cpu", "cuda"):
+            out = fn(*(torch.from_numpy(a).to(dev) for a in args))
+            outs.append([o.cpu() for o in
+                         (out if isinstance(out, tuple) else (out,))])
+        return outs
+
+    coords = 0
+    for name, fn, args in equal:
+        cpu, card = both(fn, args)
+        for c, g in zip(cpu, card):
+            if not torch.equal(c, g):
+                raise AssertionError("%s: %d of %d coordinates differ on the "
+                                     "card" % (name, int((c != g).sum()),
+                                               c.numel()))
+            coords += c.numel()
+    xx, yy = both(G.lidar_to_bv_coord, (tenths_x, tenths_y))[1]
+    f32 = np.float32
+    want = (G.Yn - np.floor((tenths_y - f32(G.TOP_Y_MIN)) * f32(10)),
+            G.Xn - np.floor((tenths_x - f32(G.TOP_X_MIN)) * f32(10)))
+    if not (np.array_equal(xx.numpy(), want[0])
+            and np.array_equal(yy.numpy(), want[1])):
+        raise AssertionError("lidar_to_bv_coord on the tenths is not "
+                             "floor((v - min) * float32(10)) on the card")
+    errs = {}
+    for name, fn, args in close:
+        cpu, card = both(fn, args)
+        errs[name] = max(max_err(g, c) / max(c.abs().max().item(), 1e-30)
+                         for c, g in zip(cpu, card))
+        if errs[name] > GEOM_REL:
+            raise AssertionError("%s on the card: %.3g of the max > %g"
+                                 % (name, errs[name], GEOM_REL))
+    raw = G.lidar_cnr_to_img(*(torch.from_numpy(a) for a in (cnr, tr, r0, p2)),
+                             legacy_int=False)
+    near_int = (raw - raw.round()).abs() < 1e-3
+    (cpu_t,), (card_t,) = both(G.lidar_cnr_to_img, (cnr, tr, r0, p2))
+    if not torch.equal(cpu_t[~near_int], card_t[~near_int]) \
+            or (cpu_t - card_t).abs().max() > 1:
+        raise AssertionError("lidar_cnr_to_img's truncated boxes differ on "
+                             "the card away from integers")
+    print("geometry on the card against the CPU: %d BEV coordinates equal "
+          "(the 600 tenths of 0.1 m on floor((v - min) * float32(10))), "
+          "projections of the max %s, truncated image boxes equal (%d of "
+          "%d within 1e-3 of an integer); %.2f s, on [%s]"
+          % (coords, json.dumps({k: float("%.3g" % v)
+                                 for k, v in errs.items()}),
+             int(near_int.sum()), near_int.numel(),
+             time.perf_counter() - t0, smi))
+
+
+# a python3 first on the pipeline script's PATH: this interpreter running
+# the module the script names, with an exit hook that appends the process's
+# argv, its kernels' launch counts and the jax modules it loaded to the
+# file $MV3D_PIPELINE_REPORT
+_PIPELINE_PYTHON = """#!/bin/bash
+exec "%s" "%s" "$@"
+"""
+_PIPELINE_HOOK = """
+import atexit, json, os, runpy, sys
+
+COUNTS = (("roi_pool", "roi_pool_cuda", "roi_pool_cuda"),
+          ("roi_pool_bwd", "roi_pool_cuda", "roi_pool_bwd_cuda"),
+          ("vgg_stem", "vgg_stem_cuda", "vgg_stem_cuda"),
+          ("stem_s2d_fused", "stem_s2d_cuda", "stem_s2d_fused_cuda"),
+          ("bev_place", "bev_cuda", "bev_place_cuda"),
+          ("conv_s8", "conv_s8_cuda", "conv3x3_s8_cuda"),
+          ("conv2x2_s8", "conv_s8_cuda", "conv2x2_s8_cuda"),
+          ("matmul_s8", "conv_s8_cuda", "matmul_s8_cuda"))
+
+
+def report():
+    launches = {}
+    for key, mod, fn in COUNTS:
+        m = sys.modules.get("mv3d_tf_tpu_torch.ops." + mod)
+        launches[key] = getattr(m, fn).launches if m else 0
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib", "mv3d_tf_tpu"))
+    with open(os.environ["MV3D_PIPELINE_REPORT"], "a") as f:
+        f.write(json.dumps({"argv": sys.argv, "launches": launches,
+                            "loaded": loaded}) + "\\n")
+
+
+atexit.register(report)
+assert sys.argv[1] == "-m", sys.argv
+sys.path[0] = os.getcwd()          # as python3 -m puts it
+sys.argv = sys.argv[2:]
+runpy.run_module(sys.argv[0], run_name="__main__", alter_sys=True)
+"""
+
+
+def phase_pipeline(root, smi):
+    """mv3d_tf_tpu_torch/scripts/mv3d.sh cuda 0 none kitti_train 2 <root>
+    from this checkout, as a subprocess: tools.train_net 2 iterations at
+    full width (bf16, the end2end cfg) on the synthetic tree's 8 train
+    frames, then tools.test_net on the snapshot over its 8 val frames.
+    Through a python3 first on the script's PATH (this interpreter with an
+    exit hook), each CLI process reports its argv, its launches (from 0 at
+    its start to its exit) and the jax modules it loaded. Checks exit 0,
+    that the last "Wrote snapshot to:" path exists and is test_net's
+    --weights, the AP lines, the train run's ROI kernels and the test run's
+    stem and ROI kernels launched, and no jax, jaxlib or mv3d_tf_tpu
+    module. Removes what the run wrote under output/, experiments/logs/,
+    kitti/results/ and data/cache/. Returns the summed launches."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    exp_out = os.path.join(here, "output", "faster_rcnn_end2end")
+    results = os.path.join(here, "kitti", "results")   # KITTI result files
+    created = [d for d in (os.path.join(here, "experiments", "logs"),
+                           os.path.join(here, "output"), exp_out,
+                           os.path.join(here, "kitti"), results)
+               if not os.path.exists(d)]
+    kept = set(os.listdir(results)) if os.path.isdir(results) else set()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        report = os.path.join(tmp, "report.jsonl")
+        with open(os.path.join(tmp, "hook.py"), "w") as f:
+            f.write(_PIPELINE_HOOK)
+        with open(os.path.join(tmp, "python3"), "w") as f:
+            f.write(_PIPELINE_PYTHON % (sys.executable,
+                                        os.path.join(tmp, "hook.py")))
+        os.chmod(os.path.join(tmp, "python3"), 0o755)
+        env = dict(os.environ, MV3D_PIPELINE_REPORT=report,
+                   PATH=tmp + os.pathsep + os.environ.get("PATH", ""))
+        proc = subprocess.run(
+            ["bash", "mv3d_tf_tpu_torch/scripts/mv3d.sh", "cuda", "0",
+             "none", "kitti_train", "2", root], cwd=here, env=env,
+            capture_output=True, text=True, timeout=600)
+        secs = time.perf_counter() - t0
+        lines = proc.stdout.splitlines()
+        try:
+            if proc.returncode != 0:
+                raise AssertionError("mv3d.sh exited %d:\n%s\n%s" % (
+                    proc.returncode, "\n".join(lines[-30:]),
+                    proc.stderr[-3000:]))
+            with open(report) as f:
+                runs = [json.loads(line) for line in f]
+            snaps = [line.split()[3] for line in lines
+                     if line.startswith("Wrote snapshot to: ")]
+            aps = [line for line in lines if line.startswith("BEV AP@")]
+            if len(runs) != 2 or not snaps or not aps:
+                raise AssertionError("mv3d.sh: %d CLI runs, snapshots %s, "
+                                     "AP lines %s" % (len(runs), snaps, aps))
+            train, test = runs
+            weights = test["argv"][test["argv"].index("--weights") + 1]
+            if not (train["argv"][0].endswith(".train_net")
+                    and test["argv"][0].endswith(".test_net")
+                    and weights == snaps[-1] and os.path.isfile(weights)):
+                raise AssertionError("mv3d.sh: test_net loaded %s, the last "
+                                     "snapshot is %s; argv %s, %s" % (
+                                         weights, snaps[-1], train["argv"],
+                                         test["argv"]))
+            for run, need in ((train, ("roi_pool", "roi_pool_bwd")),
+                              (test, ("roi_pool", "vgg_stem"))):
+                if run["loaded"] or not all(run["launches"][k]
+                                            for k in need):
+                    raise AssertionError("mv3d.sh %s: launches %s, loaded %s"
+                                         % (run["argv"][0], run["launches"],
+                                            run["loaded"]))
+            snap_mb = os.path.getsize(weights) / 1e6
+        finally:
+            written = []
+            for line in lines:
+                if line.startswith("wrote gt roidb to "):
+                    written.append(line[len("wrote gt roidb to "):])
+                if line.startswith("Logging output to "):
+                    log = os.path.join(here, line.split()[3])
+                    written += [log, log[:-len(".txt")] + "_train.txt"]
+            if os.path.isdir(results):
+                written += [os.path.join(results, d)
+                            for d in set(os.listdir(results)) - kept]
+            written += [os.path.join(exp_out, imdb)
+                        for imdb in ("kitti_train", "kitti_val")]
+            for d in written + created[::-1]:
+                if os.path.isdir(d):
+                    shutil.rmtree(d)
+                elif os.path.exists(d):
+                    os.remove(d)
+    total = {}
+    for run in runs:
+        add_launches(total, run["launches"])
+    for line in lines:
+        if line.startswith(("iter: ", "Wrote snapshot", "BEV AP@")):
+            print(line)
+    print("mv3d_tf_tpu_torch/scripts/mv3d.sh cuda 0 none kitti_train 2 "
+          "(train_net -> test_net, no jax): %.1f s, snapshot %.0f MB, "
+          "launches train %s, test %s, on [%s]"
+          % (secs, snap_mb,
+             {k: v for k, v in train["launches"].items() if v},
+             {k: v for k, v in test["launches"].items() if v}, smi))
+    return total
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; "
                  "this run needs an NVIDIA GPU")
+    start = time.perf_counter()
     smi = phase_environment()
     gen = torch.Generator().manual_seed(SEED)
     roi = phase_roi_pool(gen)
@@ -4041,6 +4324,13 @@ def main():
         multihost = phase_multihost(root, weights, smi)
         new_tools = phase_new_tools(root, weights, smi)
         multi_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        phase_geometry(smi)
+        t1 = time.perf_counter()
+        pipeline = phase_pipeline(root, smi)
+        print("the geometry and pipeline phases: %.1f s (geometry %.1f, "
+              "mv3d.sh %.1f)" % (time.perf_counter() - t0, t1 - t0,
+                                 time.perf_counter() - t1))
     t0 = time.perf_counter()
     phase_roi_2d(gen, smi)
     np2d = he_normal_params_2d(SEED)
@@ -4071,7 +4361,7 @@ def main():
     new_paths = {}
     for counts in (fused, clis, trained, demo, accuracy, tools, detect_2d,
                    train_2d, clis_2d, fast_rcnn, alt_opt, multihost,
-                   new_tools, parallel):
+                   new_tools, parallel, pipeline):
         add_launches(new_paths, counts)
     loaded = [m for m in sys.modules
               if m.split(".")[0] in ("jax", "jaxlib", "mv3d_tf_tpu")]
@@ -4085,7 +4375,8 @@ def main():
     # the 2D detector's, train step's and CLIs' runs, the Fast R-CNN
     # steps' and the alternating-optimisation flow's runs, and the
     # multi-host test_net's, the last tools', the parallel paths' (their
-    # ranks' counts) and the dry run's
+    # ranks' counts) and the dry run's, and mv3d.sh's train_net and test_net
+    print("chip_smoke: %.1f s in all" % (time.perf_counter() - start))
     print(json.dumps({"kernels": [
         {"name": "roi_pool", "route": "cuda", "source": ROI_SOURCE,
          "replaces": "mv3d_tf_tpu/ops/roi_pool_pallas.py:71",

@@ -172,8 +172,11 @@ def proposal_target_layer_2d(u_fg, u_bg, rois, rois_valid, gt_boxes,
 
     t = G.bbox_transform(out_rois[:, 1:5], gt_boxes[out_assign, :4])
     if bbox_normalize:
+        # jitted JAX divides by the constant stds as a multiply by their
+        # float32 reciprocals
+        inv_stds = np.float32(1) / np.asarray(normalize_stds, np.float32)
         t = ((t - torch.tensor(normalize_means, device=dev))
-             / torch.tensor(normalize_stds, device=dev))
+             * torch.tensor(inv_stds, device=dev))
     cols = torch.arange(4 * num_classes, device=dev)
     hit = ((cols[None, :] // 4 == out_labels[:, None])
            & ((out_labels > 0) & out_valid)[:, None])

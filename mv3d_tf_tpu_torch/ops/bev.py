@@ -52,26 +52,37 @@ _Y_SHIFT = int(np.floor(TOP_X_MAX / RES))                 # +600 (y_img shift)
 DEAD = 1 << 30   # the sort key of a point that lands in no slot: sorts last
 
 
-def point_cloud_2_top_np(points):
-    """The numpy twin of the reference BEV generator (read_lidar.py:10-115).
+def point_cloud_2_top_np(points, res=RES, zres=ZRES,
+                         side_range=(-TOP_Y_MAX, TOP_Y_MAX),
+                         fwd_range=(TOP_X_MIN, TOP_X_MAX),
+                         height_range=(HEIGHT_MIN, HEIGHT_MAX)):
+    """The numpy twin of the reference BEV generator (read_lidar.py:10-115),
+    with its ranges (mv3d_tf_tpu/ops/bev.py:51-80).
 
     points: (N, 4) [x, y, z, reflectance], taken as float32. Returns
-    (601, 601, 9) float32. Slice membership compares z with the slice
-    bounds rounded to float32, not in float64 as numpy 2 would promote
-    them: float32 is what the reference computed under numpy 1.x and
-    what every device path computes.
+    float32 (fwd/res + 1, side/res + 1, height/zres + 1): (601, 601, 9) at
+    the defaults. Slice membership compares z with the slice bounds
+    rounded to float32, not in float64 as numpy 2 would promote them:
+    float32 is what the reference computed under numpy 1.x and what every
+    device path computes.
     """
     points = np.asarray(points, np.float32)
     x, y, z, r = points[:, 0], points[:, 1], points[:, 2], points[:, 3]
-    top = np.zeros((BEV_H, BEV_W, BEV_C), np.float32)
-    in_range = ((x > TOP_X_MIN) & (x < TOP_X_MAX)
-                & (y > -TOP_Y_MAX) & (y < TOP_Y_MAX))
-    for i, (lo, hi) in enumerate(_SLICE_BOUNDS):
+    x_max = int((side_range[1] - side_range[0]) / res)
+    y_max = int((fwd_range[1] - fwd_range[0]) / res)
+    z_max = int((height_range[1] - height_range[0]) / zres)
+    top = np.zeros((y_max + 1, x_max + 1, z_max + 1), np.float32)
+    in_range = ((x > fwd_range[0]) & (x < fwd_range[1])
+                & (y > -side_range[1]) & (y < -side_range[0]))
+    x_shift = -int(np.floor(side_range[0] / res))
+    y_shift = int(np.floor(fwd_range[1] / res))
+    for i, h in enumerate(np.arange(height_range[0], height_range[1], zres)):
+        lo, hi = np.float32(h), np.float32(h + zres)
         idx = np.flatnonzero(in_range & (z >= lo) & (z < hi))
-        x_img = (-y[idx] / RES).astype(np.int32) + _X_SHIFT
-        y_img = (-x[idx] / RES).astype(np.int32) + _Y_SHIFT
-        top[y_img, x_img, i] = z[idx] - HEIGHT_MIN
-        top[y_img, x_img, N_SLICES] = r[idx]
+        x_img = (-y[idx] / res).astype(np.int32) + x_shift
+        y_img = (-x[idx] / res).astype(np.int32) + y_shift
+        top[y_img, x_img, i] = z[idx] - height_range[0]
+        top[y_img, x_img, z_max] = r[idx]
     return top
 
 

@@ -16,9 +16,12 @@ package on them, chip_smoke.py the kernels to the plain versions.
 
 The train path's pool (``roi_pool_train``) takes a single or batched map
 (the Fast R-CNN step pools an image pyramid), and its gradient is the TPU
-kernel's even-split equality replay (``roi_pool_bwd``).
+kernel's even-split equality replay (``roi_pool_bwd``). ``roi_pool_np`` is
+the numpy transliteration of the reference's CUDA loops, one roi and bin at
+a time: the host oracle of the same bounds.
 """
 
+import numpy as np
 import torch
 
 _NEG = float("-inf")
@@ -263,3 +266,32 @@ def roi_pool_train_plain(feat, rois, pooled=7, spatial_scale=1.0 / 8):
     """roi_pool_train's plain pair: the plain forward and gradient, on the
     device feat lies on, with no kernel."""
     return RoIPoolTrainPlain.apply(feat, rois, pooled, spatial_scale)
+
+
+def roi_pool_np(feat, rois, pooled=7, spatial_scale=1.0 / 8):
+    """The reference's ROIPoolForward loops in numpy on one (H,W,C) map and
+    (R,5) rois, with the integer-exact bins of ``bin_bounds``
+    (ops/roi_pool.py:226-256). Returns (R,pooled,pooled,C)."""
+    f32 = np.float32
+    H, W, C = feat.shape
+    out = np.zeros((rois.shape[0], pooled, pooled, C), feat.dtype)
+
+    def cround(v):
+        return int(np.sign(v) * np.floor(abs(f32(v)) + f32(0.5)))
+
+    for r in range(rois.shape[0]):
+        xs, ys, xe, ye = (cround(f32(rois[r, k]) * f32(spatial_scale))
+                          for k in (1, 2, 3, 4))
+        roi_w = max(xe - xs + 1, 1)
+        roi_h = max(ye - ys + 1, 1)
+        for ph in range(pooled):
+            for pw in range(pooled):
+                h0 = min(max((ph * roi_h) // pooled + ys, 0), H)
+                h1 = min(max(((ph + 1) * roi_h + pooled - 1) // pooled + ys,
+                             0), H)
+                w0 = min(max((pw * roi_w) // pooled + xs, 0), W)
+                w1 = min(max(((pw + 1) * roi_w + pooled - 1) // pooled + xs,
+                             0), W)
+                if h1 > h0 and w1 > w0:
+                    out[r, ph, pw] = feat[h0:h1, w0:w1].max(axis=(0, 1))
+    return out

@@ -87,6 +87,32 @@ def test_twin_matches_jax_twin(seed):
                           J.point_cloud_2_top_np(pts))
 
 
+# (res, zres, side_range, fwd_range, height_range) other than the defaults
+RANGES = {
+    "coarse": (0.2, 0.5, (-20.0, 20.0), (0.0, 40.0), (-2.5, 1.0)),
+    "offset": (0.1, 0.3, (-10.0, 25.0), (5.0, 45.0), (-1.7, 0.5)),
+    "fine": (0.05, 0.4, (-15.0, 15.0), (0.0, 30.0), (-2.0, 0.4)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(RANGES))
+def test_twin_ranges_match_jax_twin(name):
+    """The twin's range arguments size and fill the raster as JAX's twin
+    does, bit for bit (no z on a slice bound, where the two differ)."""
+    res, zres, side, fwd, height = RANGES[name]
+    pts = _scan(np.random.RandomState(4))
+    starts = np.arange(height[0], height[1], zres)
+    bounds = np.float32(np.concatenate([starts, starts + zres]))
+    assert not np.isin(pts[:, 2], bounds).any()
+    kw = dict(res=res, zres=zres, side_range=side, fwd_range=fwd,
+              height_range=height)
+    want = J.point_cloud_2_top_np(pts, **kw)
+    got = T.point_cloud_2_top_np(pts, **kw)
+    assert got.shape == want.shape != (601, 601, 9)
+    assert got.dtype == np.float32 and np.count_nonzero(got) > 1000
+    assert np.array_equal(got, want)
+
+
 def _heavy_duplicates(rng):
     """tests/test_bev.py:106-115 traffic for one scan: every other point in
     a 0.5 m square, 5% of the rows invalid."""

@@ -1,11 +1,14 @@
 """The port's geometry and anchor grid against mv3d_tf_tpu on the same
-numpy inputs: float32 functions at rtol 1e-6, the anchor tables bit for bit."""
+numpy inputs: float32 functions at rtol 1e-6, the anchor tables bit for bit.
+The BEV pixel maps are held to jax.jit of the JAX functions, which is how
+JAX's detector runs them (the division by RES a reciprocal multiply)."""
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from __graft_entry__ import _example_calib  # noqa: E402
@@ -38,11 +41,11 @@ def _close(port, ref):
 def test_box_transforms_match_jax(rng):
     boxes = _boxes(rng, 64)
     deltas = (rng.randn(64, 12) * 0.2).astype(np.float32)
-    _close(TG.lidar_3d_to_bv(_t(boxes)), G.lidar_3d_to_bv(boxes))
+    _close(TG.lidar_3d_to_bv(_t(boxes)), jax.jit(G.lidar_3d_to_bv)(boxes))
     cnr = G.lidar_3d_to_corners(boxes)
     _close(TG.lidar_3d_to_corners(_t(boxes)), cnr)
     cnr2 = np.concatenate([np.asarray(cnr)] * 2, 1)
-    _close(TG.corners_to_bv(_t(cnr2)), G.corners_to_bv(cnr2))
+    _close(TG.corners_to_bv(_t(cnr2)), jax.jit(G.corners_to_bv)(cnr2))
     _close(TG.bbox_transform_inv_3d(_t(boxes), _t(deltas)),
            G.bbox_transform_inv_3d(boxes, deltas))
     _close(TG.corner_diag(_t(np.asarray(cnr))), G.corner_diag(cnr))
@@ -53,7 +56,7 @@ def test_box_transforms_match_jax(rng):
     _close(TG.clip_boxes(_t(wide), (601, 601)), G.clip_boxes(wide, (601, 601)))
     x, y = boxes[:, 0], boxes[:, 1]
     for p, r in zip(TG.lidar_to_bv_coord(_t(x), _t(y)),
-                    G.lidar_to_bv_coord(x, y)):
+                    jax.jit(G.lidar_to_bv_coord)(x, y)):
         _close(p, r)
 
 

@@ -47,6 +47,20 @@ def test_plain_matches_numpy_oracle(rng):
     assert not got[-1].any()
 
 
+def test_numpy_twin_matches_jax_numpy_oracle(rng):
+    """The port's roi_pool_np against JAX's, bit for bit, and against the
+    plain pool, at 1/8 and at the 2D path's 1/16."""
+    feat = rng.randn(20, 24, 8).astype(np.float32)
+    rois = _rois(rng, 60, 160, 192)
+    for scale in (1.0 / 8, 1.0 / 16):
+        got = T.roi_pool_np(feat, rois, spatial_scale=scale)
+        np.testing.assert_array_equal(
+            got, roi_pool_np(feat, rois, spatial_scale=scale))
+        np.testing.assert_array_equal(got, T.roi_pool(
+            torch.from_numpy(feat), torch.from_numpy(rois),
+            spatial_scale=scale).numpy())
+
+
 def test_bin_bounds_match_jax(rng):
     rois = _rois(rng, 50, 600, 600)
     ref = _bin_bounds(jnp.asarray(rois), 7, 1.0 / 8, 75, 75)
