@@ -1,0 +1,9 @@
+"""mfu.detect: the model's FLOPs per frame (convolutions and fully
+connected layers, from the configuration's shapes) times the window's
+frames per second, over 989 TFLOP/s."""
+
+from benchmark.lib import readers
+
+
+def read(run):
+    return readers.mfu_pct(run)
