@@ -1,0 +1,9 @@
+"""proposals_launches.detect: the runtime's launch, copy and set calls made
+while the host is inside the program's detect.proposals span, a call,
+from the program's own spans (lib/spans.py)."""
+
+from benchmark.lib import spans
+
+
+def read(run):
+    return spans.span(run, "detect.proposals", "launches")

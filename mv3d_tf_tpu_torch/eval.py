@@ -25,6 +25,7 @@ import torch
 
 from mv3d_tf_tpu_torch import geometry as G
 from mv3d_tf_tpu_torch import quant as Q
+from mv3d_tf_tpu_torch import trace as T
 from mv3d_tf_tpu_torch.config import cfg
 from mv3d_tf_tpu_torch.models import mv3d
 from mv3d_tf_tpu_torch.ops.nms import nms_np
@@ -42,14 +43,18 @@ def proposals(rpn_cls, rpn_box, calib, feat_h=75, feat_w=75,
     pool with the frame index in column 0 (eval.py:217-220). Returns
     (rois, flat_bv (B*P,5), flat_img (B*P,5)); nms_impl is the layer's."""
     B, P = rpn_cls.shape[0], post_nms_top_n
-    rois = proposal_layer_3d(mv3d.rpn_probs(rpn_cls), rpn_box.float(), calib,
-                             feat_h, feat_w, pre_nms_top_n=pre_nms_top_n,
-                             post_nms_top_n=P, nms_thresh=rpn_nms_thresh,
-                             nms_impl=nms_impl)
-    frame = torch.arange(B, dtype=torch.float32,
-                         device=rpn_cls.device).repeat_interleave(P)[:, None]
-    flat_bv = torch.cat([frame, rois["rois_bv"].reshape(B * P, 5)[:, 1:]], 1)
-    flat_img = torch.cat([frame, rois["rois_img"].reshape(B * P, 5)[:, 1:]], 1)
+    with T.span("detect.proposals"):
+        rois = proposal_layer_3d(mv3d.rpn_probs(rpn_cls), rpn_box.float(),
+                                 calib, feat_h, feat_w,
+                                 pre_nms_top_n=pre_nms_top_n,
+                                 post_nms_top_n=P, nms_thresh=rpn_nms_thresh,
+                                 nms_impl=nms_impl)
+        frame = torch.arange(B, dtype=torch.float32, device=rpn_cls.device
+                             ).repeat_interleave(P)[:, None]
+        flat_bv = torch.cat([frame, rois["rois_bv"].reshape(B * P, 5)[:, 1:]],
+                            1)
+        flat_img = torch.cat(
+            [frame, rois["rois_img"].reshape(B * P, 5)[:, 1:]], 1)
     return rois, flat_bv, flat_img
 
 
@@ -88,25 +93,29 @@ def detect_from_features(params, c5, c5_2, calib, feat_h=75, feat_w=75,
     Returns the single-frame detector's keys with leading dims (B, P), and
     "nms_converged" (B,) with nms_impl="blocked_fixed".
     """
-    rpn_cls, rpn_box = mv3d.rpn_head(params, c5, dtype=compute_dtype)
+    with T.span("detect.rpn"):
+        rpn_cls, rpn_box = mv3d.rpn_head(params, c5, dtype=compute_dtype)
     rois, flat_bv, flat_img = proposals(
         rpn_cls, rpn_box, calib, feat_h, feat_w, pre_nms_top_n,
         post_nms_top_n, rpn_nms_thresh, nms_impl)
-    pooled_bv = pool(c5, flat_bv, spatial_scale=1.0 / 8)
-    pooled_img = pool(c5_2, flat_img, spatial_scale=1.0 / 8)
-    _, cls_prob, bbox_pred = mv3d.fusion_head(params, pooled_bv, pooled_img,
-                                              dtype=compute_dtype)
-    return _outputs(rois, cls_prob, bbox_pred)
+    with T.span("detect.roi_pool"):
+        pooled_bv = pool(c5, flat_bv, spatial_scale=1.0 / 8)
+        pooled_img = pool(c5_2, flat_img, spatial_scale=1.0 / 8)
+    with T.span("detect.head"):
+        _, cls_prob, bbox_pred = mv3d.fusion_head(
+            params, pooled_bv, pooled_img, dtype=compute_dtype)
+        return _outputs(rois, cls_prob, bbox_pred)
 
 
 def _inputs(params, bev, image, calib):
     """Inputs as float32 tensors on the params' device, the image
     mean-subtracted in float32 before any cast."""
-    dev = next(params.parameters()).device
-    bev = torch.as_tensor(bev, dtype=torch.float32, device=dev)
-    image = (torch.as_tensor(image, device=dev).float()
-             - torch.from_numpy(PIXEL_MEANS).to(dev))
-    calib = torch.as_tensor(calib, dtype=torch.float32, device=dev)
+    with T.span("detect.inputs"):
+        dev = next(params.parameters()).device
+        bev = torch.as_tensor(bev, dtype=torch.float32, device=dev)
+        image = (torch.as_tensor(image, device=dev).float()
+                 - torch.from_numpy(PIXEL_MEANS).to(dev))
+        calib = torch.as_tensor(calib, dtype=torch.float32, device=dev)
     return bev, image, calib
 
 
@@ -118,8 +127,10 @@ def _detect(params, bev, image, calib, compute_dtype, stem_impl=None, **kw):
     bev, image, calib = _inputs(params, bev, image, calib)
     if stem_impl is None and compute_dtype == torch.bfloat16:
         stem_impl = "fused"
-    c5, c5_2 = mv3d.extract_features(params, bev, image, dtype=compute_dtype,
-                                     stem_impl=stem_impl)
+    with T.span("detect.trunks"):
+        c5, c5_2 = mv3d.extract_features(params, bev, image,
+                                         dtype=compute_dtype,
+                                         stem_impl=stem_impl)
     return detect_from_features(params, c5, c5_2, calib,
                                 compute_dtype=compute_dtype, **kw)
 
@@ -157,8 +168,9 @@ def _detect_int8(params, qstate, bev, image, calib, stem_impl, conv_impl,
         post_nms_top_n, rpn_nms_thresh, nms_impl)
     if not quant_pool:
         fbv, fim = _dequant(fbv, s_bv), _dequant(fim, s_im)
-    pooled_bv = roi_pool_fast(fbv, flat_bv, spatial_scale=1.0 / 8)
-    pooled_img = roi_pool_fast(fim, flat_img, spatial_scale=1.0 / 8)
+    with T.span("detect.roi_pool"):
+        pooled_bv = roi_pool_fast(fbv, flat_bv, spatial_scale=1.0 / 8)
+        pooled_img = roi_pool_fast(fim, flat_img, spatial_scale=1.0 / 8)
     head = qstate.get("head")
     if head is not None:
         if not quant_pool:
@@ -192,10 +204,11 @@ def build_detect_fn(feat_h=75, feat_w=75, pre_nms_top_n=6000,
               post_nms_top_n=post_nms_top_n, rpn_nms_thresh=rpn_nms_thresh)
 
     def detect(params, bev, image, calib):
-        out = _detect(params, torch.as_tensor(bev)[None],
-                      torch.as_tensor(image)[None],
-                      torch.as_tensor(calib)[None], compute_dtype, **kw)
-        return {name: v[0] for name, v in out.items()}
+        with T.span("detect"):
+            out = _detect(params, torch.as_tensor(bev)[None],
+                          torch.as_tensor(image)[None],
+                          torch.as_tensor(calib)[None], compute_dtype, **kw)
+            return {name: v[0] for name, v in out.items()}
 
     return detect
 
@@ -254,7 +267,8 @@ def build_detect_batch_fn(feat_h=75, feat_w=75, pre_nms_top_n=6000,
             stem_cache=stem_cache, **kw)
 
     def detect_batch(params, bev, image, calib):
-        out = run(params, bev, image, calib)
+        with T.span("detect"):
+            out = run(params, bev, image, calib)
         del out["rois_img"]
         return out
 
@@ -270,31 +284,34 @@ def frame_detections(det, num_classes=2, score_thresh=0.05,
     """
     if nms_thresh is None:
         nms_thresh = cfg.TEST.NMS
-    det = {k: (v.detach().cpu().numpy() if torch.is_tensor(v)
-               else np.asarray(v)) for k, v in det.items()}
-    scores, valid = det["scores"], det["valid"]
+    with T.span("assembly"):
+        with T.span("assembly.to_host"):
+            T.host_syncs += sum(torch.is_tensor(v) for v in det.values())
+            det = {k: (v.detach().cpu().numpy() if torch.is_tensor(v)
+                       else np.asarray(v)) for k, v in det.items()}
+        scores, valid = det["scores"], det["valid"]
 
-    out = {}
-    all_scores = []
-    for j in range(1, num_classes):
-        inds = np.where(valid & (scores[:, j] > score_thresh))[0]
-        cls_scores = scores[inds, j]
-        cls_bv = det["boxes_bv"][inds, j * 4:(j + 1) * 4]
-        cls_cnr = det["boxes_cnr"][inds, j * 24:(j + 1) * 24]
-        cls_cnr_r = det["boxes_cnr_r"][inds, j * 24:(j + 1) * 24]
-        dets = np.hstack([cls_bv, cls_scores[:, None]]).astype(np.float32)
-        keep = nms_np(dets, nms_thresh)
-        out[j] = (dets[keep],
-                  np.hstack([cls_cnr[keep], cls_scores[keep, None]]),
-                  np.hstack([cls_cnr_r[keep], cls_scores[keep, None]]))
-        all_scores.append(out[j][0][:, -1])
+        out = {}
+        all_scores = []
+        for j in range(1, num_classes):
+            inds = np.where(valid & (scores[:, j] > score_thresh))[0]
+            cls_scores = scores[inds, j]
+            cls_bv = det["boxes_bv"][inds, j * 4:(j + 1) * 4]
+            cls_cnr = det["boxes_cnr"][inds, j * 24:(j + 1) * 24]
+            cls_cnr_r = det["boxes_cnr_r"][inds, j * 24:(j + 1) * 24]
+            dets = np.hstack([cls_bv, cls_scores[:, None]]).astype(np.float32)
+            keep = nms_np(dets, nms_thresh)
+            out[j] = (dets[keep],
+                      np.hstack([cls_cnr[keep], cls_scores[keep, None]]),
+                      np.hstack([cls_cnr_r[keep], cls_scores[keep, None]]))
+            all_scores.append(out[j][0][:, -1])
 
-    # global top-N cap across classes (test_mv.py:492-501)
-    if max_per_image > 0 and all_scores:
-        flat = np.concatenate(all_scores)
-        if len(flat) > max_per_image:
-            thresh = np.sort(flat)[-max_per_image]
-            for j in list(out):
-                keep = np.where(out[j][0][:, -1] >= thresh)[0]
-                out[j] = tuple(a[keep] for a in out[j])
-    return out
+        # global top-N cap across classes (test_mv.py:492-501)
+        if max_per_image > 0 and all_scores:
+            flat = np.concatenate(all_scores)
+            if len(flat) > max_per_image:
+                thresh = np.sort(flat)[-max_per_image]
+                for j in list(out):
+                    keep = np.where(out[j][0][:, -1] >= thresh)[0]
+                    out[j] = tuple(a[keep] for a in out[j])
+        return out

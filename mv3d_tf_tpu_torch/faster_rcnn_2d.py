@@ -30,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from mv3d_tf_tpu_torch import geometry as G
+from mv3d_tf_tpu_torch import trace as T
 from mv3d_tf_tpu_torch.anchors import generate_anchors, shift_anchors
 from mv3d_tf_tpu_torch.models import mv3d, vggnet
 from mv3d_tf_tpu_torch.ops.nms import nms_matrix, top_k_by_score
@@ -81,8 +82,9 @@ def proposal_layer_2d(rpn_cls_prob, rpn_bbox_pred, im_info, feat_h, feat_w,
     top_idx, top_valid = top_k_by_score(scores, keep,
                                         min(pre_nms_top_n, scores.shape[0]))
     props, psc = proposals[top_idx], scores[top_idx]
-    keep_idx, keep_valid = nms_matrix(props, psc, top_valid, post_nms_top_n,
-                                      nms_thresh)
+    with T.span("im_detect_2d.proposals.nms"):
+        keep_idx, keep_valid = nms_matrix(props, psc, top_valid,
+                                          post_nms_top_n, nms_thresh)
     rois = torch.cat([props.new_zeros(post_nms_top_n, 1), props[keep_idx]],
                      dim=1)
     return (rois * keep_valid[:, None].float(), psc[keep_idx] * keep_valid,
@@ -204,21 +206,30 @@ def build_im_detect_2d(feat_h, feat_w, pre_nms_top_n=6000,
 
     @torch.inference_mode()
     def im_detect(params, image, im_info):
-        dev = next(params.parameters()).device
-        image = torch.as_tensor(image, dtype=torch.float32, device=dev)
-        im_info = torch.as_tensor(im_info, dtype=torch.float32, device=dev)
-        c5 = vggnet.trunk_apply_2d(params, image[None], dtype=compute_dtype)
-        cls, box = vggnet.rpn_head_2d(params, c5, dtype=compute_dtype)
-        rois, _, valid = proposal_layer_2d(
-            mv3d.rpn_probs(cls), box.float(), im_info, feat_h, feat_w,
-            pre_nms_top_n=pre_nms_top_n, post_nms_top_n=post_nms_top_n)
-        pooled = pool(c5[0], rois, spatial_scale=SPATIAL_SCALE)
-        _, cls_prob, bbox_pred = vggnet.head_2d(params, pooled.float())
-        boxes = G.bbox_transform_inv(rois[:, 1:5], bbox_pred)
-        boxes = G.clip_boxes(boxes, (im_info[0], im_info[1]))
-        mask = valid[:, None].float()
-        return {"scores": cls_prob * mask, "boxes": boxes * mask,
-                "rois": rois, "valid": valid}
+        with T.span("im_detect_2d"):
+            with T.span("im_detect_2d.inputs"):
+                dev = next(params.parameters()).device
+                image = torch.as_tensor(image, dtype=torch.float32, device=dev)
+                im_info = torch.as_tensor(im_info, dtype=torch.float32,
+                                          device=dev)
+            with T.span("im_detect_2d.trunk"):
+                c5 = vggnet.trunk_apply_2d(params, image[None],
+                                           dtype=compute_dtype)
+            with T.span("im_detect_2d.rpn"):
+                cls, box = vggnet.rpn_head_2d(params, c5, dtype=compute_dtype)
+            with T.span("im_detect_2d.proposals"):
+                rois, _, valid = proposal_layer_2d(
+                    mv3d.rpn_probs(cls), box.float(), im_info, feat_h, feat_w,
+                    pre_nms_top_n=pre_nms_top_n, post_nms_top_n=post_nms_top_n)
+            with T.span("im_detect_2d.roi_pool"):
+                pooled = pool(c5[0], rois, spatial_scale=SPATIAL_SCALE)
+            with T.span("im_detect_2d.head"):
+                _, cls_prob, bbox_pred = vggnet.head_2d(params, pooled.float())
+                boxes = G.bbox_transform_inv(rois[:, 1:5], bbox_pred)
+                boxes = G.clip_boxes(boxes, (im_info[0], im_info[1]))
+                mask = valid[:, None].float()
+                return {"scores": cls_prob * mask, "boxes": boxes * mask,
+                        "rois": rois, "valid": valid}
 
     return im_detect
 

@@ -37,6 +37,7 @@ Two float32 rules hold in all three:
 import numpy as np
 import torch
 
+from mv3d_tf_tpu_torch import trace as T
 from mv3d_tf_tpu_torch.geometry import (BEV_C, BEV_H, BEV_W, HEIGHT_MAX,
                                         HEIGHT_MIN, N_SLICES, RES, TOP_X_MAX,
                                         TOP_X_MIN, TOP_Y_MAX, ZRES)
@@ -181,12 +182,13 @@ def point_cloud_2_top_batch(points, valid, device="cuda"):
     On the card, the sort and the CUDA placement kernel, always; on the
     CPU, the plain scatter per scan; any other device raises. Numpy inputs
     go to ``device``."""
-    points, valid = _as_tensors(points, valid, device)
-    if points.is_cuda:
-        return point_cloud_2_top_fast(points, valid)
-    if points.device.type == "cpu":
-        return torch.stack([point_cloud_2_top(p, v)
-                            for p, v in zip(points, valid)])
+    with T.span("bev.raster"):
+        points, valid = _as_tensors(points, valid, device)
+        if points.is_cuda:
+            return point_cloud_2_top_fast(points, valid)
+        if points.device.type == "cpu":
+            return torch.stack([point_cloud_2_top(p, v)
+                                for p, v in zip(points, valid)])
     raise ValueError("point_cloud_2_top_batch: no rasterizer for device "
                      + str(points.device))
 
@@ -288,11 +290,12 @@ def chunk_edge_slots(n=4096, seed=0):
 
 def pad_points(points, bucket=131072):
     """Pad or trim one (N, 4) scan to a fixed bucket, with its valid mask."""
-    n = min(points.shape[0], bucket)
-    out = np.zeros((bucket, 4), np.float32)
-    out[:n] = points[:n]
-    valid = np.zeros((bucket,), bool)
-    valid[:n] = True
+    with T.span("bev.pad"):
+        n = min(points.shape[0], bucket)
+        out = np.zeros((bucket, 4), np.float32)
+        out[:n] = points[:n]
+        valid = np.zeros((bucket,), bool)
+        valid[:n] = True
     return out, valid
 
 

@@ -17,6 +17,7 @@ Two formulations give the greedy keep set, as in the JAX package:
 import numpy as np
 import torch
 
+from mv3d_tf_tpu_torch import trace as T
 from mv3d_tf_tpu_torch.ops.iou import bbox_overlaps, iou_one_to_many
 
 NEG_INF = -1e30
@@ -130,12 +131,15 @@ def _nms_blocked_core(boxes, scores, valid, max_out, iou_threshold, block,
         if rounds is None:
             while True:
                 new = step(kept)
+                T.nms_rounds += 1
+                T.host_syncs += 1
                 if torch.equal(new, kept):
                     break
                 kept = new
         else:
             for _ in range(rounds):
                 kept = step(kept)
+            T.nms_rounds += rounds
             # one more round is a no-op <=> the fixpoint was reached
             converged &= (step(kept) == kept).all(dim=1)
         kept_blocks.append(kept)
@@ -192,6 +196,8 @@ def nms_matrix(boxes, scores, valid, max_out, iou_threshold=0.7):
     kept = valid_s
     while True:
         new = valid_s & (kept.float() @ sup < 0.5)
+        T.nms_rounds += 1
+        T.host_syncs += 1
         if torch.equal(new, kept):
             break
         kept = new

@@ -13,6 +13,7 @@ layer.
 import torch
 
 from mv3d_tf_tpu_torch import geometry as G
+from mv3d_tf_tpu_torch import trace as T
 from mv3d_tf_tpu_torch.anchors import get_anchor_grid
 from mv3d_tf_tpu_torch.models.mv3d import rpn_fg_scores
 from mv3d_tf_tpu_torch.ops.nms import (nms, nms_blocked, nms_blocked_fixed,
@@ -81,16 +82,18 @@ def proposal_layer_3d(rpn_cls_prob, rpn_bbox_pred, calib, feat_h, feat_w,
     psc = scores.gather(1, top_idx)
 
     converged = None
-    if nms_impl == "blocked_fixed":
-        keep_idx, keep_valid, converged = nms_blocked_fixed(
-            bv, psc, top_valid, post_nms_top_n, nms_thresh, presorted=True)
-    elif post_nms_top_n <= 512 and nms_impl != "blocked":
-        keep_idx, keep_valid = nms(bv, psc, top_valid, post_nms_top_n,
-                                   nms_thresh)
-    else:
-        keep_idx, keep_valid = nms_blocked(bv, psc, top_valid,
-                                           post_nms_top_n, nms_thresh,
-                                           presorted=True)
+    with T.span("detect.proposals.nms"):
+        if nms_impl == "blocked_fixed":
+            keep_idx, keep_valid, converged = nms_blocked_fixed(
+                bv, psc, top_valid, post_nms_top_n, nms_thresh,
+                presorted=True)
+        elif post_nms_top_n <= 512 and nms_impl != "blocked":
+            keep_idx, keep_valid = nms(bv, psc, top_valid, post_nms_top_n,
+                                       nms_thresh)
+        else:
+            keep_idx, keep_valid = nms_blocked(bv, psc, top_valid,
+                                               post_nms_top_n, nms_thresh,
+                                               presorted=True)
     mask = keep_valid[..., None].float()
     zeros = mask.new_zeros((B, post_nms_top_n, 1))
 

@@ -11,8 +11,11 @@ shapes (601x601x9 BEV, 384x1248 image; He-scaled weights and inputs from
 seed 0), warms it, records --steps calls (each ending in a synchronize)
 with torch.profiler's CPU and CUDA activities, exports the Chrome trace
 to <out>/trace.json and parses it (``parse_trace``): the top device
-kernels by total time, every hand kernel of csrc/ that ran, and the
-device's idle gaps. The JAX tool parses a jax.profiler perfetto trace of
+kernels by total time, every hand kernel of csrc/ that ran, the device's
+idle gaps, and the program's spans (mv3d_tf_tpu_torch/trace.py, on while
+it records): per span, its wall time, the launches made inside it, the
+device time of what they launched and the idle time at whose midpoint it
+is the innermost span. The JAX tool parses a jax.profiler perfetto trace of
 one fused XLA program (tools/trace_detect.py:33-83); here the exported
 trace's kernel events are the device's own, so no lane filtering is
 needed. On the CPU (--device cpu) the table holds the top-level host ops
@@ -20,6 +23,7 @@ instead, and no device time is measured.
 """
 
 import argparse
+import bisect
 import collections
 import json
 import os
@@ -28,6 +32,7 @@ import re
 import time
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+LAUNCHES = ("cudaLaunch", "cuLaunch", "cudaMemcpy", "cudaMemset")
 
 
 def short_name(name):
@@ -70,15 +75,66 @@ def _union(intervals):
     return busy, gaps
 
 
+def span_table(events, gaps, steps=1):
+    """{span: (wall ms, launches, device ms, idle ms)} a step, of the
+    trace's user_annotation events (the program's spans): launches are the
+    runtime's launch, copy and set calls that start inside the span; the
+    device ms are of the operations those launched (joined by the events'
+    "correlation" argument); idle ms the ``gaps`` at whose midpoint it is
+    the innermost span. A span's counts hold its children's."""
+    spans = sorted(((float(e["ts"]), float(e["ts"]) + float(e["dur"]),
+                     e["name"]) for e in events
+                    if e.get("cat") == "user_annotation"),
+                   key=lambda s: (s[0], -s[1]))
+    starts = [s[0] for s in spans]
+    parent, open_ = [], []
+    for i, (s, _, _) in enumerate(spans):
+        while open_ and spans[open_[-1]][1] <= s:
+            open_.pop()
+        parent.append(open_[-1] if open_ else None)
+        open_.append(i)
+
+    def names_at(t):
+        j = bisect.bisect_right(starts, t) - 1
+        while j is not None and j >= 0 and spans[j][1] <= t:
+            j = parent[j]
+        while j is not None and j >= 0:
+            yield spans[j][2]
+            j = parent[j]
+
+    table = collections.defaultdict(lambda: [0.0, 0, 0.0, 0.0])
+    for s, e, name in spans:
+        table[name][0] += e - s
+    launched = {}
+    for e in events:
+        if (e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and e["name"].startswith(LAUNCHES)):
+            owners = list(names_at(float(e["ts"])))
+            launched[e.get("args", {}).get("correlation")] = owners
+            for n in owners:
+                table[n][1] += 1
+    for e in events:
+        if e.get("cat") in DEVICE_CATS:
+            for n in launched.get(e.get("args", {}).get("correlation"), ()):
+                table[n][2] += float(e["dur"])
+    for at, length in gaps:
+        for n in names_at(at + length / 2):
+            table[n][3] += length
+    return {n: (w / 1e3 / steps, k / steps, d / 1e3 / steps, i / 1e3 / steps)
+            for n, (w, k, d, i) in table.items()}
+
+
 def parse_trace(path, top=25, steps=1, log=print):
     """Aggregate an exported torch.profiler Chrome trace: the device
     kernels (categories kernel, gpu_memcpy, gpu_memset) when it has any,
     else the top-level host ops. Prints the lane's total, the top ops by
     total time (ms per step, share, calls), every hand kernel of csrc/ that
     ran, and the idle gaps (the union of the lane's intervals against its
-    span). Returns {"lane", "total_ms", "busy_ms", "span_ms",
-    "idle_share", "ops": [(name, ms, calls)], "hand": {name: (ms, calls)},
-    "gaps": [(at_ms, ms)]}, times summed over the trace."""
+    span), and the program's spans (``span_table``). Returns {"lane",
+    "total_ms", "busy_ms", "span_ms", "idle_share", "ops": [(name, ms,
+    calls)], "hand": {name: (ms, calls)}, "gaps": [(at_ms, ms)], "spans":
+    {name: (wall ms, launches, device ms, idle ms)}}, times summed over the
+    trace but the spans', which are a step's."""
     from mv3d_tf_tpu_torch.kernels import kernel_symbols
     with open(path) as f:
         data = json.load(f)
@@ -122,24 +178,35 @@ def parse_trace(path, top=25, steps=1, log=print):
         len(gaps), sum(g for _, g in gaps) / 1e3,
         ", ".join("({:.3f}, {:.3f})".format((at - t0) / 1e3, g / 1e3)
                   for at, g in big)))
+    spans = span_table(events, gaps, steps)
+    log("program spans, a step: {:>40s} {:>9s} {:>9s} {:>9s} {:>9s}".format(
+        "", "wall ms", "launches", "device ms", "idle ms"))
+    for name, row in sorted(spans.items()):
+        log("  {:<62s} {:9.3f} {:9.1f} {:9.3f} {:9.3f}".format(name[:62],
+                                                              *row))
+    if not spans:
+        log("  none")
     return {"lane": lane, "total_ms": total / 1e3, "busy_ms": busy / 1e3,
             "span_ms": span / 1e3,
             "idle_share": 1 - busy / span if span else 0.0,
             "ops": [(n, d / 1e3, counts[n]) for n, d in by_name.most_common()],
             "hand": hand,
-            "gaps": [((at - t0) / 1e3, g / 1e3) for at, g in gaps]}
+            "gaps": [((at - t0) / 1e3, g / 1e3) for at, g in gaps],
+            "spans": spans}
 
 
 def record(run, steps, out_dir, device):
-    """run() --steps times under torch.profiler (each call ends in a
-    synchronize); writes <out_dir>/trace.json. Returns (path, ms per call
-    on the host clock)."""
+    """run() --steps times under torch.profiler with the program's spans
+    on (each call ends in a synchronize); writes <out_dir>/trace.json.
+    Returns (path, ms per call on the host clock)."""
     import torch
 
+    from mv3d_tf_tpu_torch import trace
     from mv3d_tf_tpu_torch.tools import profiling as P
     os.makedirs(out_dir, exist_ok=True)
     path = osp.join(out_dir, "trace.json")
-    with torch.profiler.profile(activities=P.activities(device)) as prof:
+    with trace.tracing(), torch.profiler.profile(
+            activities=P.activities(device)) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             run()

@@ -83,6 +83,42 @@ def test_parse_trace_host_lane(tmp_path):
         "aten::add": (pytest.approx(0.06), 2)}
 
 
+def test_parse_trace_span_table(tmp_path):
+    """The program's spans: detect [0, 100) us holding detect.proposals
+    [20, 80); launches counted where they start on the host, the device
+    time of what they launched joined by correlation (a copy launched in
+    detect.proposals runs at 85-95, after it), idle gaps at their
+    midpoint; over 2 steps."""
+    events = [
+        {"ph": "X", "cat": "user_annotation", "name": "detect", "ts": 0,
+         "dur": 100},
+        {"ph": "X", "cat": "user_annotation", "name": "detect.proposals",
+         "ts": 20, "dur": 60},
+        {"ph": "X", "cat": "gpu_user_annotation", "name": "detect",
+         "ts": 0, "dur": 100},
+        {"ph": "X", "cat": "cuda_runtime", "name": "cudaLaunchKernel",
+         "ts": 5, "dur": 1, "args": {"correlation": 1}},
+        {"ph": "X", "cat": "cuda_runtime", "name": "cudaMemcpyAsync",
+         "ts": 30, "dur": 1, "args": {"correlation": 2}},
+        {"ph": "X", "cat": "cuda_runtime", "name": "cudaStreamSynchronize",
+         "ts": 40, "dur": 1, "args": {"correlation": 3}},
+        {"ph": "X", "cat": "kernel", "name": ROI, "ts": 6, "dur": 14,
+         "args": {"correlation": 1}},
+        {"ph": "X", "cat": "gpu_memcpy", "name": "Memcpy HtoD", "ts": 85,
+         "dur": 10, "args": {"correlation": 2}},
+    ]
+    lines = []
+    res = trace_detect.parse_trace(_trace(tmp_path, events), steps=2,
+                                   log=lines.append)
+    # one gap, [20, 85), midpoint 52.5 in detect.proposals
+    assert res["spans"] == {
+        "detect": (pytest.approx(0.05), 1.0, pytest.approx(0.012),
+                   pytest.approx(0.0325)),
+        "detect.proposals": (pytest.approx(0.03), 0.5, pytest.approx(0.005),
+                             pytest.approx(0.0325))}
+    assert any(line.startswith("  detect.proposals") for line in lines)
+
+
 _HE = {}
 _he_params = profiling.he_params
 
