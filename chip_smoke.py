@@ -33,8 +33,11 @@ batched detectors with stem_impl="s2d_fused" (bf16 at B=4, int8 at B=8);
 and the evaluation entry points on a synthetic KITTI tree that the port
 writes: tools/test_net over its val split (bf16, and int8 with the s2d_int8
 stem) and tools/quant_check with the s2d_fused stem.
-Then the blocked NMS on the proposal layer's own candidates at the train
-step's shape (pre-NMS 12000, post-NMS 2000) and at test_net's (B=8): keep
+Then the greedy NMS kernel (csrc/nms.cu) on the proposal layer's own
+candidates at test_net's shape (B=8, pre-NMS 6000, post-NMS 300) and at
+B=1: keep sets equal to nms_plain's, bit for bit, and its times beside
+its bound and the loop's. Then the blocked NMS on the proposal layer's own
+candidates at the train step's shape (pre-NMS 12000, post-NMS 2000) and at test_net's (B=8): keep
 sets equal to the greedy loop's, the fixed variant certified, a 40-box
 chain that leaves its certificate False, and the layer's time on the
 greedy and on the blocked route in turns; solver.train_net on a second
@@ -137,7 +140,8 @@ from mv3d_tf_tpu_torch.ops.bev_cuda import (CHUNK_CELLS, N_FLAT,
                                             bev_place_cuda, bev_place_plain)
 from mv3d_tf_tpu_torch.ops.iou import bbox_overlaps
 from mv3d_tf_tpu_torch.ops.nms import (nms, nms_blocked, nms_blocked_fixed,
-                                       nms_matrix, nms_np)
+                                       nms_matrix, nms_np, nms_plain)
+from mv3d_tf_tpu_torch.ops.nms_cuda import WORD, nms_greedy_cuda
 from mv3d_tf_tpu_torch.ops.conv_s8_cuda import (conv2x2_s8_cuda,
                                                 conv2x2_s8_nk_cuda,
                                                 conv3x3_s8_cuda,
@@ -185,6 +189,11 @@ BEV_SOURCE = "mv3d_tf_tpu_torch/csrc/bev_place.cu"
 CONV_S8_SOURCE = "mv3d_tf_tpu_torch/csrc/conv_s8.cu"
 MATMUL_S8_SOURCE = "mv3d_tf_tpu_torch/csrc/matmul_s8.cu"
 S2D_SOURCE = "mv3d_tf_tpu_torch/csrc/stem_s2d.cu"   # both stems' kernel
+NMS_SOURCE = "mv3d_tf_tpu_torch/csrc/nms.cu"
+# float32 operations of one IoU test (csrc/nms.cu:suppresses): four min or
+# max, four add or sub for the widths, two clamps, a product, two add or
+# sub for the union, a division and a comparison
+IOU_OPS = 15
 TRAIN_STEPS = 3
 TRAIN_PRE_NMS, TRAIN_POST_NMS, TRAIN_ROIS, FC_DIM = 12000, 2000, 128, 2048
 MAX_GT = 32           # the config's TPU.MAX_GT: gt rows per frame
@@ -762,6 +771,7 @@ def phase_detector(params, smi):
                 compute_dtype=torch.bfloat16, **kw)}
     detect_b = build_detect_batch_fn(compute_dtype=torch.bfloat16, **kw)
     roi_pool_cuda.launches = vgg_stem_cuda.launches = 0
+    nms_greedy_cuda.launches = 0
     outputs = {}
     for name, detect in runs.items():
         timed(detect, params, bev[0], image[0], calib[0])     # warm-up
@@ -785,11 +795,14 @@ def phase_detector(params, smi):
           "on [%s]" % (frames, float(np.median(times)), batch_calls,
                     ", ".join("%.3f" % t for t in times), smi))
     launches = {"roi_pool": roi_pool_cuda.launches,
-                "vgg_stem": vgg_stem_cuda.launches}
-    # two pools per detector call, two stems per bf16 call; warm-ups count
+                "vgg_stem": vgg_stem_cuda.launches,
+                "nms_greedy": nms_greedy_cuda.launches}
+    # two pools and two NMS kernels per detector call, two stems per bf16
+    # call; warm-ups count
     single_calls, batch_calls = frames + 1, batch_calls + 1
     expected = {"roi_pool": 2 * (2 * single_calls + batch_calls),
-                "vgg_stem": 2 * (single_calls + batch_calls)}
+                "vgg_stem": 2 * (single_calls + batch_calls),
+                "nms_greedy": 2 * (2 * single_calls + batch_calls)}
     print("main-path launches: %s (expected %s)" % (launches, expected))
     if launches != expected:
         raise AssertionError("kernel launch counts %s != %s"
@@ -2180,8 +2193,9 @@ def capture_nms_inputs(args, kw):
 
 
 class GreedyRoute:
-    """The proposal layer with its blocked NMS swapped for the greedy loop:
-    the route every post-NMS size took before the blocked scan was ported."""
+    """The proposal layer with its blocked NMS swapped for the greedy nms
+    (on the card the kernel of csrc/nms.cu): the greedy route at every
+    post-NMS size."""
 
     def __enter__(self):
         self.saved = proposals_mod.nms_blocked
@@ -2243,7 +2257,7 @@ def phase_nms_blocked(np_params, smi):
                     FEAT)
             kw = dict(pre_nms_top_n=pre, post_nms_top_n=post)
             bv, psc, valid, P, thr = capture_nms_inputs(args, kw)
-            want_idx, want_val = nms(bv, psc, valid, P, thr)
+            want_idx, want_val = nms_plain(bv, psc, valid, P, thr)
             got = {"nms_blocked": nms_blocked(bv, psc, valid, P, thr,
                                               presorted=True),
                    "nms_blocked_fixed": nms_blocked_fixed(
@@ -2258,8 +2272,10 @@ def phase_nms_blocked(np_params, smi):
                 raise AssertionError("nms_blocked_fixed at the %s: not "
                                      "certified: %s" % (name, conv.tolist()))
             nms_ms = {}
-            for impl, fn in (("greedy nms", lambda: nms(bv, psc, valid, P,
-                                                        thr)),
+            for impl, fn in (("greedy loop", lambda: nms_plain(
+                                 bv, psc, valid, P, thr)),
+                             ("greedy kernel", lambda: nms(
+                                 bv, psc, valid, P, thr, presorted=True)),
                              ("nms_blocked", lambda: nms_blocked(
                                  bv, psc, valid, P, thr, presorted=True)),
                              ("nms_blocked_fixed", lambda: nms_blocked_fixed(
@@ -2296,7 +2312,7 @@ def phase_nms_blocked(np_params, smi):
                   ", ".join("%.3f" % t for t in layer["blocked"]), smi))
     del params
     boxes, scores, valid = nms_chain_case(torch.Generator().manual_seed(SEED))
-    idx, val = nms(boxes, scores, valid, 300, 0.7)
+    idx, val = nms_plain(boxes, scores, valid, 300, 0.7)
     e_idx, e_val = nms_blocked(boxes, scores, valid, 300, 0.7, presorted=True)
     f_idx, f_val, conv = nms_blocked_fixed(boxes, scores, valid, 300, 0.7,
                                            presorted=True)
@@ -2308,6 +2324,154 @@ def phase_nms_blocked(np_params, smi):
     print("40-box chain in one block: nms_blocked_fixed certificate False "
           "(its keep set %s the greedy one), nms_blocked equal to the greedy "
           "nms" % ("equals" if torch.equal(f_idx, idx) else "differs from"))
+
+
+def capture_greedy_inputs(args, kw):
+    """One proposal_layer_3d call on the greedy route; returns its NMS's
+    inputs (the score-ordered candidates of the layer's top-K)."""
+    seen = []
+    greedy = proposals_mod.nms
+
+    def capture(bv, psc, valid, max_out, thresh, presorted):
+        seen.append((bv, psc, valid, max_out, thresh))
+        return greedy(bv, psc, valid, max_out, thresh, presorted=presorted)
+
+    proposals_mod.nms = capture
+    try:
+        out = proposals_mod.proposal_layer_3d(*args, **kw)
+    finally:
+        proposals_mod.nms = greedy
+    return seen[0], out
+
+
+def nms_entries(bv, psc, valid, max_out, thresh):
+    """The kernel alone on presorted candidates: the two C entries of
+    csrc/nms.cu without the wrapper (no checks, no allocation, no count).
+    Returns (mask pass, scan pass, keep_idx, keep_valid)."""
+    lib = kernels.library()
+    B, n = psc.shape
+    mask = torch.empty(B * n * -(-n // WORD), dtype=torch.int64,
+                       device="cuda")
+    idx = torch.empty(B, max_out, dtype=torch.int64, device="cuda")
+    val = torch.empty(B, max_out, dtype=torch.bool, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    # the default arguments keep the tensors behind the pointers alive
+    def mask_pass(keep=(bv, mask)):
+        kernels.check(lib.mv3d_nms_mask_f32(
+            bv.data_ptr(), mask.data_ptr(), B, n, float(thresh), stream),
+            "nms mask entry")
+
+    def scan_pass(keep=(mask, psc, valid, idx, val)):
+        kernels.check(lib.mv3d_nms_scan(
+            mask.data_ptr(), psc.data_ptr(), valid.data_ptr(), None,
+            idx.data_ptr(), val.data_ptr(), B, n, max_out, stream),
+            "nms scan entry")
+
+    return mask_pass, scan_pass, idx, val
+
+
+def phase_nms_kernel(np_params, smi):
+    """The greedy NMS kernel (csrc/nms.cu) on the proposal layer's own
+    candidates at the detector's shapes: B=8 frames of random rasters and
+    images through the He weights' trunks and RPN in bf16, pre-NMS 6000,
+    post-NMS 300, and frame 0 alone (B=1). keep_idx and keep_valid equal
+    nms_plain's bit for bit, through the wrapper presorted (the layer's
+    route) and unsorted, and through the raw entries; the layer's outputs
+    equal with its NMS swapped for nms_plain. Then CUDA-event means: the
+    mask pass, the scan pass and both (the kernel alone), the wrapper, the
+    bound (the mask's and the inputs' and outputs' bytes at 3.35 TB/s, or
+    the triangle's IoU operations at float32's peak) and nms_plain, whose
+    time is no yardstick. Returns the B=8 row of the kernels line."""
+    params = params_from_jax(np_params, device="cuda")
+    rng = np.random.RandomState(SEED + 11)
+    B = 8
+    bev_in = torch.from_numpy(rng.rand(B, *TRAIN_BEV).astype(
+        np.float32)).cuda()
+    image_in = torch.from_numpy((rng.rand(B, *TRAIN_IMAGE) * 255).astype(
+        np.float32)).cuda()
+    calib = torch.from_numpy(np.stack([profiling.example_calib()] * B)).cuda()
+    mean = torch.from_numpy(PIXEL_MEANS).cuda()
+    kw = dict(pre_nms_top_n=PRE_NMS, post_nms_top_n=POST_NMS)
+    with torch.inference_mode():
+        c5, _ = mv3d.extract_features(params, bev_in, image_in - mean,
+                                      dtype=torch.bfloat16)
+        rpn_cls, rpn_box = mv3d.rpn_head(params, c5, dtype=torch.bfloat16)
+        args = (mv3d.rpn_probs(rpn_cls), rpn_box.float(), calib, FEAT, FEAT)
+        nms_greedy_cuda.launches = 0
+        (bv, psc, valid, P, thr), out = capture_greedy_inputs(args, kw)
+        if nms_greedy_cuda.launches != 2:
+            raise AssertionError("the proposal layer launched %d NMS kernels"
+                                 ", not 2" % nms_greedy_cuda.launches)
+        saved = proposals_mod.nms
+        proposals_mod.nms = (lambda b, s, v, m, t, presorted:
+                             nms_plain(b, s, v, m, t))
+        try:
+            plain_out = proposals_mod.proposal_layer_3d(*args, **kw)
+        finally:
+            proposals_mod.nms = saved
+    bad = [k for k in out if not torch.equal(out[k], plain_out[k])]
+    if bad:
+        raise AssertionError("proposal layer: the kernel route differs from "
+                             "nms_plain's in %s" % bad)
+    del params
+    rows = {}
+    with torch.inference_mode():
+        for name, sl in (("B=8", slice(None)), ("B=1", slice(0, 1))):
+            b, s, v = (t[sl].clone() for t in (bv, psc, valid))
+            want = nms_plain(b, s, v, P, thr)
+            mask_pass, scan_pass, e_idx, e_val = nms_entries(b, s, v, P, thr)
+            mask_pass()
+            scan_pass()
+            got = {"wrapper, presorted": nms(b, s, v, P, thr, presorted=True),
+                   "wrapper, unsorted": nms_greedy_cuda(b, s, v, P, thr),
+                   "raw entries": (e_idx, e_val)}
+            for how, res in got.items():
+                if not (torch.equal(res[0], want[0])
+                        and torch.equal(res[1], want[1])):
+                    raise AssertionError("nms kernel at %s (%s): keep set "
+                                         "differs from nms_plain"
+                                         % (name, how))
+            n = s.shape[-1]
+            mask_ms = cuda_ms(mask_pass)
+            scan_ms = cuda_ms(scan_pass)
+
+            def both():
+                mask_pass()
+                scan_pass()
+
+            kernel_ms = cuda_ms(both)
+            wrapper_ms = cuda_ms(lambda: nms(b, s, v, P, thr,
+                                             presorted=True))
+            t0 = time.perf_counter()
+            for _ in range(20):
+                nms(b, s, v, P, thr, presorted=True)
+            host_us = (time.perf_counter() - t0) / 20 * 1e6
+            torch.cuda.synchronize()
+            plain_ms = cuda_ms(lambda: nms_plain(b, s, v, P, thr), iters=3,
+                               warmup=1)
+            mask_bytes = b.shape[0] * n * -(-n // WORD) * 8
+            moved = mask_bytes + nbytes(b, s, v, *want)
+            ops = b.shape[0] * n * (n + 1) // 2 * IOU_OPS
+            rows[name] = {"ms": kernel_ms, "mask_ms": mask_ms,
+                          "scan_ms": scan_ms, "wrapper_ms": wrapper_ms,
+                          "plain_ms": plain_ms,
+                          **bound([(moved, ops)], F32_PER_S),
+                          # no PyTorch call computes the greedy keep set
+                          "library_ms": None}
+            print("nms kernel at %s, N=%d, post-NMS %d: %d kept, keep sets "
+                  "equal to nms_plain's (presorted, unsorted, raw entries); "
+                  "kernel alone %.4f ms (mask %.4f, scan %.4f), wrapper "
+                  "%.4f ms, host %.1f us a call; bound %.4f ms (%s; mask "
+                  "%.1f MB + in/out at 3.35 TB/s %.4f ms, the triangle's "
+                  "IoUs x %d at 67 TFLOP/s %.4f ms); nms_plain %.3f ms; on "
+                  "[%s]" % (
+                      name, n, P, int(want[1].sum()), kernel_ms, mask_ms,
+                      scan_ms, wrapper_ms, host_us, rows[name]["bound_ms"],
+                      rows[name]["bound_by"], mask_bytes / 1e6,
+                      moved / HBM_BYTES_PER_S * 1e3, IOU_OPS,
+                      ops / F32_PER_S * 1e3, plain_ms, smi))
+    return rows["B=8"]
 
 
 def printed_lines(fn, *args, **kwargs):
@@ -4303,6 +4467,7 @@ def main():
     new_phases_s += time.perf_counter() - t0
     print("the fused s2d stem's phases (kernel check, detectors, CLIs): "
           "%.1f s" % new_phases_s)
+    nms_stats = phase_nms_kernel(np_params, smi)
     t0 = time.perf_counter()
     phase_nms_blocked(np_params, smi)
     with tempfile.TemporaryDirectory() as tmp:
@@ -4409,6 +4574,9 @@ def main():
         {"name": "stem_s2d_fused", "route": "cuda", "source": S2D_SOURCE,
          "replaces": "mv3d_tf_tpu/ops/stem_s2d_pallas.py:124",
          "launches": new_paths["stem_s2d_fused"], **s2d},
+        {"name": "nms_greedy", "route": "cuda", "source": NMS_SOURCE,
+         "replaces": "none: stands for mv3d_tf_tpu/ops/nms.py:224 (fori_loop)",
+         "launches": launches["nms_greedy"], **nms_stats},
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -48,6 +48,8 @@ _SIGNATURES = {
     "mv3d_conv3x3_s8": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "mv3d_conv2x2_s8": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "mv3d_matmul_s8": (_P, _P, _P, _I, _I, _I, _P),
+    "mv3d_nms_mask_f32": (_P, _P, _I, _I, _F, _P),
+    "mv3d_nms_scan": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()

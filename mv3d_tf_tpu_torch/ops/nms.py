@@ -2,7 +2,10 @@
 (mv3d_tf_tpu/ops/nms.py), plus the numpy greedy oracle for host code.
 
 Two formulations give the greedy keep set, as in the JAX package:
-  * ``nms``: the greedy loop, one O(N) step per output slot;
+  * ``nms``: the greedy keep set, dispatched by device: on the card
+    ``ops/nms_cuda.nms_greedy_cuda`` (csrc/nms.cu, two launches a call),
+    on the CPU ``nms_plain``, the greedy loop, one O(N) step per output
+    slot;
   * ``nms_blocked`` / ``nms_blocked_fixed``: the candidates in score order,
     512 a block; each block is resolved by a fixpoint on its (512, 512)
     suppression mask, then one (512, N) IoU sweep suppresses the boxes
@@ -19,6 +22,7 @@ import torch
 
 from mv3d_tf_tpu_torch import trace as T
 from mv3d_tf_tpu_torch.ops.iou import bbox_overlaps, iou_one_to_many
+from mv3d_tf_tpu_torch.ops.nms_cuda import nms_greedy_cuda
 
 NEG_INF = -1e30
 
@@ -33,8 +37,24 @@ def top_k_by_score(scores, valid, k):
     return idx[..., :k], vals[..., :k] > NEG_INF
 
 
-def nms(boxes, scores, valid, max_out, iou_threshold=0.7):
-    """Greedy NMS with static output slots (ops/nms.py:224-260).
+def nms(boxes, scores, valid, max_out, iou_threshold=0.7, presorted=False):
+    """Greedy NMS with static output slots (ops/nms.py:224-260): the kernel
+    for CUDA tensors, ``nms_plain`` for CPU tensors; any other device
+    raises. presorted=True promises the valid candidates in descending
+    score order, as ``nms_blocked`` takes it; the kernel then skips its
+    sort, and the loop, which takes the highest score wherever it is,
+    needs no order. Returns keep_idx (..., max_out) int64 (0 in unused
+    slots) and keep_valid (..., max_out) bool."""
+    if boxes.is_cuda:
+        return nms_greedy_cuda(boxes, scores, valid, max_out, iou_threshold,
+                               presorted=presorted)
+    if boxes.device.type == "cpu":
+        return nms_plain(boxes, scores, valid, max_out, iou_threshold)
+    raise ValueError("nms: no greedy NMS for device " + str(boxes.device))
+
+
+def nms_plain(boxes, scores, valid, max_out, iou_threshold=0.7):
+    """The greedy loop, the kernel's plain version (ops/nms.py:224-260).
 
     boxes (..., N, 4), scores (..., N), valid (..., N) bool; leading dims
     are independent frames. Each of the max_out steps takes the first

@@ -4,10 +4,11 @@ proposal blocks with a validity mask.
 Same pipeline as the JAX layer: fg scores -> static anchor grid -> 6-dof
 decode -> BEV and image projections -> clip -> min-size and image-bounds
 filters (as score masks) -> stable top-K -> BEV NMS -> fixed (P, ...)
-blocks. The NMS is the greedy loop at post-NMS <= 512 and the blocked scan
-above it, as the JAX layer routes it (proposals.py:115-121). Frames are a
-batch dimension written out, where the JAX package vmaps a single-frame
-layer.
+blocks. The NMS is the greedy one at post-NMS <= 512 (on the card the
+kernel of csrc/nms.cu, on the candidates already in score order) and the
+blocked scan above it, as the JAX layer routes it (proposals.py:115-121).
+Frames are a batch dimension written out, where the JAX package vmaps a
+single-frame layer.
 """
 
 import torch
@@ -89,7 +90,7 @@ def proposal_layer_3d(rpn_cls_prob, rpn_bbox_pred, calib, feat_h, feat_w,
                 presorted=True)
         elif post_nms_top_n <= 512 and nms_impl != "blocked":
             keep_idx, keep_valid = nms(bv, psc, top_valid, post_nms_top_n,
-                                       nms_thresh)
+                                       nms_thresh, presorted=True)
         else:
             keep_idx, keep_valid = nms_blocked(bv, psc, top_valid,
                                                post_nms_top_n, nms_thresh,

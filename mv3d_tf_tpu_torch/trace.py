@@ -23,10 +23,12 @@ Counters are plain ints, counted whether tracing is on or off:
     each tensor ``eval.frame_detections`` copies to the host, and each
     ``torch.equal`` round of ``ops/nms.nms_matrix`` and ``nms_blocked``;
   * ``nms_rounds``: fixpoint rounds of ``nms_matrix``, ``nms_blocked`` and
-    ``nms_blocked_fixed`` (a greedy ``nms`` step is no round; 300 spans a
-    call would cost some 4 ms, so steps are not spanned);
+    ``nms_blocked_fixed`` (a step of the greedy ``nms_plain`` is no round;
+    300 spans a call would cost some 4 ms, so steps are not spanned);
   * the hand kernels' launches, the ``launches`` ints of the
-    ``ops/*_cuda.py`` wrappers, read where they are.
+    ``ops/*_cuda.py`` wrappers, read where they are (``nms_greedy_cuda``
+    counts its two kernels a call, so that the count matches the trace's
+    kernel events).
 """
 
 import contextlib
@@ -78,12 +80,12 @@ def counters():
     global _wrappers
     if _wrappers is None:
         # imported here: the ops modules import this one
-        from mv3d_tf_tpu_torch.ops import (bev_cuda, conv_s8_cuda,
+        from mv3d_tf_tpu_torch.ops import (bev_cuda, conv_s8_cuda, nms_cuda,
                                            roi_pool_cuda, stem_s2d_cuda,
                                            vgg_stem_cuda)
         _wrappers = (bev_cuda.bev_place_cuda, conv_s8_cuda.conv2x2_s8_cuda,
                      conv_s8_cuda.conv3x3_s8_cuda,
-                     conv_s8_cuda.matmul_s8_cuda,
+                     conv_s8_cuda.matmul_s8_cuda, nms_cuda.nms_greedy_cuda,
                      roi_pool_cuda.roi_pool_bwd_cuda,
                      roi_pool_cuda.roi_pool_cuda,
                      stem_s2d_cuda.stem_s2d_fused_cuda,
