@@ -56,7 +56,11 @@ Last, the legacy 2D Faster R-CNN at full width (VGG16, stride 16, fc 4096,
 38x64x512 conv5_3 at 1/16; the gradient on 128) against their plain
 versions; im_detect_2d on a 608x1024 image in float32 and bf16 (pre-NMS
 12000, post-NMS 2000) against the plain pool, with nms_matrix's keep set
-held to the host greedy loop; full-width 2D train steps (momentum SGD,
+held to the host greedy loop; the ResNet-101 C4 path: the ROI kernel at
+pooled 14 over 1000 rois on a 50x68x1024 res4 map, bit for bit, and
+im_detect_2d with Res101C4_test's spec on an 800x1088 image in bf16
+(pre-NMS 6000, post-NMS 1000), one ROI kernel launch a call, against the
+plain pool; full-width 2D train steps (momentum SGD,
 conv1/conv2 frozen); and tools.train_net / tools.test_net with VGGnet*
 and tools.demo on a synthetic VOC tree. Then Fast R-CNN over precomputed
 proposals, the 2D config's default: the ROI gradient kernel over a batched
@@ -242,9 +246,10 @@ def bound(parts, peak):
                          else "operations")}
 
 
-def bin_cells_total(rois, H, W, scale=1.0 / 8):
-    """The feature cells that the rois' 7x7 bins cover, summed over bins."""
-    hs, he, ws, we = bin_bounds(rois, 7, scale, H, W).unbind(1)
+def bin_cells_total(rois, H, W, scale=1.0 / 8, pooled=7):
+    """The feature cells that the rois' pooled x pooled bins cover, summed
+    over bins."""
+    hs, he, ws, we = bin_bounds(rois, pooled, scale, H, W).unbind(1)
     return ((he - hs).clamp(min=0)[:, :, None]
             * (we - ws).clamp(min=0)[:, None, :]).sum().item()
 
@@ -355,13 +360,14 @@ def check_rois(gen, n, in_h, in_w, frames):
                       stress_rois(in_h, in_w, frames - 1)])
 
 
-def roi_entry(feat, rois, out, scale=1.0 / 8):
+def roi_entry(feat, rois, out, scale=1.0 / 8, pooled=7):
     """One launch of the forward kernel's C entry point, without the
     wrapper (no checks, no allocation, no count): the kernel alone."""
     fn = getattr(kernels.library(), roi_pool_cuda_mod._ENTRY[feat.dtype])
     B, H, W, C = feat.shape
     args = (feat.data_ptr(), rois.data_ptr(), out.data_ptr(), B, H, W, C,
-            rois.shape[0], 7, scale, torch.cuda.current_stream().cuda_stream)
+            rois.shape[0], pooled, scale,
+            torch.cuda.current_stream().cuda_stream)
     # the default argument keeps the tensors behind the pointers alive
     return lambda keep=(feat, rois, out): kernels.check(fn(*args),
                                                         "roi_pool entry")
@@ -3076,6 +3082,115 @@ def phase_detect_2d(np2d, smi):
     return total
 
 
+R101_BUCKET = (800, 1088)      # COCO's 480x640 image at short side 800
+R101_FEAT = (R101_BUCKET[0] // 16, R101_BUCKET[1] // 16)    # 50 x 68
+R101_C, R101_POOLED, R101_ROIS, R101_CALLS = 1024, 14, 1000, 5
+R101_PRE_NMS, R101_POST_NMS = 6000, 1000
+R101_IM_INFO = np.array([800.0, 1067.0, 800.0 / 480.0], np.float32)
+
+
+def phase_r101(gen, smi):
+    """The ResNet-101 C4 2D path on the card. First csrc/roi_pool.cu at its
+    shape against the plain pool, bit for bit: pooled 14 over a
+    (50,68,1024) res4 map at 1/16, R101_ROIS rois (make_rois' random and
+    edge rois in the 800x1088 bucket), float32 and bf16, on a distinct and
+    a post-ReLU map, on the 16-byte path; the kernel's time alone (raw
+    launches of the C entry) beside the plain pool's and the bound. Then
+    faster_rcnn_2d.build_im_detect_2d with Res101C4_test's spec in bf16 at
+    pre-/post-NMS 6000/1000 on the port's He-and-BN weights: a warm-up,
+    then R101_CALLS timed calls, one ROI kernel launch each (counts zeroed
+    just before, read just after); the same call through the plain pool
+    gives the same rois and keep set, scores and boxes within BF16_2D_RTOL
+    of each max; nms_matrix's keep set on the call's own candidates equals
+    nms_np's. Returns the launch counts."""
+    from mv3d_tf_tpu_torch.models import resnet
+    from mv3d_tf_tpu_torch.models.factory import get_network
+    H, W = R101_FEAT
+    x = torch.randn((H, W, R101_C), generator=gen).cuda()
+    rois = make_rois(gen, R101_ROIS - 6, *R101_BUCKET, 1)
+    for dtype in (torch.float32, torch.bfloat16):
+        for kind, m in (("distinct", x), ("sparse", F.relu(x))):
+            feat = m.to(dtype)
+            out = roi_pool_cuda(feat, rois, R101_POOLED, SCALE_2D)
+            ref = roi_pool(feat, rois, R101_POOLED, SCALE_2D)
+            if not torch.equal(out, ref):
+                raise AssertionError("roi_pool R-101 %s %s: kernel != plain, "
+                                     "max |diff| %g" % (dtype, kind,
+                                                        max_err(out, ref)))
+            pack = 16 // feat.element_size()
+            if not (R101_C % pack == 0 and feat.data_ptr() % 16 == 0
+                    and out.data_ptr() % 16 == 0):
+                raise AssertionError("roi_pool R-101 %s: not on the 16-byte "
+                                     "path" % dtype)
+            print("roi_pool R-101 %s %s (%d,%d,%d) pooled %d rois=%d: "
+                  "bit-identical to plain, 16-byte path" % (
+                      dtype, kind, H, W, R101_C, R101_POOLED,
+                      rois.shape[0]))
+        k = cuda_ms(roi_entry(feat[None], rois, out, SCALE_2D, R101_POOLED))
+        p = cuda_ms(lambda: roi_pool(feat, rois, R101_POOLED, SCALE_2D),
+                    iters=3, warmup=1)
+        fb = bound([(nbytes(feat, rois, out),
+                     bin_cells_total(rois, H, W, SCALE_2D, R101_POOLED)
+                     * R101_C)], F32_PER_S)
+        print("roi_pool R-101 time %s (%d,%d,%d) pooled %d rois=%d: kernel "
+              "alone %.4f ms, plain %.4f ms, bound %.4f ms (%s); out %.1f MB; "
+              "on [%s]" % (dtype, H, W, R101_C, R101_POOLED, rois.shape[0], k,
+                           p, fb["bound_ms"], fb["bound_by"],
+                           nbytes(out) / 1e6, smi))
+    spec = get_network("Res101C4_test")
+    params = resnet.init_params_r101_c4(
+        torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
+    rng = np.random.RandomState(SEED + 11)
+    image = np.zeros(R101_BUCKET + (3,), np.float32)
+    h, w = int(R101_IM_INFO[0]), int(R101_IM_INFO[1])
+    image[:h, :w] = rng.rand(h, w, 3) * 255 - PIXEL_MEANS
+    image = torch.from_numpy(image).cuda()
+    im_info = torch.from_numpy(R101_IM_INFO).cuda()
+    kw = dict(pre_nms_top_n=R101_PRE_NMS, post_nms_top_n=R101_POST_NMS,
+              compute_dtype=torch.bfloat16, spec=spec)
+    detect = F2.build_im_detect_2d(*R101_FEAT, **kw)
+    zero_all_launches()
+    with CaptureNmsMatrix() as seen:
+        out, warm_ms = timed(detect, params, image, im_info)
+    times = [timed(detect, params, image, im_info)[1]
+             for _ in range(R101_CALLS)]
+    launches = all_launches()
+    want = dict(dict.fromkeys(launches, 0), roi_pool=1 + R101_CALLS)
+    if launches != want:
+        raise AssertionError("im_detect_2d R-101 launched %s != %s"
+                             % (launches, want))
+    n_valid = int(out["valid"].sum())
+    ok = (torch.isfinite(out["scores"]).all()
+          and torch.isfinite(out["boxes"]).all() and n_valid > 0
+          and torch.allclose(out["scores"][out["valid"]].sum(1),
+                             torch.ones(n_valid, device="cuda")))
+    if not ok:
+        raise AssertionError("im_detect_2d R-101: outputs")
+    ref = F2.build_im_detect_2d(*R101_FEAT, pool=roi_pool, **kw)(
+        params, image, im_info)
+    for k in ("rois", "valid"):
+        if not torch.equal(out[k], ref[k]):
+            raise AssertionError("im_detect_2d R-101: %s differ from the "
+                                 "plain pool's" % k)
+    errs = {k: max_err(out[k], ref[k]) for k in ("scores", "boxes")}
+    for k, e in errs.items():
+        tol = BF16_2D_RTOL * ref[k].abs().max().item()
+        if not e <= tol:
+            raise AssertionError("im_detect_2d R-101: %s max |diff| %g > %g "
+                                 "against the plain pool" % (k, e, tol))
+    rounds, kept, cands = check_nms_matrix(seen[0], "im_detect_2d R-101")
+    print("im_detect_2d R-101 bf16 800x1088 (pre-NMS %d, post-NMS %d): p50 "
+          "%.3f ms over %d calls (%s) after a %.3f ms warm-up; %d valid rois; "
+          "vs the plain pool: rois and keep set equal, scores/boxes max "
+          "|diff| %s; nms_matrix on %d candidates: %d kept = nms_np's, %d "
+          "fixpoint rounds; launches %s; on [%s]" % (
+              R101_PRE_NMS, R101_POST_NMS, float(np.median(times)),
+              R101_CALLS, ", ".join("%.3f" % t for t in times), warm_ms,
+              n_valid, errs, cands, kept, rounds,
+              {k: v for k, v in launches.items() if v}, smi))
+    return launches
+
+
 def train_batch_2d(rng, n_gt=5):
     """One 608x1024 training image (mean-subtracted noise, im_info 600x1000
     at 1.6) with n_gt gt boxes of VOC classes, padded to GT_2D rows."""
@@ -4500,6 +4615,7 @@ def main():
     phase_roi_2d(gen, smi)
     np2d = he_normal_params_2d(SEED)
     detect_2d = phase_detect_2d(np2d, smi)
+    detect_r101 = phase_r101(gen, smi)
     train_2d = phase_train_2d(np2d, smi)
     del np2d
     clis_2d = phase_clis_2d(smi)
@@ -4525,7 +4641,7 @@ def main():
                                        multi_s, time.perf_counter() - t0))
     new_paths = {}
     for counts in (fused, clis, trained, demo, accuracy, tools, detect_2d,
-                   train_2d, clis_2d, fast_rcnn, alt_opt, multihost,
+                   detect_r101, train_2d, clis_2d, fast_rcnn, alt_opt, multihost,
                    new_tools, parallel, pipeline):
         add_launches(new_paths, counts)
     loaded = [m for m in sys.modules
@@ -4537,10 +4653,11 @@ def main():
     # read_lidar run, the scan-to-detections run, the int8 detector's run,
     # the s2d_fused detectors' run, the evaluation CLIs' runs, the
     # train_net runs, the demo's runs, the accuracy_eval and tools runs,
-    # the 2D detector's, train step's and CLIs' runs, the Fast R-CNN
-    # steps' and the alternating-optimisation flow's runs, and the
-    # multi-host test_net's, the last tools', the parallel paths' (their
-    # ranks' counts) and the dry run's, and mv3d.sh's train_net and test_net
+    # the 2D detectors' (VGG16, ResNet-101 C4), train step's and CLIs'
+    # runs, the Fast R-CNN steps' and the alternating-optimisation flow's
+    # runs, and the multi-host test_net's, the last tools', the parallel
+    # paths' (their ranks' counts) and the dry run's, and mv3d.sh's
+    # train_net and test_net
     print("chip_smoke: %.1f s in all" % (time.perf_counter() - start))
     print(json.dumps({"kernels": [
         {"name": "roi_pool", "route": "cuda", "source": ROI_SOURCE,

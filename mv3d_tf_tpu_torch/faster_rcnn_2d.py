@@ -33,6 +33,7 @@ from mv3d_tf_tpu_torch import geometry as G
 from mv3d_tf_tpu_torch import trace as T
 from mv3d_tf_tpu_torch.anchors import generate_anchors, shift_anchors
 from mv3d_tf_tpu_torch.models import mv3d, vggnet
+from mv3d_tf_tpu_torch.models.factory import get_network
 from mv3d_tf_tpu_torch.ops.nms import nms_matrix, top_k_by_score
 from mv3d_tf_tpu_torch.ops.roi_pool import roi_pool_fast, roi_pool_train
 from mv3d_tf_tpu_torch.targets import _max_overlaps, _rank_desc, _sample_mask
@@ -48,9 +49,9 @@ def get_anchor_grid_2d(height, width, feat_stride=16, scales=(8, 16, 32)):
                          width, feat_stride)
 
 
-def _anchors(feat_h, feat_w, feat_stride, device):
-    return torch.from_numpy(get_anchor_grid_2d(feat_h, feat_w,
-                                               feat_stride)).to(device)
+def _anchors(feat_h, feat_w, feat_stride, device, scales=(8, 16, 32)):
+    return torch.from_numpy(get_anchor_grid_2d(feat_h, feat_w, feat_stride,
+                                               tuple(scales))).to(device)
 
 
 def rpn_fg_scores_2d(rpn_cls_prob):
@@ -61,15 +62,17 @@ def rpn_fg_scores_2d(rpn_cls_prob):
 
 def proposal_layer_2d(rpn_cls_prob, rpn_bbox_pred, im_info, feat_h, feat_w,
                       feat_stride=16, pre_nms_top_n=6000, post_nms_top_n=300,
-                      nms_thresh=0.7, min_size=16):
+                      nms_thresh=0.7, min_size=16, scales=(8, 16, 32)):
     """Classic 2D proposals (faster_rcnn_2d.py:47-81): decode, clip to the
     image, the min-size filter, score top-K (stable), exact NMS
-    (ops/nms.nms_matrix).
+    (ops/nms.nms_matrix). ``scales`` are the anchors' (at base 16, three
+    ratios each), the network spec's.
 
     im_info (3,) float32 tensor [im_h, im_w, im_scale]. Returns rois (P,5)
     [0,x1,y1,x2,y2], scores (P,) and valid (P,) bool, zero where invalid.
     """
-    anchors = _anchors(feat_h, feat_w, feat_stride, rpn_cls_prob.device)
+    anchors = _anchors(feat_h, feat_w, feat_stride, rpn_cls_prob.device,
+                       scales)
     scores = rpn_fg_scores_2d(rpn_cls_prob)
     proposals = G.bbox_transform_inv(anchors, rpn_bbox_pred.reshape(-1, 4))
     proposals = G.clip_boxes(proposals, (im_info[0], im_info[1]))
@@ -192,10 +195,16 @@ def proposal_target_layer_2d(u_fg, u_bg, rois, rois_valid, gt_boxes,
 
 def build_im_detect_2d(feat_h, feat_w, pre_nms_top_n=6000,
                        post_nms_top_n=300, compute_dtype=None,
-                       pool=roi_pool_fast):
+                       pool=roi_pool_fast, spec=None):
     """Single-image 2D detection (faster_rcnn_2d.py:191-217): trunk, RPN,
     proposals, ROI pool at 1/16 (``pool``, the kernel dispatch by default),
     head, decoded and clipped boxes.
+
+    ``spec`` is the network's (models/factory.get_network, VGGnet_test's
+    when None): its trunk (ResNet-101 C4's as CUDA graphs on the card, this
+    detector's own), anchor scales, pool size and head (VGG16: the fc head
+    in float32; ResNet-101 C4: res5 per RoI in compute_dtype, then the
+    float32 heads).
 
     Returns im_detect(params, image, im_info): image (H,W,3) mean-subtracted
     float32 padded to (16 feat_h, 16 feat_w), im_info (3,) [h, w, scale],
@@ -203,6 +212,10 @@ def build_im_detect_2d(feat_h, feat_w, pre_nms_top_n=6000,
     scores (P, K), boxes (P, 4K), rois (P,5), valid (P,), K the head's
     classes.
     """
+    if spec is None:
+        spec = get_network("VGGnet_test")
+    trunk = (spec.trunk_apply if spec.trunk_graphs is None
+             else spec.trunk_graphs())
 
     @torch.inference_mode()
     def im_detect(params, image, im_info):
@@ -213,25 +226,34 @@ def build_im_detect_2d(feat_h, feat_w, pre_nms_top_n=6000,
                 im_info = torch.as_tensor(im_info, dtype=torch.float32,
                                           device=dev)
             with T.span("im_detect_2d.trunk"):
-                c5 = vggnet.trunk_apply_2d(params, image[None],
-                                           dtype=compute_dtype)
+                c5 = trunk(params, image[None], dtype=compute_dtype)
             with T.span("im_detect_2d.rpn"):
                 cls, box = vggnet.rpn_head_2d(params, c5, dtype=compute_dtype)
             with T.span("im_detect_2d.proposals"):
                 rois, _, valid = proposal_layer_2d(
                     mv3d.rpn_probs(cls), box.float(), im_info, feat_h, feat_w,
-                    pre_nms_top_n=pre_nms_top_n, post_nms_top_n=post_nms_top_n)
+                    pre_nms_top_n=pre_nms_top_n, post_nms_top_n=post_nms_top_n,
+                    scales=spec.anchor_scales)
             with T.span("im_detect_2d.roi_pool"):
-                pooled = pool(c5[0], rois, spatial_scale=SPATIAL_SCALE)
+                pooled = pool(c5[0], rois, pooled=spec.pooled,
+                              spatial_scale=SPATIAL_SCALE)
             with T.span("im_detect_2d.head"):
-                _, cls_prob, bbox_pred = vggnet.head_2d(params, pooled.float())
-                boxes = G.bbox_transform_inv(rois[:, 1:5], bbox_pred)
-                boxes = G.clip_boxes(boxes, (im_info[0], im_info[1]))
-                mask = valid[:, None].float()
-                return {"scores": cls_prob * mask, "boxes": boxes * mask,
-                        "rois": rois, "valid": valid}
+                return spec.head(params, pooled, compute_dtype,
+                                 lambda cls_prob, bbox_pred: _detections(
+                                     cls_prob, bbox_pred, rois, valid,
+                                     im_info))
 
     return im_detect
+
+
+def _detections(cls_prob, bbox_pred, rois, valid, im_info):
+    """im_detect's outputs: the class-specific boxes decoded at the rois and
+    clipped to the image, scores and boxes zeroed where no roi is."""
+    boxes = G.bbox_transform_inv(rois[:, 1:5], bbox_pred)
+    boxes = G.clip_boxes(boxes, (im_info[0], im_info[1]))
+    mask = valid[:, None].float()
+    return {"scores": cls_prob * mask, "boxes": boxes * mask, "rois": rois,
+            "valid": valid}
 
 
 def compute_losses_2d(rpn_cls_score, rpn_bbox_pred, rpn_labels,

@@ -2,27 +2,61 @@
 lib/networks/factory.py:23-33): a network name -> a (name, mode)
 descriptor. *_train and *_test share one parameter set; they differ by
 dropout and the target layers, not by graph. ``VGGnet*`` names are the
-legacy 2D Faster R-CNN (models/vggnet.py), every other name MV3D
-(models/mv3d.py)."""
+legacy 2D Faster R-CNN (models/vggnet.py), ``Res101C4_test`` the 2D Faster
+R-CNN ResNet-101 C4 (models/resnet.py, test only), every other name MV3D
+(models/mv3d.py).
 
-from mv3d_tf_tpu_torch.models import mv3d, vggnet
+A 2D spec carries what the 2D path (faster_rcnn_2d.build_im_detect_2d,
+tools/test_net) takes of its network: ``trunk_apply(params, x, dtype)``
+to the stride-16 map, ``trunk_graphs`` (None, or a class whose instances
+run trunk_apply on the card as CUDA graphs, one a detector: ResNet-101
+C4's), ``head(params, pooled, dtype, decode)`` from the
+pooled RoIs to ``decode(cls_prob, bbox_pred)``, ``init_params(generator,
+n_classes, device)``, the anchor scales (at base 16, three ratios each),
+the RoI pool's size and the bucket test_net pads its images into."""
+
+from mv3d_tf_tpu_torch.models import mv3d, resnet, vggnet
+
+R101_C4 = "Res101C4"
 
 
 class NetworkSpec:
     def __init__(self, name, mode):
         self.name = name
         self.mode = mode                     # 'train' | 'test'
-        self.is_2d = name.startswith("VGGnet")
-        self.n_classes = (vggnet.N_CLASSES_2D if self.is_2d
-                          else mv3d.N_CLASSES)
-        self.feat_stride = (vggnet.FEAT_STRIDE_2D if self.is_2d
-                            else mv3d.FEAT_STRIDE)
+        self.is_2d = name.startswith(("VGGnet", R101_C4))
+        if name.startswith(R101_C4):
+            self.trunk_apply = resnet.trunk_apply_r101
+            self.trunk_graphs = resnet.TrunkGraphs
+            self.head = resnet.detect_head
+            self.init_params = resnet.init_params_r101_c4
+            self.n_classes = resnet.N_CLASSES
+            self.feat_stride = resnet.FEAT_STRIDE
+            self.anchor_scales = resnet.ANCHOR_SCALES
+            self.pooled = resnet.POOLED
+            self.bucket_hw = (800, 1344)
+        elif self.is_2d:
+            self.trunk_apply = vggnet.trunk_apply_2d
+            self.trunk_graphs = None
+            self.head = vggnet.detect_head_2d
+            self.init_params = vggnet.init_params_2d
+            self.n_classes = vggnet.N_CLASSES_2D
+            self.feat_stride = vggnet.FEAT_STRIDE_2D
+            self.anchor_scales = vggnet.ANCHOR_SCALES_2D
+            self.pooled = 7
+            self.bucket_hw = (608, 1024)
+        else:
+            self.n_classes = mv3d.N_CLASSES
+            self.feat_stride = mv3d.FEAT_STRIDE
 
 
 def get_network(name):
     """'..._train' -> train spec, '..._test' -> test spec (factory.py:23-29);
-    any other name raises KeyError."""
+    any other name, and Res101C4_train, raises KeyError."""
     if name.endswith("_train"):
+        if name.startswith(R101_C4):
+            raise KeyError("Unknown network: {} (ResNet-101 C4 has a test "
+                           "network only)".format(name))
         return NetworkSpec(name, "train")
     if name.endswith("_test"):
         return NetworkSpec(name, "test")

@@ -16,6 +16,7 @@ from mv3d_tf_tpu_torch.models import mv3d, vgg
 N_CLASSES_2D = 21
 FEAT_STRIDE_2D = 16
 NUM_ANCHORS_2D = 9
+ANCHOR_SCALES_2D = (8, 16, 32)      # at base 16, three ratios each
 # pools after conv1_2, conv2_2, conv3_3, conv4_3 (VGGnet_train.py:34-51)
 VGG16_LAYERS = tuple(
     (name, c, name in ("conv1_2", "conv2_2", "conv3_3", "conv4_3"))
@@ -78,6 +79,14 @@ def head_2d(params, pooled, train=False, masks=None, keep_prob=1.0):
     cls_prob = torch.softmax(cls_score.float(), dim=-1)
     bbox_pred = mv3d.fc_apply(params, "bbox_pred", x, relu=False)
     return cls_score, cls_prob, bbox_pred
+
+
+def detect_head_2d(params, pooled, dtype, decode):
+    """im_detect_2d's head (models/factory's 2D spec): head_2d in float32,
+    whatever the dtype of the pooled maps, then decode(cls_prob,
+    bbox_pred)."""
+    _, cls_prob, bbox_pred = head_2d(params, pooled.float())
+    return decode(cls_prob, bbox_pred)
 
 
 def freeze_2d_grads(params):

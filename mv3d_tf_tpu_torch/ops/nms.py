@@ -14,7 +14,8 @@ Two formulations give the greedy keep set, as in the JAX package:
   * ``nms_matrix``: the whole (N, N) suppression mask built once, then a
     fixpoint of mask products (one host sync a round): the legacy 2D
     proposal layer's NMS (faster_rcnn_2d.py).
-``nms_np`` and ``nms_new_np`` are the host loops.
+``nms_np`` and ``nms_new_np`` are the host loops (utils/native.nms_np_native
+is ``nms_np`` in C++).
 """
 
 import numpy as np

@@ -40,12 +40,12 @@ from mv3d_tf_tpu_torch.data.loader import (RoIDataLayer, get_minibatch,
                                            load_image_bgr, pad_image)
 from mv3d_tf_tpu_torch.eval import build_detect_batch_fn, frame_detections
 from mv3d_tf_tpu_torch.models import mv3d
-from mv3d_tf_tpu_torch.ops.nms import nms_np
 from mv3d_tf_tpu_torch.utils.checkpoint import (latest_snapshot,
                                                 load_checkpoint,
                                                 load_pretrained,
                                                 save_checkpoint,
                                                 snapshot_iter)
+from mv3d_tf_tpu_torch.utils.native import nms_np_native
 from mv3d_tf_tpu_torch.utils.timer import Timer
 
 LR = 1e-5               # the MV3D Adam lr (train.build_train_step's)
@@ -673,16 +673,46 @@ def train_net_2d(imdb, roidb, output_dir, pretrained_model=None,
     return params
 
 
+def class_detections_2d(out, im_scale, thresh, nms_thresh, max_per_image):
+    """test_net_2d's host steps for one image (the reference's
+    test.py:299-318): per class j >= 1, the valid rois scoring above
+    ``thresh``, their class-j boxes in the original image's coordinates
+    (out["boxes"] / im_scale) with the score, greedy NMS at ``nms_thresh``
+    (ops.nms.nms_np's keep list, from its C++ twin
+    utils/native.nms_np_native), then the image's
+    ``max_per_image`` best over all classes. ``out`` holds im_detect's
+    outputs as arrays. Returns [(n_j, 5) float32] for j < K, class 0's
+    empty."""
+    scores, valid = out["scores"], out["valid"]
+    boxes = out["boxes"] / im_scale
+    passing = valid[:, None] & (scores > thresh)
+    empty = np.zeros((0, 5), np.float32)
+    dets_all = [empty] * scores.shape[1]
+    for j in np.flatnonzero(passing[:, 1:].any(axis=0)) + 1:
+        inds = np.flatnonzero(passing[:, j])
+        dets = np.hstack([boxes[inds, 4 * j:4 * (j + 1)],
+                          scores[inds, j:j + 1]]).astype(np.float32)
+        dets_all[j] = dets[nms_np_native(dets, nms_thresh)]
+    if max_per_image > 0:
+        flat = np.concatenate([d[:, -1] for d in dets_all[1:]])
+        if len(flat) > max_per_image:
+            t = np.sort(flat)[-max_per_image]
+            dets_all = [empty] + [d[d[:, -1] >= t] for d in dets_all[1:]]
+    return dets_all
+
+
 def test_net_2d(params, imdb, weights_filename="default", max_per_image=100,
                 thresh=0.05, compute_dtype=None, bucket_hw=(608, 1024),
-                log=print):
+                log=print, spec=None):
     """Evaluate the 2D detector over an imdb (solver.py:612-668, the
     reference's test.py:216-346) on the params' device: each image scaled
-    by TEST.SCALES/MAX_SIZE, faster_rcnn_2d.build_im_detect_2d at the TEST
-    proposal budget, per-class threshold and host NMS at TEST.NMS, the
-    max_per_image cap, detections.pkl, then the imdb's evaluation (VOC AP
-    for voc_*, the 2D AP table for kitti2d_*), which it returns. The JAX
-    package passes no output_dir to the evaluation, so its kitti2d run
+    by TEST.SCALES/MAX_SIZE and padded into ``bucket_hw`` (multiples of
+    16), faster_rcnn_2d.build_im_detect_2d of the network ``spec``
+    (models/factory.get_network; VGG16 when None) at the TEST proposal
+    budget, per-class threshold and host NMS at TEST.NMS, the max_per_image
+    cap, detections.pkl, then the imdb's evaluation (VOC AP for voc_*, the
+    2D AP table for kitti2d_*, COCO's for coco_*), which it returns. The
+    JAX package passes no output_dir to the evaluation, so its kitti2d run
     raises there; the port passes the detections' directory."""
     from mv3d_tf_tpu_torch.faster_rcnn_2d import build_im_detect_2d
 
@@ -694,7 +724,7 @@ def test_net_2d(params, imdb, weights_filename="default", max_per_image=100,
         bucket_hw[0] // 16, bucket_hw[1] // 16,
         pre_nms_top_n=cfg.TEST.RPN_PRE_NMS_TOP_N,
         post_nms_top_n=cfg.TEST.RPN_POST_NMS_TOP_N,
-        compute_dtype=compute_dtype)
+        compute_dtype=compute_dtype, spec=spec)
 
     timer = Timer()
     for i in range(num_images):
@@ -704,24 +734,10 @@ def test_net_2d(params, imdb, weights_filename="default", max_per_image=100,
         out = {key: _numpy(v) for key, v in
                detect(params, image, im_info).items()}
         timer.toc()
-        scores = out["scores"]
-        boxes = out["boxes"] / im_info[2]       # back to image coordinates
-        valid = out["valid"]
+        dets = class_detections_2d(out, im_info[2], thresh, cfg.TEST.NMS,
+                                   max_per_image)
         for j in range(1, k):
-            inds = np.where(valid & (scores[:, j] > thresh))[0]
-            dets = np.hstack([boxes[inds, 4 * j:4 * (j + 1)],
-                              scores[inds, j:j + 1]]).astype(np.float32)
-            all_boxes[j][i] = dets[nms_np(dets, cfg.TEST.NMS)]
-        if max_per_image > 0:
-            flat = np.concatenate([all_boxes[j][i][:, -1]
-                                   for j in range(1, k)
-                                   if len(all_boxes[j][i])] or [np.zeros(0)])
-            if len(flat) > max_per_image:
-                t = np.sort(flat)[-max_per_image]
-                for j in range(1, k):
-                    if len(all_boxes[j][i]):
-                        all_boxes[j][i] = all_boxes[j][i][
-                            all_boxes[j][i][:, -1] >= t]
+            all_boxes[j][i] = dets[j]
         log("im_detect: {:d}/{:d} {:.3f}s".format(i + 1, num_images,
                                                   timer.average_time))
 

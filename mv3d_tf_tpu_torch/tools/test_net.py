@@ -23,6 +23,12 @@ R-CNN through solver.test_net_2d instead, over ``--imdb voc_<year>_<split>
 --devkit_path <VOCdevkit>`` or ``kitti2d_<split> --kitti_path <kitti>``:
 the detections pickle and the VOC AP (or the KITTI 2D AP table), with
 ``vggnet.init_params_2d`` seeded 0 standing in for missing weights.
+``--network Res101C4_test`` runs the 2D Faster R-CNN ResNet-101 C4 the
+same way (``resnet.init_params_r101_c4`` seeded 0 without weights), over
+``coco_<year>_<split>`` too, in the ``--bucket`` the scaled images are
+padded into (800 1344 by default, VGGnet's 608 1024); Detectron2's test
+settings are ``--set TEST.SCALES "[800]" TEST.MAX_SIZE 1333
+TEST.RPN_PRE_NMS_TOP_N 6000 TEST.RPN_POST_NMS_TOP_N 1000 TEST.NMS 0.5``.
 """
 
 import argparse
@@ -73,6 +79,10 @@ def build_parser():
                         default="xla", choices=["xla", "pallas", "dots"])
     parser.add_argument("--int8_head", dest="int8_head",
                         action="store_true")
+    parser.add_argument("--bucket", dest="bucket", default=None, type=int,
+                        nargs=2, metavar=("H", "W"),
+                        help="2D networks: the padded input size, multiples "
+                             "of 16 (VGGnet* 608 1024, Res101C4 800 1344)")
     parser.add_argument("--set", dest="set_cfgs", default=None,
                         nargs=argparse.REMAINDER)
     return parser
@@ -91,13 +101,14 @@ def main(argv=None):
 
     from mv3d_tf_tpu_torch.models.factory import get_network
     try:
-        is_2d = get_network(args.network_name).is_2d
+        spec = get_network(args.network_name)
     except KeyError as e:
         raise SystemExit(e.args[0])
+    is_2d = spec.is_2d
 
     from mv3d_tf_tpu_torch.config import cfg, cfg_from_file, cfg_from_list
     from mv3d_tf_tpu_torch.data.kitti import get_imdb
-    from mv3d_tf_tpu_torch.models import mv3d, vggnet
+    from mv3d_tf_tpu_torch.models import mv3d
     from mv3d_tf_tpu_torch.solver import test_net, test_net_2d
     from mv3d_tf_tpu_torch.utils.checkpoint import load_pretrained
 
@@ -126,15 +137,17 @@ def main(argv=None):
                             weights_filename=weights_filename)
     device = torch.device(args.device)
     gen = torch.Generator(device=device).manual_seed(0)
-    params = (vggnet.init_params_2d(gen, n_classes=imdb.num_classes,
-                                    device=device) if is_2d
+    params = (spec.init_params(gen, n_classes=imdb.num_classes,
+                               device=device) if is_2d
               else mv3d.init_params(gen, device=device))
     if args.model:
         load_pretrained(params, args.model)
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else None
     if is_2d:
         return test_net_2d(params, imdb, weights_filename=weights_filename,
-                           compute_dtype=dtype)
+                           compute_dtype=dtype,
+                           bucket_hw=tuple(args.bucket or spec.bucket_hw),
+                           spec=spec)
     if args.host_id is not None:
         from mv3d_tf_tpu_torch.parallel.multihost import run_host_shard
         path = run_host_shard(params, imdb, args.host_id, args.host_count,

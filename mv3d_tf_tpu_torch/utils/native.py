@@ -6,7 +6,9 @@ of mv3d_tf_tpu/utils/native.py, with the same public names:
   * the host BEV raster (native/bev_raster.cc): ``point_cloud_2_top_host``,
     ``bev_raster_files`` (threaded reads and rasters);
   * the KITTI AP matcher (native/kitti_eval.cc): ``eval_ap_native``, which
-    data/kitti_eval.evaluate_ap_difficulty routes to.
+    data/kitti_eval.evaluate_ap_difficulty routes to;
+  * the greedy NMS of the 2D detector's per-class step (native/nms_host.cc):
+    ``nms_np_native``, ops/nms.nms_np's keep list bit for bit.
 
 g++ builds each source at its first use into ``mv3d_tf_tpu_torch/_build/``,
 under a name derived from the source and the flags (an edited source is
@@ -15,10 +17,10 @@ renaming it into place, so processes that build at once each load a whole
 library. A missing g++ or a failed build raises with the compiler's
 output: no route falls back to numpy. The numpy versions stay importable
 as the plain versions the tests hold the C++ to:
-``load_velodyne_padded_np``, ``load_velodyne_batch_np`` and
-ops/bev.point_cloud_2_top_np. The raster takes ops/bev.py's float32 slice
-bounds; it does not recompute them, as the JAX package's C++ does in
-float64.
+``load_velodyne_padded_np``, ``load_velodyne_batch_np``,
+ops/bev.point_cloud_2_top_np and ops/nms.nms_np. The raster takes
+ops/bev.py's float32 slice bounds; it does not recompute them, as the JAX
+package's C++ does in float64.
 """
 
 import concurrent.futures
@@ -60,6 +62,10 @@ _SIGNATURES = {
             _F, _I64, _F, _F, _F, _I64, _I32, ctypes.c_int64,
             ctypes.c_int32, ctypes.c_int32, ctypes.c_float, ctypes.c_float,
             ctypes.c_int32, ctypes.POINTER(ctypes.c_double)]),
+    },
+    "nms_host": {
+        "nms_greedy_host": (ctypes.c_int64, [
+            _F, _I64, ctypes.c_int64, ctypes.c_float, _I64]),
     },
     "bev_raster": {
         "bev_raster": (None, [_F, ctypes.c_int64] + _GRID + [_F]),
@@ -130,6 +136,11 @@ def get_eval_lib():
 def get_bev_lib():
     """The host raster's library, built first if needed."""
     return _load("bev_raster")
+
+
+def get_nms_lib():
+    """The host NMS's library, built first if needed."""
+    return _load("nms_host")
 
 
 def _ptr(a, ctype):
@@ -273,3 +284,27 @@ def eval_ap_native(frames, iou_kind, iou_thresh, min_h, lvl_max):
         float(iou_thresh), float(min_h), int(lvl_max),
         _ptr(out, ctypes.c_double))
     return float(out[0]), int(out[1])
+
+
+def nms_np_native(dets, thresh):
+    """ops/nms.nms_np in C++: (N, 5) float32 [x1, y1, x2, y2, score] ->
+    the keep list, bit for bit nms_np's. The score order is numpy's, as
+    nms_np takes it. nms_np compares its float32 overlaps with ``thresh``
+    as numpy does: in float32, or in float64 for a float64 array scalar
+    under numpy 2; the C++ compares with the float32 that float32
+    overlaps pass exactly then (the threshold rounded up in the second
+    case)."""
+    dets = np.ascontiguousarray(dets, np.float32)
+    if dets.ndim != 2 or dets.shape[1] != 5:
+        raise ValueError("nms_np_native: dets must be (N, 5), got {}"
+                         .format(dets.shape))
+    order = np.ascontiguousarray(dets[:, 4].argsort()[::-1], np.int64)
+    thr = np.float32(thresh)
+    if (np.result_type(np.zeros(0, np.float32), thresh) != np.float32
+            and float(thr) < float(thresh)):
+        thr = np.nextafter(thr, np.float32(np.inf))
+    keep = np.empty(len(dets), np.int64)
+    n = get_nms_lib().nms_greedy_host(
+        _ptr(dets, ctypes.c_float), _ptr(order, ctypes.c_int64), len(dets),
+        thr, _ptr(keep, ctypes.c_int64))
+    return keep[:n].tolist()
