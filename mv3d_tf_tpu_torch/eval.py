@@ -28,9 +28,9 @@ from mv3d_tf_tpu_torch import quant as Q
 from mv3d_tf_tpu_torch import trace as T
 from mv3d_tf_tpu_torch.config import cfg
 from mv3d_tf_tpu_torch.models import mv3d
-from mv3d_tf_tpu_torch.ops.nms import nms_np
 from mv3d_tf_tpu_torch.ops.roi_pool import roi_pool_fast
 from mv3d_tf_tpu_torch.proposals import proposal_layer_3d
+from mv3d_tf_tpu_torch.utils.native import nms_np_native
 
 PIXEL_MEANS = np.array([95.8814, 98.7743, 93.8549], np.float32)
 _NMS_IMPLS = ("auto", "blocked_fixed")
@@ -278,7 +278,10 @@ def build_detect_batch_fn(feat_h=75, feat_w=75, pre_nms_top_n=6000,
 def frame_detections(det, num_classes=2, score_thresh=0.05,
                      nms_thresh=None, max_per_image=300):
     """Host-side assembly of one frame's detections per class
-    (eval.py:308-346): threshold, BEV NMS, global top-N cap.
+    (eval.py:308-346): threshold, BEV NMS, global top-N cap. The NMS is
+    ops.nms.nms_np's keep list from its C++ twin utils/native.nms_np_native.
+    Counts the boxes handed to the NMS on trace.assembly_boxes and those it
+    keeps on trace.assembly_kept.
 
     Returns {cls: (dets_bv (M,5), dets_cnr (M,25), dets_cnr_r (M,25))}.
     """
@@ -300,7 +303,9 @@ def frame_detections(det, num_classes=2, score_thresh=0.05,
             cls_cnr = det["boxes_cnr"][inds, j * 24:(j + 1) * 24]
             cls_cnr_r = det["boxes_cnr_r"][inds, j * 24:(j + 1) * 24]
             dets = np.hstack([cls_bv, cls_scores[:, None]]).astype(np.float32)
-            keep = nms_np(dets, nms_thresh)
+            keep = nms_np_native(dets, nms_thresh)
+            T.assembly_boxes += len(inds)
+            T.assembly_kept += len(keep)
             out[j] = (dets[keep],
                       np.hstack([cls_cnr[keep], cls_scores[keep, None]]),
                       np.hstack([cls_cnr_r[keep], cls_scores[keep, None]]))

@@ -22,6 +22,11 @@ Counters are plain ints, counted whether tracing is on or off:
   * ``host_syncs``: blocking device-to-host reads on the detect paths:
     each tensor ``eval.frame_detections`` copies to the host, and each
     ``torch.equal`` round of ``ops/nms.nms_matrix`` and ``nms_blocked``;
+  * ``assembly_boxes`` and ``assembly_kept``: the boxes
+    ``eval.frame_detections`` hands to its per-class NMS (those above the
+    score threshold), and those the NMS keeps (before the per-frame cap).
+    ``counters()`` leaves these two out: a span reader takes every name
+    there but ``host_syncs`` and ``nms_rounds`` for a kernel's launches;
   * ``nms_rounds``: fixpoint rounds of ``nms_matrix``, ``nms_blocked`` and
     ``nms_blocked_fixed`` (a step of the greedy ``nms_plain`` is no round;
     300 spans a call would cost some 4 ms, so steps are not spanned);
@@ -38,6 +43,8 @@ import time
 import torch
 
 host_syncs = 0
+assembly_boxes = 0
+assembly_kept = 0
 nms_rounds = 0
 
 _NULL = contextlib.nullcontext()
