@@ -136,7 +136,8 @@ from mv3d_tf_tpu_torch.eval import (PIXEL_MEANS, build_detect_batch_fn,
 from mv3d_tf_tpu_torch.models import mv3d
 from mv3d_tf_tpu_torch.data.blob import make_bird_view
 from mv3d_tf_tpu_torch.models.vgg import (conv2d, layer, max_pool_2x2_valid,
-                                          module_key, trunk_apply)
+                                          module_key, stem_apply, trunk_apply,
+                                          vgg_stem_plain)
 from mv3d_tf_tpu_torch.ops import bev, conv_s8_cuda
 from mv3d_tf_tpu_torch.ops import conv_s8 as S8
 from mv3d_tf_tpu_torch.ops import roi_pool_cuda as roi_pool_cuda_mod
@@ -163,7 +164,6 @@ from mv3d_tf_tpu_torch.ops.stem_s2d import (group_max, hwio,
                                             pack_stem_weights, stem_s2d)
 from mv3d_tf_tpu_torch.ops.stem_s2d_cuda import (stem_s2d_fused_cuda,
                                                  stem_s2d_fused_plain)
-from mv3d_tf_tpu_torch.ops.vgg_stem_cuda import vgg_stem_cuda, vgg_stem_plain
 from mv3d_tf_tpu_torch.parallel import dryrun as PD
 from mv3d_tf_tpu_torch.parallel import mesh as PM
 from mv3d_tf_tpu_torch.tools import (accuracy_eval, bench_ab, demo_mv,
@@ -540,8 +540,9 @@ def stem_halo_leak(x, w1, b1, w2, b2):
 
 def phase_stem(params, smi):
     """The literal stem's kernel (csrc/stem_s2d.cu's bf16 instance, through
-    vgg_stem_cuda) on the card, within STEM_TOL of the max magnitude of both
-    plain versions: vgg_stem_plain (the literal bf16 conv pair, cuDNN) and
+    stem_s2d_fused_cuda, as vgg.stem_apply's "fused" calls it) on the card,
+    within STEM_TOL of the max magnitude of both plain versions:
+    vgg_stem_plain (the literal bf16 conv pair, cuDNN) and
     stem_s2d_fused_plain in bf16 (the kernel's own rounding). At the
     detector's stem shapes with B=4 distinct frames, at a narrow shape, and
     at B=1 on three shapes whose pooled extents are no multiple of the
@@ -569,7 +570,7 @@ def phase_stem(params, smi):
         w = (layer(params, "conv1_1" + suffix)[0], b1,
              layer(params, "conv1_2" + suffix)[0], b2)
         with torch.inference_mode():
-            got = vgg_stem_cuda(x, *w)
+            got = stem_s2d_fused_cuda(x, *w)
             refs = {"vgg_stem_plain": vgg_stem_plain(x, *w),
                     "stem_s2d_fused_plain": stem_s2d_fused_plain(
                         x, *w, dtype=torch.bfloat16)}
@@ -600,7 +601,7 @@ def phase_stem(params, smi):
         if name in ("bev", "image"):
             x1 = x[:1]
             with torch.inference_mode():
-                k = cuda_ms(lambda: vgg_stem_cuda(x1, *w), iters=10)
+                k = cuda_ms(lambda: stem_s2d_fused_cuda(x1, *w), iters=10)
                 p = cuda_ms(lambda: vgg_stem_plain(x1, *w), iters=10)
             ms, plain_ms = ms + k, plain_ms + p
             _, H, W, cin = x1.shape
@@ -776,7 +777,7 @@ def phase_detector(params, smi):
             "bf16 single-frame": build_detect_fn(
                 compute_dtype=torch.bfloat16, **kw)}
     detect_b = build_detect_batch_fn(compute_dtype=torch.bfloat16, **kw)
-    roi_pool_cuda.launches = vgg_stem_cuda.launches = 0
+    roi_pool_cuda.launches = stem_s2d_fused_cuda.launches = 0
     nms_greedy_cuda.launches = 0
     outputs = {}
     for name, detect in runs.items():
@@ -801,7 +802,7 @@ def phase_detector(params, smi):
           "on [%s]" % (frames, float(np.median(times)), batch_calls,
                     ", ".join("%.3f" % t for t in times), smi))
     launches = {"roi_pool": roi_pool_cuda.launches,
-                "vgg_stem": vgg_stem_cuda.launches,
+                "vgg_stem": stem_s2d_fused_cuda.launches,
                 "nms_greedy": nms_greedy_cuda.launches}
     # two pools and two NMS kernels per detector call, two stems per bf16
     # call; warm-ups count
@@ -1017,7 +1018,7 @@ def phase_train(np_params, smi):
         return m["loss"].item(), ms
 
     roi_pool_cuda.launches = roi_pool_bwd_cuda.launches = 0
-    vgg_stem_cuda.launches = 0
+    stem_s2d_fused_cuda.launches = 0
     for name, dtype in (("f32", None), ("bf16", torch.bfloat16)):
         step, make_opt = build_train_step(compute_dtype=dtype, **kw)
         params = params_from_jax(np_params, device="cuda")
@@ -1052,7 +1053,7 @@ def phase_train(np_params, smi):
         del params, opt, step
     launches = {"roi_pool": roi_pool_cuda.launches,
                 "roi_pool_bwd": roi_pool_bwd_cuda.launches,
-                "vgg_stem": vgg_stem_cuda.launches}
+                "vgg_stem": stem_s2d_fused_cuda.launches}
     # both dtypes; the warm-up, probed and traced steps
     steps = 2 * (TRAIN_STEPS + 3)
     expected = {"roi_pool": 2 * steps, "roi_pool_bwd": 2 * steps,
@@ -1330,7 +1331,7 @@ def phase_scan_detector(params, root, smi):
     runs = {"f32": build_detect_fn(**kw),
             "bf16": build_detect_fn(compute_dtype=torch.bfloat16, **kw)}
     detect_b = build_detect_batch_fn(compute_dtype=torch.bfloat16, **kw)
-    roi_pool_cuda.launches = vgg_stem_cuda.launches = 0
+    roi_pool_cuda.launches = stem_s2d_fused_cuda.launches = 0
     bev_place_cuda.launches = 0
 
     def single(detect, i):
@@ -1374,7 +1375,7 @@ def phase_scan_detector(params, root, smi):
               ", ".join("%.3f" % t for t in times),
               [sum(len(d[0]) for d in f.values()) for f in dets], smi))
     launches = {"roi_pool": roi_pool_cuda.launches,
-                "vgg_stem": vgg_stem_cuda.launches,
+                "vgg_stem": stem_s2d_fused_cuda.launches,
                 "bev_place": bev_place_cuda.launches}
     singles, batches = frames + 1, batch_calls + 1
     expected = {"roi_pool": 2 * (2 * singles + batches),
@@ -1711,18 +1712,19 @@ class plain_routes:
 
 
 def path_launches():
-    """Every kernel's count, for the paths that may reach any of them."""
+    """Every kernel's count, for the paths that may reach any of them; the
+    stem kernel's ("vgg_stem") counts the fused literal and the fused s2d
+    stems alike."""
     return {"roi_pool": roi_pool_cuda.launches,
-            "vgg_stem": vgg_stem_cuda.launches,
+            "vgg_stem": stem_s2d_fused_cuda.launches,
             "conv_s8": conv3x3_s8_cuda.launches,
             "conv2x2_s8": conv2x2_s8_cuda.launches,
-            "matmul_s8": matmul_s8_cuda.launches,
-            "stem_s2d_fused": stem_s2d_fused_cuda.launches}
+            "matmul_s8": matmul_s8_cuda.launches}
 
 
 def zero_path_launches():
-    for fn in (roi_pool_cuda, vgg_stem_cuda, conv3x3_s8_cuda,
-               conv2x2_s8_cuda, matmul_s8_cuda, stem_s2d_fused_cuda):
+    for fn in (roi_pool_cuda, conv3x3_s8_cuda, conv2x2_s8_cuda,
+               matmul_s8_cuda, stem_s2d_fused_cuda):
         fn.launches = 0
 
 
@@ -1804,10 +1806,11 @@ def int8_stages(params, state, bev, image, calib, stem="s2d_int8"):
                                     stem_cache["trunk_img"])
             tail = Q.trunk_apply_int8_from_stem_q
         else:
-            stem_bv = clock("s2d fused stems", Q._float_stem, params, bev, "",
-                            stem)
-            stem_im = clock("s2d fused stems", Q._float_stem, params, image,
-                            "_2", stem)
+            stem_bv, stem_im = (
+                clock("s2d fused stems", stem_apply, stem, x,
+                      *layer(params, "conv1_1" + sfx),
+                      *layer(params, "conv1_2" + sfx), torch.bfloat16)
+                for x, sfx in ((bev, ""), (image, "_2")))
             tail = Q.trunk_apply_int8_from_stem
         fbv, s_bv = clock("int8 trunk tails", tail, q_bv, stem_bv,
                           trunk_w["trunk_bv"])
@@ -1882,7 +1885,7 @@ def phase_int8_detector(np_params, smi):
         times.append(ms / INT8_B)
     launches = path_launches()
     per_call = {"roi_pool": 2, "vgg_stem": 0, "conv_s8": 23,
-                "conv2x2_s8": 2, "matmul_s8": 4, "stem_s2d_fused": 0}
+                "conv2x2_s8": 2, "matmul_s8": 4}
     expected = {k: v * (calls + 1) for k, v in per_call.items()}
     print("int8-path launches: %s (expected %s)" % (launches, expected))
     if launches != expected:
@@ -1963,9 +1966,9 @@ def phase_s2d_fused_detectors(np_params, state, smi):
                                      **dict(INT8_KW, stem_impl="s2d_fused"))
     calls = 3
     zero = dict.fromkeys(path_launches(), 0)
-    per_call = {"bf16": dict(zero, roi_pool=2, stem_s2d_fused=2),
+    per_call = {"bf16": dict(zero, roi_pool=2, vgg_stem=2),
                 "int8": dict(zero, roi_pool=2, conv_s8=23, matmul_s8=4,
-                             stem_s2d_fused=2)}
+                             vgg_stem=2)}
     total = {}
     for name, detect, inputs, B in (("bf16", detect_f, f_in, float_b),
                                     ("int8", detect_q, q_in, INT8_B)):
@@ -2111,12 +2114,12 @@ def phase_eval_clis(np_params, smi):
             if res["nms_cert_failures"] != 0 or not np.isfinite(aps).all():
                 raise AssertionError("quant_check: %s" % res)
             # the pooled-feature calibration (one pool pair), then per
-            # batch the bf16 reference detector and the int8 detector
+            # batch the bf16 reference detector and the int8 detector, each
+            # with two stems on the one stem kernel
             batches = -(-res["frames"] // INT8_B)
             expected = dict(zero, roi_pool=2 + 4 * batches,
-                            vgg_stem=2 * batches, conv_s8=23 * batches,
-                            matmul_s8=4 * batches,
-                            stem_s2d_fused=2 * batches)
+                            vgg_stem=4 * batches, conv_s8=23 * batches,
+                            matmul_s8=4 * batches)
             if launches != expected:
                 raise AssertionError("quant_check launched %s != %s"
                                      % (launches, expected))
@@ -2527,14 +2530,14 @@ def phase_train_net(np_params, root, weights, smi):
 
             def counted(name, iters, fn, *args, **kwargs):
                 roi_pool_cuda.launches = roi_pool_bwd_cuda.launches = 0
-                vgg_stem_cuda.launches = 0
+                stem_s2d_fused_cuda.launches = 0
                 t0 = time.perf_counter()
                 _, lines = printed_lines(fn, *args, **kwargs)
                 torch.cuda.synchronize()
                 secs = time.perf_counter() - t0
                 launches = {"roi_pool": roi_pool_cuda.launches,
                             "roi_pool_bwd": roi_pool_bwd_cuda.launches,
-                            "vgg_stem": vgg_stem_cuda.launches}
+                            "vgg_stem": stem_s2d_fused_cuda.launches}
                 want = {"roi_pool": 2 * iters, "roi_pool_bwd": 2 * iters,
                         "vgg_stem": 0}
                 if launches != want:
@@ -2732,7 +2735,6 @@ def phase_accuracy_eval(root, smi):
 KERNEL_SYMBOL = {"roi_pool": "roi_pool_kernel",
                  "roi_pool_bwd": "roi_pool_bwd_kernel",
                  "vgg_stem": "stem_s2d_bf16_kernel",
-                 "stem_s2d_fused": "stem_s2d_bf16_kernel",
                  "bev_place": "bev_place_chunks",
                  "conv_s8": "conv_s8_wgmma", "conv2x2_s8": "conv_s8_wgmma",
                  "matmul_s8": "matmul_s8_wgmma"}
@@ -3877,11 +3879,11 @@ def stem_band_rows(params, x, sfx):
     rows compared and whether every one is equal bit for bit."""
     p = (*layer(params, "conv1_1" + sfx), *layer(params, "conv1_2" + sfx))
     h = x.shape[1]
-    whole = vgg_stem_cuda(x, *p)
+    whole = stem_s2d_fused_cuda(x, *p)
     rows, same = 0, True
     for band in PM.row_bands(PM.feature_rows(h), 2):
         start, stop = PM.band_slice(band, h)
-        y = vgg_stem_cuda(x[:, start:stop].contiguous(), *p)
+        y = stem_s2d_fused_cuda(x[:, start:stop].contiguous(), *p)
         lo = 2 if start > 0 else 0
         hi = y.shape[1] - (2 if stop < h else 0)
         off = start // 2
@@ -4419,8 +4421,7 @@ import atexit, json, os, runpy, sys
 
 COUNTS = (("roi_pool", "roi_pool_cuda", "roi_pool_cuda"),
           ("roi_pool_bwd", "roi_pool_cuda", "roi_pool_bwd_cuda"),
-          ("vgg_stem", "vgg_stem_cuda", "vgg_stem_cuda"),
-          ("stem_s2d_fused", "stem_s2d_cuda", "stem_s2d_fused_cuda"),
+          ("vgg_stem", "stem_s2d_cuda", "stem_s2d_fused_cuda"),
           ("bev_place", "bev_cuda", "bev_place_cuda"),
           ("conv_s8", "conv_s8_cuda", "conv3x3_s8_cuda"),
           ("conv2x2_s8", "conv_s8_cuda", "conv2x2_s8_cuda"),
@@ -4690,7 +4691,7 @@ def main():
          **matmul_stats},
         {"name": "stem_s2d_fused", "route": "cuda", "source": S2D_SOURCE,
          "replaces": "mv3d_tf_tpu/ops/stem_s2d_pallas.py:124",
-         "launches": new_paths["stem_s2d_fused"], **s2d},
+         "launches": None, "launches_counted_under": "vgg_stem", **s2d},
         {"name": "nms_greedy", "route": "cuda", "source": NMS_SOURCE,
          "replaces": "none: stands for mv3d_tf_tpu/ops/nms.py:224 (fori_loop)",
          "launches": launches["nms_greedy"], **nms_stats},

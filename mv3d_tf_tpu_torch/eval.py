@@ -10,10 +10,10 @@ Parity notes, as in the JAX package:
   * the image mean is subtracted in float32 before any cast;
   * boxes for BEV NMS come from the UNREGRESSED corners; the regressed
     corners are returned alongside.
-In bfloat16 the trunks run the fused conv1 stem (ops/vgg_stem_cuda.py)
-unless the batched detector is given another stem (the fused s2d stem of
-ops/stem_s2d_cuda.py among them); on a card both run the one bf16 kernel
-of csrc/stem_s2d.cu, and the ROI pooling runs the CUDA kernel
+In bfloat16 the trunks run the fused conv1 stem unless the batched detector
+is given another stem (models/vgg.STEMS, dispatched by vgg.stem_apply); on
+a card the fused stem and the fused s2d stem in bfloat16 run the one bf16
+kernel of csrc/stem_s2d.cu, and the ROI pooling runs the CUDA kernel
 (ops/roi_pool.py).
 Given an int8 quant state (quant.py), the batched detector runs the int8
 trunks, RPN conv, ROI pool and fc6/fc7 through the s8 kernels
@@ -27,7 +27,7 @@ from mv3d_tf_tpu_torch import geometry as G
 from mv3d_tf_tpu_torch import quant as Q
 from mv3d_tf_tpu_torch import trace as T
 from mv3d_tf_tpu_torch.config import cfg
-from mv3d_tf_tpu_torch.models import mv3d
+from mv3d_tf_tpu_torch.models import mv3d, vgg
 from mv3d_tf_tpu_torch.ops.roi_pool import roi_pool_fast
 from mv3d_tf_tpu_torch.proposals import proposal_layer_3d
 from mv3d_tf_tpu_torch.utils.native import nms_np_native
@@ -121,12 +121,10 @@ def _inputs(params, bev, image, calib):
 
 @torch.inference_mode()
 def _detect(params, bev, image, calib, compute_dtype, stem_impl=None, **kw):
-    """Batched detector from raw inputs (B,...) on the params' device.
-    stem_impl None picks the fused stem in bfloat16 and the literal one
-    otherwise; any other value names the stem (models/vgg.trunk_apply)."""
+    """Batched detector from raw inputs (B,...) on the params' device, with
+    the stem vgg.detector_stem picks from stem_impl."""
     bev, image, calib = _inputs(params, bev, image, calib)
-    if stem_impl is None and compute_dtype == torch.bfloat16:
-        stem_impl = "fused"
+    stem_impl = vgg.detector_stem(stem_impl, compute_dtype)
     with T.span("detect.trunks"):
         c5, c5_2 = mv3d.extract_features(params, bev, image,
                                          dtype=compute_dtype,
@@ -142,10 +140,9 @@ def _dequant(q, s):
 
 
 @torch.inference_mode()
-def _detect_int8(params, qstate, bev, image, calib, stem_impl, conv_impl,
-                 quant_rpn, quant_pool, feat_h, feat_w, pre_nms_top_n,
-                 post_nms_top_n, rpn_nms_thresh, nms_impl, trunk_w, head_nk,
-                 stem_cache):
+def _detect_int8(params, qstate, bev, image, calib, stem_impl, quant_rpn,
+                 quant_pool, feat_h, feat_w, pre_nms_top_n, post_nms_top_n,
+                 rpn_nms_thresh, nms_impl, trunk_w, head_nk, stem_cache):
     """The int8 batched detector (eval.py:137-291): int8 trunks (their convs
     on trunk_w, quant.prepare_trunk_weights' dict per trunk; the s2d_int8
     stem's weights kept in stem_cache per view), the int8 RPN
@@ -156,10 +153,9 @@ def _detect_int8(params, qstate, bev, image, calib, stem_impl, conv_impl,
     bev, image, calib = _inputs(params, bev, image, calib)
     fbv, s_bv, fim, s_im = Q.extract_features_int8(
         params, qstate, bev, image, trunk_w, stem_cache,
-        stem=stem_impl or "bf16", conv_impl=conv_impl)
+        stem=vgg.detector_stem(stem_impl, int8=True))
     if quant_rpn:
-        rpn_cls, rpn_box = Q.rpn_head_int8(params, fbv, s_bv,
-                                           conv_impl=conv_impl)
+        rpn_cls, rpn_box = Q.rpn_head_int8(params, fbv, s_bv)
     else:
         rpn_cls, rpn_box = mv3d.rpn_head(params, _dequant(fbv, s_bv),
                                          dtype=torch.bfloat16)
@@ -215,23 +211,22 @@ def build_detect_fn(feat_h=75, feat_w=75, pre_nms_top_n=6000,
 
 def build_detect_batch_fn(feat_h=75, feat_w=75, pre_nms_top_n=6000,
                           post_nms_top_n=300, rpn_nms_thresh=0.7,
-                          compute_dtype=None, quant=None,
-                          quant_conv_impl="xla", stem_impl=None,
-                          quant_rpn=False, rois_per_step=12,
-                          quant_pool=True, nms_impl="auto"):
+                          compute_dtype=None, quant=None, stem_impl=None,
+                          quant_rpn=False, quant_pool=True, nms_impl="auto"):
     """The batched detector (eval.py:99-305).
 
     Returns detect_batch(params, bev (B,...), image (B,...), calib (B,4,12))
     -> dict with leading dims (B, P) and the keys of the JAX batch detector.
-    nms_impl "auto" leaves the choice to the proposal layer (the greedy
-    loop at post_nms_top_n <= 512, the blocked scan above);
+    nms_impl "auto" leaves the choice to the proposal layer (at
+    post_nms_top_n <= 512 the greedy NMS, on a card csrc/nms.cu's kernel,
+    the blocked scan above);
     "blocked_fixed" runs the fixed-round blocked NMS and the output carries
     its certificate "nms_converged" (B,) bool (eval.py:289-290), which a
     caller must check before it trusts the frame (solver.test_net raises).
 
     quant: an int8 PTQ state (quant.build_quant_state, load_quant_state or
     utils.weights.quant_state_from_jax) runs the int8 detector: stem_impl
-    picks its stem (quant.extract_features_int8, "bf16" by default),
+    picks its stem (quant.extract_features_int8),
     quant_rpn the int8 RPN conv, quant_pool the ROI pool on int8 maps;
     heads run in bf16, the fc6/fc7 in int8 when the state has a head; the
     trunks' conv weights (with their folded requant) and the fc weights are
@@ -239,12 +234,9 @@ def build_detect_batch_fn(feat_h=75, feat_w=75, pre_nms_top_n=6000,
     s2d_int8 stem's weights, which come from params, on the first call and
     again only when the params' conv1 tensors or the state's conv1 scales
     change (quant.s2d_stem_weights).
-    quant_conv_impl is checked and names the same integers for every value;
-    rois_per_step, a TPU tiling, is accepted and unused. With quant=None the
-    float detector runs in compute_dtype with the stem stem_impl names
-    (models/vgg.trunk_apply: "literal", "fused" / "pallas", "s2d",
-    "s2d_fused"); None picks the fused stem in bfloat16 and the literal one
-    otherwise (eval.py:174-182).
+    With quant=None the float detector runs in compute_dtype. stem_impl is
+    a name of models/vgg.STEMS (the integer stems only with quant); None
+    picks the detectors' default, vgg.detector_stem.
     """
     if nms_impl not in _NMS_IMPLS:
         raise ValueError("unknown nms_impl {!r}".format(nms_impl))
@@ -255,16 +247,14 @@ def build_detect_batch_fn(feat_h=75, feat_w=75, pre_nms_top_n=6000,
         run = lambda p, b, i, c: _detect(  # noqa: E731
             p, b, i, c, compute_dtype, stem_impl, **kw)
     else:
-        Q._check_impl(quant_conv_impl)
         trunk_w = {key: Q.prepare_trunk_weights(quant[key])
                    for key in ("trunk_bv", "trunk_img")}
         head_nk = (None if quant.get("head") is None
                    else Q.prepare_head_weights(quant["head"]))
         stem_cache = {"trunk_bv": {}, "trunk_img": {}}
         run = lambda p, b, i, c: _detect_int8(  # noqa: E731
-            p, quant, b, i, c, stem_impl, quant_conv_impl, quant_rpn,
-            quant_pool, trunk_w=trunk_w, head_nk=head_nk,
-            stem_cache=stem_cache, **kw)
+            p, quant, b, i, c, stem_impl, quant_rpn, quant_pool,
+            trunk_w=trunk_w, head_nk=head_nk, stem_cache=stem_cache, **kw)
 
     def detect_batch(params, bev, image, calib):
         with T.span("detect"):

@@ -91,46 +91,90 @@ def init_trunk(generator, in_channels, suffix="", device="cuda"):
     return params
 
 
+# The stem vocabulary: each accepted stem_impl name -> its canonical stem.
+# "bf16" and "pallas" are the JAX package's names of the literal and the
+# fused stem. The last two stems are integer and run only in the int8
+# detector (quant.extract_features_int8).
+STEMS = {"literal": "literal", "bf16": "literal", "fused": "fused",
+         "pallas": "fused", "s2d": "s2d", "s2d_fused": "s2d_fused",
+         "s2d_int8": "s2d_int8", "int8": "int8"}
+INT8_STEMS = ("s2d_int8", "int8")
+
+
+def stem_name(stem_impl, int8=False):
+    """The canonical stem that stem_impl names (STEMS); None is the literal
+    stem. The integer stems only with int8=True."""
+    stem = STEMS.get("literal" if stem_impl is None else stem_impl)
+    if stem is None or (stem in INT8_STEMS and not int8):
+        raise ValueError(
+            "unknown stem_impl {!r}{}".format(
+                stem_impl, "" if int8 else " for the float trunk (the "
+                "s2d_int8 and int8 stems run in the int8 detector)"))
+    return stem
+
+
+def detector_stem(stem_impl, dtype=None, int8=False):
+    """The stem a detector runs: stem_impl's, or for None the detectors'
+    default, the fused stem for the float detector in bfloat16 and the
+    literal stem otherwise and for the int8 detector (eval.py:174-182)."""
+    if stem_impl is None and dtype == torch.bfloat16 and not int8:
+        return "fused"
+    return stem_name(stem_impl, int8)
+
+
+def vgg_stem_plain(x, w1, b1, w2, b2, dtype=torch.bfloat16):
+    """The literal stem: conv1_1, conv1_2 (each + bias + ReLU) and pool1 in
+    dtype, bfloat16 by default (None keeps float32): the fused stem's plain
+    version. It rounds after each bias; the fused kernel rounds once, within
+    one bf16 ulp of the max."""
+    y = conv2d(x, w1, b1, dtype=dtype)
+    return max_pool_2x2_valid(conv2d(y, w2, b2, dtype=dtype))
+
+
+def stem_apply(stem_impl, x, w1, b1, w2, b2, dtype=None):
+    """conv1_1 + conv1_2 + pool1 (vgg.py:76-126) by the float stem that
+    stem_impl names, in dtype (None: float32). x (B,H,W,Cin) NHWC, weights
+    OIHW, biases (64,) -> (B,H//2,W//2,64):
+      "literal" — vgg_stem_plain: two conv2d calls and the pool;
+      "fused"   — the hand-written bf16 kernel of csrc/stem_s2d.cu
+                  (ops/stem_s2d_cuda.stem_s2d_fused_cuda) on a CUDA tensor,
+                  the literal bf16 stem on the CPU; bfloat16 only;
+      "s2d"     — ops/stem_s2d.stem_s2d: the space-to-depth packed convs,
+                  differentiable;
+      "s2d_fused" — ops/stem_s2d_cuda.stem_s2d_fused (float32 for None):
+                  the fused s2d kernel on a CUDA tensor, its plain version
+                  on the CPU; inference only.
+    """
+    # imported here: ops/stem_s2d imports this module
+    from mv3d_tf_tpu_torch.ops.stem_s2d import stem_s2d
+    from mv3d_tf_tpu_torch.ops.stem_s2d_cuda import (stem_s2d_fused,
+                                                     stem_s2d_fused_cuda)
+    stem = stem_name(stem_impl)
+    if stem == "literal":
+        return vgg_stem_plain(x, w1, b1, w2, b2, dtype)
+    if stem == "s2d":
+        return stem_s2d(x, w1, b1, w2, b2, dtype=dtype)
+    if stem == "s2d_fused":
+        return stem_s2d_fused(x, w1, b1, w2, b2, dtype=dtype or torch.float32)
+    if dtype != torch.bfloat16:
+        raise ValueError("the fused literal stem outputs bfloat16: run the "
+                         "trunk with dtype=torch.bfloat16")
+    if x.is_cuda:
+        return stem_s2d_fused_cuda(x, w1, b1, w2, b2, torch.bfloat16)
+    if x.device.type == "cpu":
+        return vgg_stem_plain(x, w1, b1, w2, b2, torch.bfloat16)
+    raise ValueError("stem_apply: no fused stem for device " + str(x.device))
+
+
 def trunk_apply(params, x, suffix="", dtype=None, stem_impl=None):
     """Run the 13-conv trunk. x (B,H,W,C) NHWC -> conv5_3 (B,H/8,W/8,512).
 
-    stem_impl selects how conv1_1 + conv1_2 + pool1 run (vgg.py:76-126):
-      None / "literal"   — two conv2d calls and the pool;
-      "fused" / "pallas" — ops/vgg_stem_cuda.vgg_stem: the hand-written CUDA
-                           kernel (csrc/stem_s2d.cu's bf16 instance) on a
-                           CUDA tensor, its plain version on the CPU;
-                           bfloat16 output ("pallas" is the JAX package's
-                           name for it);
-      "s2d"              — ops/stem_s2d.stem_s2d in dtype: the space-to-depth
-                           packed convs, differentiable;
-      "s2d_fused"        — ops/stem_s2d_cuda.stem_s2d_fused in dtype, float32
-                           when dtype is None: the fused s2d kernel on a CUDA
-                           tensor, its plain version on the CPU; inference
-                           only.
+    stem_impl names how conv1_1 + conv1_2 + pool1 run (STEMS, stem_apply);
+    None is the literal stem.
     """
-    if stem_impl not in (None, "literal", "fused", "pallas", "s2d",
-                         "s2d_fused"):
-        raise ValueError(
-            "unknown stem_impl {!r} for the float trunk (the s2d_int8 stem "
-            "lives in quant.extract_features_int8)".format(stem_impl))
-    if stem_impl in ("fused", "pallas") and dtype != torch.bfloat16:
-        raise ValueError("the fused literal stem outputs bfloat16: run the "
-                         "trunk with dtype=torch.bfloat16")
-    layers = VGG_LAYERS
-    if stem_impl not in (None, "literal"):
-        p = (*layer(params, "conv1_1" + suffix),
-             *layer(params, "conv1_2" + suffix))
-        if stem_impl == "s2d":
-            from mv3d_tf_tpu_torch.ops.stem_s2d import stem_s2d
-            x = stem_s2d(x, *p, dtype=dtype)
-        elif stem_impl == "s2d_fused":
-            from mv3d_tf_tpu_torch.ops.stem_s2d_cuda import stem_s2d_fused
-            x = stem_s2d_fused(x, *p, dtype=dtype or torch.float32)
-        else:
-            from mv3d_tf_tpu_torch.ops.vgg_stem_cuda import vgg_stem
-            x = vgg_stem(x, *p)
-        layers = VGG_LAYERS[2:]
-    for name, _, pool in layers:
+    x = stem_apply(stem_impl, x, *layer(params, "conv1_1" + suffix),
+                   *layer(params, "conv1_2" + suffix), dtype=dtype)
+    for name, _, pool in VGG_LAYERS[2:]:
         x = conv2d(x, *layer(params, name + suffix), dtype=dtype)
         if pool:
             x = max_pool_2x2_valid(x)

@@ -1,6 +1,10 @@
 """Fused space-to-depth stem: the CUDA kernel (csrc/stem_s2d.cu), its plain
-PyTorch version and the dispatch between them. The kernel replaces
-mv3d_tf_tpu/ops/stem_s2d_pallas.py:stem_s2d_fused.
+PyTorch version and the dispatch between them. The kernel replaces two TPU
+kernels, which compute one function: mv3d_tf_tpu/ops/stem_s2d_pallas.py:
+stem_s2d_fused and, in bfloat16, ops/vgg_stem_pallas.py:vgg_stem_pallas,
+the fused literal stem (models/vgg.stem_apply's "fused", whose plain
+version is the literal bf16 conv pair, vgg.vgg_stem_plain, within one bf16
+ulp of the max). stem_s2d_fused_cuda.launches counts both stems' launches.
 
 All three compute the s2d stem (conv1_1 + ReLU + conv1_2 + ReLU + pool1,
 ops/stem_s2d.py) with the fused kernel's rounding: operands in ``dtype``,

@@ -122,10 +122,10 @@ def _launches():
     its own launches in this process)."""
     from mv3d_tf_tpu_torch.ops.roi_pool_cuda import (roi_pool_bwd_cuda,
                                                      roi_pool_cuda)
-    from mv3d_tf_tpu_torch.ops.vgg_stem_cuda import vgg_stem_cuda
+    from mv3d_tf_tpu_torch.ops.stem_s2d_cuda import stem_s2d_fused_cuda
     return {"roi_pool": roi_pool_cuda.launches,
             "roi_pool_bwd": roi_pool_bwd_cuda.launches,
-            "vgg_stem": vgg_stem_cuda.launches}
+            "vgg_stem": stem_s2d_fused_cuda.launches}
 
 
 def _since(before):

@@ -309,7 +309,7 @@ def build_spatial_detect(mesh, detect_single=None, **kwargs):
                          "eval.build_detect_fn's kwargs instead")
     from mv3d_tf_tpu_torch import eval as E
     dtype = kwargs.pop("compute_dtype", None)
-    stem_impl = "fused" if dtype == torch.bfloat16 else None
+    stem_impl = vgg.detector_stem(None, dtype)
 
     @torch.inference_mode()
     def detect(params, bev, image, calib):

@@ -29,10 +29,10 @@ packages (``save_quant_state`` / ``load_quant_state``,
 utils/weights.quant_state_from_jax).
 
 Every s8 conv runs through ops/conv_s8 (the kernel on a card, the plain
-version on the CPU) whatever ``conv_impl`` says: its five values name one
-set of integers in the JAX package, and the TPU tilings they pick stay
-behind. Scales divide as 0-dim tensors on the data's device, never as
-Python floats (a card turns those into a reciprocal multiply).
+version on the CPU): the JAX package's TPU lowerings of the int8 convs
+name one set of integers, and the tilings they pick stay behind. Scales
+divide as 0-dim tensors on the data's device, never as Python floats (a
+card turns those into a reciprocal multiply).
 """
 
 import numpy as np
@@ -42,10 +42,8 @@ from mv3d_tf_tpu_torch.models import mv3d, vgg
 from mv3d_tf_tpu_torch.ops import conv_s8 as S8
 from mv3d_tf_tpu_torch.ops.conv_s8 import requant
 from mv3d_tf_tpu_torch.ops.stem_s2d import (group_max, hwio, pack_stem_weights,
-                                            packed_conv1_1, stem_s2d)
+                                            packed_conv1_1)
 
-CONV_IMPLS = ("xla", "dots", "im2col", "pallas", "hybrid")
-STEMS = ("bf16", "s2d", "s2d_fused", "s2d_int8", "int8", "pallas")
 FC_LAYERS = ("fc6_1", "fc7_1", "fc6_2", "fc7_2")
 _BF16 = torch.bfloat16
 # XLA rewrites a division by a constant under jit into a multiply by the
@@ -76,11 +74,6 @@ def _max_pool_s8(x):
     return torch.maximum(
         torch.maximum(x[:, 0:H:2, 0:W:2], x[:, 0:H:2, 1:W:2]),
         torch.maximum(x[:, 1:H:2, 0:W:2], x[:, 1:H:2, 1:W:2]))
-
-
-def _check_impl(conv_impl):
-    if conv_impl not in CONV_IMPLS:
-        raise ValueError("unknown conv_impl {!r}".format(conv_impl))
 
 
 def quantize_weights(w):
@@ -172,22 +165,18 @@ def trunk_apply_int8(qtrunk, x, trunk_w):
     return x, qtrunk["conv5_3"]["s_out"]
 
 
-def trunk_apply_int8_from_stem(qtrunk, stem_out, trunk_w, conv_impl="xla"):
+def trunk_apply_int8_from_stem(qtrunk, stem_out, trunk_w):
     """conv2_1 .. conv5_3 in int8 on trunk_w (prepare_trunk_weights) after
     a float stem output (conv1_2 and pool1 done), quantized at conv1_2's
     output scale."""
     x = _quantize(stem_out, qtrunk["conv1_2"]["s_out"], 0)
-    return _trunk_tail_int8(qtrunk, x, trunk_w, conv_impl)
+    return trunk_apply_int8_from_stem_q(qtrunk, x, trunk_w)
 
 
-def trunk_apply_int8_from_stem_q(qtrunk, stem_q, trunk_w, conv_impl="xla"):
+def trunk_apply_int8_from_stem_q(qtrunk, stem_q, trunk_w):
     """conv2_1 .. conv5_3 on trunk_w (prepare_trunk_weights) from an int8
     stem output at conv1_2's scale."""
-    return _trunk_tail_int8(qtrunk, stem_q, trunk_w, conv_impl)
-
-
-def _trunk_tail_int8(qtrunk, x, trunk_w, conv_impl):
-    _check_impl(conv_impl)
+    x = stem_q
     for name, _, pool in vgg.VGG_LAYERS[2:]:
         x = _conv_requant(x, trunk_w[name])
         if pool:
@@ -415,12 +404,11 @@ def s2d_stem_int8_stages(qtrunk, x, stem_w):
     yield "group max", group_max(z_q, stem_w["C2"])
 
 
-def _s2d_stem_int8(qtrunk, x, stem_w, conv_impl="pallas"):
+def _s2d_stem_int8(qtrunk, x, stem_w):
     """Space-to-depth stem with the packed conv1_1 in bf16 (quantized at
     the literal conv1_1 scale) and the packed conv1_2 in int8, on stem_w
     (prepare_s2d_stem_int8's dict): s2d_stem_int8_stages to its end.
     Returns (stem_q int8, s_out) for trunk_apply_int8_from_stem_q."""
-    _check_impl(conv_impl)
     *_, (_, stem_q) = s2d_stem_int8_stages(qtrunk, x, stem_w)
     return stem_q, qtrunk["conv1_2"]["s_out"]
 
@@ -435,10 +423,9 @@ def rpn_conv_int8(params, feat_q, s_in):
                          out_dtype=torch.float32)
 
 
-def rpn_head_int8(params, feat_q, s_in, conv_impl="xla"):
+def rpn_head_int8(params, feat_q, s_in):
     """RPN head on the int8 trunk features: rpn_conv_int8, then the bf16
     1x1 score and delta heads (twin of mv3d.rpn_head)."""
-    _check_impl(conv_impl)
     x = rpn_conv_int8(params, feat_q, s_in).to(_BF16)
     cls = vgg.conv2d(x, *vgg.layer(params, "rpn_cls_score"), padding="VALID",
                      relu=False, dtype=_BF16)
@@ -447,63 +434,36 @@ def rpn_head_int8(params, feat_q, s_in, conv_impl="xla"):
     return cls, bbox
 
 
-def _bf16_stem(params, x, suffix=""):
-    """conv1_1 + conv1_2 + pool1 in bf16, the literal layers."""
-    h = x.to(_BF16)
-    for name in ("conv1_1", "conv1_2"):
-        h = vgg.conv2d(h, *vgg.layer(params, name + suffix), dtype=_BF16)
-    return vgg.max_pool_2x2_valid(h)
-
-
-def _float_stem(params, x, suffix, stem):
-    p = (*vgg.layer(params, "conv1_1" + suffix),
-         *vgg.layer(params, "conv1_2" + suffix))
-    if stem == "s2d":
-        return stem_s2d(x, *p, dtype=_BF16)
-    if stem == "s2d_fused":
-        from mv3d_tf_tpu_torch.ops.stem_s2d_cuda import stem_s2d_fused
-        return stem_s2d_fused(x, *p, dtype=_BF16)
-    if stem == "pallas":
-        from mv3d_tf_tpu_torch.ops.vgg_stem_cuda import vgg_stem
-        return vgg_stem(x, *p)
-    return _bf16_stem(params, x, suffix)
-
-
 def extract_features_int8(params, quant, bev, image, trunk_w, stem_cache,
-                          fused_stem=False, stem="bf16", conv_impl="xla"):
+                          stem=None):
     """Quantized twin of mv3d.extract_features (quant.py:610-689), the
     trunks' convs on trunk_w = {key: prepare_trunk_weights(quant[key])} for
     "trunk_bv" and "trunk_img"; the s2d_int8 stem's weights from
     stem_cache = {"trunk_bv": {}, "trunk_img": {}}, owned by the caller
     (s2d_stem_weights: prepared once per view and kept there; the other
-    stems do not read it). stem:
-      "bf16"     — literal bf16 conv1 pair and pool, then int8;
-      "s2d"      — the space-to-depth bf16 stem (ops/stem_s2d.py);
-      "s2d_fused" — the s2d stem as one kernel in bf16
-                   (ops/stem_s2d_cuda.py: the CUDA kernel on a card);
+    stems do not read it). stem is any name of models/vgg.STEMS (None:
+    the literal stem):
       "s2d_int8" — s2d with the packed conv1_2 as the s8 2x2 kernel,
                    feeding the trunk int8 directly;
       "int8"     — int8 from the input;
-      "pallas"   — the fused bf16 stem (ops/vgg_stem_cuda.py: the CUDA
-                   kernel on a card); fused_stem=True is its alias.
+      a float stem — vgg.stem_apply in bf16, then int8 from conv2_1.
     Returns (feat_bv_q, s_bv, feat_img_q, s_img)."""
-    if fused_stem:
-        stem = "pallas"
-    _check_impl(conv_impl)
-    if stem not in STEMS:
-        raise ValueError("unknown stem {!r}".format(stem))
+    stem = vgg.stem_name(stem, int8=True)
     out = []
     for key, x, suffix in (("trunk_bv", bev, ""), ("trunk_img", image, "_2")):
         qt, tw = quant[key], trunk_w[key]
         if stem == "s2d_int8":
             sw = s2d_stem_weights(stem_cache[key], params, qt, suffix)
-            stem_q, _ = _s2d_stem_int8(qt, x, sw, conv_impl)
-            out += trunk_apply_int8_from_stem_q(qt, stem_q, tw, conv_impl)
+            stem_q, _ = _s2d_stem_int8(qt, x, sw)
+            out += trunk_apply_int8_from_stem_q(qt, stem_q, tw)
         elif stem == "int8":
             out += trunk_apply_int8(qt, x, tw)
         else:
-            out += trunk_apply_int8_from_stem(
-                qt, _float_stem(params, x, suffix, stem), tw, conv_impl)
+            s = vgg.stem_apply(stem, x,
+                               *vgg.layer(params, "conv1_1" + suffix),
+                               *vgg.layer(params, "conv1_2" + suffix),
+                               dtype=_BF16)
+            out += trunk_apply_int8_from_stem(qt, s, tw)
     return tuple(out)
 
 

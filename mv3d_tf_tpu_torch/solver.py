@@ -309,8 +309,7 @@ def _build_detector(params, imdb, indices, compute_dtype, quant_cfg, log):
         log("int8 calibration on {} frames".format(len(cb)))
         qs = Q.build_quant_state(params, cb, ci, pooled_bv=pool_bv,
                                  pooled_img=pool_img)
-        q_kwargs = {"quant_conv_impl": qc.pop("conv_impl", "xla"),
-                    "stem_impl": qc.pop("stem", None)}
+        q_kwargs = {"stem_impl": qc.pop("stem", None)}
     return build_detect_batch_fn(
         pre_nms_top_n=cfg.TEST.RPN_PRE_NMS_TOP_N,
         post_nms_top_n=cfg.TEST.RPN_POST_NMS_TOP_N,
@@ -344,8 +343,8 @@ def test_net(params, imdb, weights_filename="default", max_per_image=300,
     regressed corners. The device path is eval.build_detect_batch_fn on the
     params' device at batch_size frames a call (the tail batch padded with
     its last frame); its "nms_converged" certificate must hold on every
-    frame, or test_net raises. quant_cfg {"stem", "conv_impl",
-    "int8_head", "calib_frames"} runs the int8 detector after calibrating
+    frame, or test_net raises. quant_cfg {"stem", "int8_head",
+    "calib_frames"} runs the int8 detector after calibrating
     it on the first frames. detect_fn injects a per-frame detector
     (tests), run one frame at a time on CPU tensors or the params' device;
     evaluate=False skips the pickles and the AP. frame_indices restricts

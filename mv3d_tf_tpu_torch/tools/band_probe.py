@@ -74,15 +74,14 @@ def view_probe(params, x, suffix, ranks):
 
     from mv3d_tf_tpu_torch.models.vgg import (VGG_LAYERS, conv2d,
                                               f32_convs_without_tf32, layer,
-                                              max_pool_2x2_valid)
-    from mv3d_tf_tpu_torch.ops.vgg_stem_cuda import vgg_stem
+                                              max_pool_2x2_valid, stem_apply)
     from mv3d_tf_tpu_torch.parallel import mesh as PM
 
     h_in = x.shape[1]
     bands_in = [PM.band_slice(band, h_in)
                 for band in PM.row_bands(PM.feature_rows(h_in), ranks)]
-    x = vgg_stem(x, *layer(params, "conv1_1" + suffix),
-                 *layer(params, "conv1_2" + suffix))
+    x = stem_apply("fused", x, *layer(params, "conv1_1" + suffix),
+                   *layer(params, "conv1_2" + suffix), dtype=torch.bfloat16)
     stride = 2
     if x.is_cuda:
         f32_convs_without_tf32()

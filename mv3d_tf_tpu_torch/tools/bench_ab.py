@@ -2,7 +2,7 @@
 per invocation: the counterpart of tools/bench_ab.py.
 
     python -m mv3d_tf_tpu_torch.tools.bench_ab [--batch N] [--iters 10] \\
-        [--stem literal|fused|s2d|s2d_fused|s2d_int8] [--int8 [--int8-head]
+        [--stem NAME] [--int8 [--int8-head]
         [--int8-rpn] [--no-quant-pool]] [--pre-nms K]
         [--nms auto|blocked_fixed] [--train] [--device cuda|cpu]
 
@@ -12,22 +12,22 @@ step of parallel/mesh.build_parallel_train_step on one process above it) at
 the reference shapes with He-scaled weights and inputs from seed 0: one
 first call, then three runs of --iters calls between CUDA events, the
 fastest kept. --int8 calibrates on a fixed slice of 4 frames (at most the
-batch) and runs the int8 detector; --stem picks the stem (s2d_int8 only
-with --int8). A detector whose blocked_fixed certificate fails on a frame
-exits 3 and reports no time. Progress goes to stderr; the last line of
-stdout is a JSON object of the result.
+batch) and runs the int8 detector; --stem picks the stem by a name of
+models/vgg.STEMS (s2d_int8 and int8 only with --int8). A detector whose
+blocked_fixed certificate fails on a frame exits 3 and reports no time.
+Progress goes to stderr; the last line of stdout is a JSON object of the
+result.
 
 --rois-per-step, --pool-cwin and --pool-bins tile the Pallas ROI pool, and
 --conv-impl pallas/hybrid/dots/im2col names TPU lowerings of the int8
 convs: the port refuses them (its integers are the same for every
-conv_impl, eval.py:229).
+lowering).
 """
 
 import argparse
 import json
 import sys
 
-STEMS = ("literal", "fused", "s2d", "s2d_fused", "s2d_int8")
 TPU_KNOBS = ("rois_per_step", "pool_cwin", "pool_bins")
 
 
@@ -36,11 +36,12 @@ def log(*a):
 
 
 def parse_args(argv=None):
+    from mv3d_tf_tpu_torch.models.vgg import INT8_STEMS, STEMS
     ap = argparse.ArgumentParser(description="A/B bench of the detector")
     ap.add_argument("--batch", type=int, default=None,
                     help="frames per call (default 8; 1 with --train)")
     ap.add_argument("--iters", type=int, default=10)
-    ap.add_argument("--stem", default="fused", choices=STEMS)
+    ap.add_argument("--stem", default="fused", choices=list(STEMS))
     ap.add_argument("--int8", action="store_true")
     ap.add_argument("--int8-head", action="store_true",
                     help="also quantize the fusion head (fc6/fc7)")
@@ -73,8 +74,8 @@ def parse_args(argv=None):
         raise SystemExit("--conv-impl %s names a TPU lowering of the int8 "
                          "convs; the port runs one s8 kernel for every "
                          "conv_impl" % args.conv_impl)
-    if args.stem == "s2d_int8" and not args.int8:
-        raise SystemExit("--stem s2d_int8 needs --int8")
+    if STEMS[args.stem] in INT8_STEMS and not args.int8:
+        raise SystemExit("--stem %s needs --int8" % args.stem)
     if args.batch is None:
         args.batch = 1 if args.train else 8
     return args
@@ -111,7 +112,6 @@ def main(argv=None):
     bev, image, calib = P.detector_inputs(B, device)
     quant = None
     feat_h, feat_w = P.feat_hw()
-    stem = {"literal": "literal", "fused": None}.get(args.stem, args.stem)
     if args.int8:
         from mv3d_tf_tpu_torch import quant as Q
         nc = min(4, B)
@@ -122,10 +122,9 @@ def main(argv=None):
                 params, bev[:nc], img_ms, calib[:nc], feat_h, feat_w)
         quant = Q.build_quant_state(params, bev[:nc], img_ms,
                                     pooled_bv=pool_bv, pooled_img=pool_img)
-        stem = {None: "pallas", "literal": "bf16"}.get(stem, stem)
     detect = E.build_detect_batch_fn(
         feat_h=feat_h, feat_w=feat_w, compute_dtype=torch.bfloat16,
-        quant=quant, stem_impl=stem, quant_rpn=args.int8_rpn,
+        quant=quant, stem_impl=args.stem, quant_rpn=args.int8_rpn,
         pre_nms_top_n=args.pre_nms or 6000,
         quant_pool=not args.no_quant_pool, nms_impl=args.nms)
     ms, out = best_ms(lambda: detect(params, bev, image, calib), device,
@@ -147,16 +146,18 @@ def bench_train(args, params, device):
     """The train step at the reference shapes: train.build_train_step on
     one frame, or the one-process mean-gradient step over --batch frames."""
     from mv3d_tf_tpu_torch import train as T
+    from mv3d_tf_tpu_torch.models.vgg import STEMS
     from mv3d_tf_tpu_torch.tools import profiling as P
     import torch
 
+    stem = STEMS[args.stem]
     kw = dict(compute_dtype=torch.bfloat16, nms_impl=args.nms,
               feat_h=P.feat_hw()[0], feat_w=P.feat_hw()[1],
               pre_nms_top_n=args.pre_nms or P.TRAIN_PRE_NMS,
               post_nms_top_n=P.TRAIN_POST_NMS,
               rois_per_image=P.TRAIN_ROIS,
-              stem_impl="s2d" if args.stem == "s2d" else None)
-    if args.stem not in ("fused", "literal", "s2d"):
+              stem_impl="s2d" if stem == "s2d" else None)
+    if stem not in ("fused", "literal", "s2d"):
         raise SystemExit("--train takes a differentiable stem: literal "
                          "(the default's) or s2d")
     B = args.batch

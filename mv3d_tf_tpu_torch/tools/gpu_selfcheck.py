@@ -108,6 +108,7 @@ def detect_golden(path, device):
 
 def main(argv=None):
     args = parse_args(argv)
+    from mv3d_tf_tpu_torch.models.vgg import stem_apply, vgg_stem_plain
     from mv3d_tf_tpu_torch.ops import bev as B
     from mv3d_tf_tpu_torch.ops import conv_s8 as S8
     from mv3d_tf_tpu_torch.ops.roi_pool import (roi_pool, roi_pool_fast,
@@ -115,7 +116,6 @@ def main(argv=None):
                                                 roi_pool_train_plain)
     from mv3d_tf_tpu_torch.ops.stem_s2d_cuda import (stem_s2d_fused,
                                                      stem_s2d_fused_plain)
-    from mv3d_tf_tpu_torch.ops.vgg_stem_cuda import vgg_stem, vgg_stem_plain
     from mv3d_tf_tpu_torch.proposals import proposal_layer_3d
 
     dev = torch.device(args.device)
@@ -176,7 +176,7 @@ def main(argv=None):
     w2 = t((rng.rand(64, 64, 3, 3).astype(np.float32) - 0.5) * 0.2)
     b2 = t(rng.rand(64).astype(np.float32) * 0.1)
     with torch.no_grad():
-        rel = _rel(vgg_stem(x, w1, b1, w2, b2),
+        rel = _rel(stem_apply("fused", x, w1, b1, w2, b2, torch.bfloat16),
                    vgg_stem_plain(x, w1, b1, w2, b2))
     check("4 literal stem vs two bf16 convs + pool", rel <= STEM_TOL,
           "(rel %.2e)" % rel)

@@ -43,7 +43,7 @@ def main(argv=None):
 
     from mv3d_tf_tpu_torch import eval as E
     from mv3d_tf_tpu_torch import quant as Q
-    from mv3d_tf_tpu_torch.models import mv3d
+    from mv3d_tf_tpu_torch.models import mv3d, vgg
     from mv3d_tf_tpu_torch.ops.roi_pool import roi_pool_fast
     from mv3d_tf_tpu_torch.tools import profiling as P
 
@@ -59,8 +59,11 @@ def main(argv=None):
                for k in ("trunk_bv", "trunk_img")}
 
     def stems():
-        return (Q._bf16_stem(params, bev, ""),
-                Q._bf16_stem(params, img_ms, "_2"))
+        return tuple(vgg.stem_apply("literal", x,
+                                    *vgg.layer(params, "conv1_1" + sfx),
+                                    *vgg.layer(params, "conv1_2" + sfx),
+                                    dtype=bf16)
+                     for x, sfx in ((bev, ""), (img_ms, "_2")))
 
     def trunks():
         out = []

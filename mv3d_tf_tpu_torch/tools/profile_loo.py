@@ -99,12 +99,7 @@ def build_graph(params, B, device):
         else:
             p = (*vgg.layer(params, "conv1_1" + suffix),
                  *vgg.layer(params, "conv1_2" + suffix))
-            if stem == "fused":
-                from mv3d_tf_tpu_torch.ops.vgg_stem_cuda import vgg_stem
-                s = vgg_stem(x, *p)
-            else:
-                s = vgg.max_pool_2x2_valid(vgg.conv2d(
-                    vgg.conv2d(x, *p[:2], dtype=dt), *p[2:], dtype=dt))
+            s = vgg.stem_apply(stem, x, *p, dtype=dt)
         if not trunks:              # conv2-5 -> slice + pad to the features
             s = s[:, :s.shape[1] // 4 * 4:4, :s.shape[2] // 4 * 4:4]
             return F.pad(s, (0, 512 - s.shape[-1]))

@@ -1,6 +1,8 @@
 """The int8 PTQ accuracy gate: the bf16 and int8 batched detectors on the
 frames of a KITTI-layout tree; the counterpart of tools/quant_check.py, with
-its flags and its final JSON line (plus ``--device``).
+its flags but --conv-impl (its TPU lowerings name one set of integers) and
+its final JSON line (plus ``--device``); --stem takes any name of
+models/vgg.STEMS.
 
     python -m mv3d_tf_tpu_torch.tools.quant_check --kitti_path <kitti> \\
         [--frames 8] [--calib_frames 8] [--batch 16] [--model w.npy] \\
@@ -26,6 +28,7 @@ def log(*a):
 
 
 def build_parser():
+    from mv3d_tf_tpu_torch.models.vgg import STEMS
     ap = argparse.ArgumentParser()
     ap.add_argument("--kitti_path", required=True)
     ap.add_argument("--frames", type=int, default=8)
@@ -34,12 +37,8 @@ def build_parser():
                     help="device batch per detect call (frames are "
                          "processed in chunks of this size)")
     ap.add_argument("--model", default=None)
-    ap.add_argument("--stem", default=None,
-                    choices=[None, "bf16", "s2d", "s2d_fused", "s2d_int8"],
-                    help="int8-path stem mode (None = bf16)")
-    ap.add_argument("--conv-impl", default="xla",
-                    choices=["xla", "pallas", "hybrid", "dots", "im2col"],
-                    help="every value names the same integers")
+    ap.add_argument("--stem", default=None, choices=list(STEMS),
+                    help="int8-path stem (default literal)")
     ap.add_argument("--int8-head", action="store_true",
                     help="also quantize and gate the fc6/fc7 head")
     ap.add_argument("--int8-rpn", action="store_true",
@@ -111,7 +110,6 @@ def main(argv=None):
     B = args.batch
     det_f16 = build_detect_batch_fn(compute_dtype=torch.bfloat16)
     det_int8 = build_detect_batch_fn(compute_dtype=torch.bfloat16, quant=qs,
-                                     quant_conv_impl=args.conv_impl,
                                      stem_impl=args.stem,
                                      quant_rpn=args.int8_rpn,
                                      quant_pool=not args.no_quant_pool,

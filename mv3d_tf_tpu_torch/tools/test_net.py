@@ -1,5 +1,7 @@
 """Evaluate the MV3D detector over a KITTI split: the counterpart of
-tools/test_net.py, with the same flags.
+tools/test_net.py, with the same flags but the int8 convs' TPU lowerings,
+which name one set of integers; --int8_stem takes any name of
+models/vgg.STEMS.
 
     python -m mv3d_tf_tpu_torch.tools.test_net --imdb kitti_val \\
         --kitti_path <kitti> [--weights w.npy] [--dtype bfloat16|float32] \\
@@ -39,6 +41,7 @@ import time
 
 
 def build_parser():
+    from mv3d_tf_tpu_torch.models.vgg import STEMS
     parser = argparse.ArgumentParser(description="Test an MV3D network")
     parser.add_argument("--device", dest="device", default="cuda",
                         choices=["cuda", "cpu"])
@@ -74,9 +77,8 @@ def build_parser():
                              "frames; tools/quant_check is the accuracy "
                              "gate)")
     parser.add_argument("--int8_stem", dest="int8_stem", default=None,
-                        choices=[None, "bf16", "s2d", "s2d_int8"])
-    parser.add_argument("--int8_conv_impl", dest="int8_conv_impl",
-                        default="xla", choices=["xla", "pallas", "dots"])
+                        choices=list(STEMS),
+                        help="the int8 detector's stem (default literal)")
     parser.add_argument("--int8_head", dest="int8_head",
                         action="store_true")
     parser.add_argument("--bucket", dest="bucket", default=None, type=int,
@@ -157,9 +159,7 @@ def main(argv=None):
         return path
     quant_cfg = None
     if args.int8:
-        quant_cfg = {"stem": args.int8_stem,
-                     "conv_impl": args.int8_conv_impl,
-                     "int8_head": args.int8_head}
+        quant_cfg = {"stem": args.int8_stem, "int8_head": args.int8_head}
     return test_net(params, imdb, weights_filename=weights_filename,
                     compute_dtype=dtype, quant_cfg=quant_cfg)
 

@@ -217,15 +217,15 @@ def record(run, steps, out_dir, device):
 
 
 def parse_args(argv=None):
+    from mv3d_tf_tpu_torch.models.vgg import STEMS
     ap = argparse.ArgumentParser(description="Trace the batched detector")
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--dtype", default="bf16", choices=["bf16", "f32"],
                     help="the float detector's compute dtype")
-    ap.add_argument("--stem", default=None,
-                    help="stem_impl: the float detector's (literal, fused, "
-                         "s2d, s2d_fused) or, with --int8, the int8 one's "
-                         "(bf16, s2d, s2d_int8); default the detector's")
+    ap.add_argument("--stem", default=None, choices=list(STEMS),
+                    help="stem_impl (s2d_int8 and int8 only with --int8); "
+                         "default the detector's")
     ap.add_argument("--int8", action="store_true",
                     help="the int8 PTQ detector, calibrated on 2 frames")
     ap.add_argument("--int8-head", action="store_true")

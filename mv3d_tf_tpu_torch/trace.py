@@ -88,15 +88,13 @@ def counters():
     if _wrappers is None:
         # imported here: the ops modules import this one
         from mv3d_tf_tpu_torch.ops import (bev_cuda, conv_s8_cuda, nms_cuda,
-                                           roi_pool_cuda, stem_s2d_cuda,
-                                           vgg_stem_cuda)
+                                           roi_pool_cuda, stem_s2d_cuda)
         _wrappers = (bev_cuda.bev_place_cuda, conv_s8_cuda.conv2x2_s8_cuda,
                      conv_s8_cuda.conv3x3_s8_cuda,
                      conv_s8_cuda.matmul_s8_cuda, nms_cuda.nms_greedy_cuda,
                      roi_pool_cuda.roi_pool_bwd_cuda,
                      roi_pool_cuda.roi_pool_cuda,
-                     stem_s2d_cuda.stem_s2d_fused_cuda,
-                     vgg_stem_cuda.vgg_stem_cuda)
+                     stem_s2d_cuda.stem_s2d_fused_cuda)
     out = {"host_syncs": host_syncs, "nms_rounds": nms_rounds}
     for fn in _wrappers:
         out[fn.__name__] = fn.launches

@@ -23,7 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from mv3d_tf_tpu_torch.eval import PIXEL_MEANS
-from mv3d_tf_tpu_torch.models import mv3d
+from mv3d_tf_tpu_torch.models import mv3d, vgg
 from mv3d_tf_tpu_torch.ops.roi_pool import roi_pool_train
 from mv3d_tf_tpu_torch.proposals import proposal_layer_3d
 from mv3d_tf_tpu_torch.targets import (anchor_target_layer,
@@ -31,7 +31,7 @@ from mv3d_tf_tpu_torch.targets import (anchor_target_layer,
 
 BATCH_KEYS = ("bev", "image", "calib", "gt_boxes_bv", "gt_boxes_3d",
               "gt_boxes_corners", "gt_valid")
-TRAIN_STEMS = (None, "literal", "s2d")   # the differentiable stems
+TRAIN_STEMS = ("literal", "s2d")   # the differentiable stems
 
 
 def smooth_l1(diff, sigma=3.0):
@@ -121,7 +121,7 @@ def build_forward_losses(feat_h=75, feat_w=75, pre_nms_top_n=12000,
     are refused. nms_impl is the proposal layer's
     (proposals.proposal_layer_3d).
     """
-    if stem_impl not in TRAIN_STEMS:
+    if vgg.stem_name(stem_impl) not in TRAIN_STEMS:
         raise ValueError(
             "stem_impl {!r} cannot train: the fused stems are inference "
             "kernels without a gradient; use one of {}".format(

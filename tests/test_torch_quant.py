@@ -472,7 +472,7 @@ def test_int8_detector_int8_stem_pool_false_matches_jax(case):
 
 
 @pytest.mark.parametrize("stem", ["bf16", "s2d", "pallas", "int8",
-                                  "s2d_fused"])
+                                  "s2d_fused", "literal", "fused"])
 def test_int8_detector_stems_run(case, stem):
     """Every ported stem drives the int8 detector to finite outputs of the
     batch detector's shapes."""
@@ -481,6 +481,20 @@ def test_int8_detector_stems_run(case, stem):
                                          case["image"], case["calib"])
     assert tuple(out["scores"].shape) == (B, 8, 2)
     assert torch.isfinite(out["scores"]).all() and out["valid"].any()
+
+
+@pytest.mark.parametrize("jax_name, port_name", [("bf16", "literal"),
+                                                 ("pallas", "fused")])
+def test_int8_detector_stem_names_are_one_stem(case, jax_name, port_name):
+    """The JAX package's name of a stem and the port's run one stem in the
+    int8 detector (models/vgg.STEMS): every output equal bit for bit."""
+    a, b = (build_detect_batch_fn(quant=case["state"], stem_impl=stem,
+                                  **SMALL)(case["params"], case["bev"],
+                                           case["image"], case["calib"])
+            for stem in (jax_name, port_name))
+    assert set(a) == set(b)
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
 
 
 def test_int8_detector_s2d_fused_matches_jax(case, monkeypatch):

@@ -155,12 +155,17 @@ def test_trunk_matches_jax_f32(trunk_case, monkeypatch, stem, view, suffix):
                                atol=1e-4 * np.abs(want).max())
 
 
-def test_pallas_is_the_fused_stems_jax_name(trunk_case):
+@pytest.mark.parametrize("jax_name, port_name", [("pallas", "fused"),
+                                                 ("bf16", "literal")])
+def test_pallas_is_the_fused_stems_jax_name(trunk_case, jax_name, port_name):
+    """The JAX package's stem names run the port's stem of the same
+    function: "pallas" the fused stem, "bf16" the literal stem, equal at
+    the same dtype."""
     x = _T(trunk_case["bev"])
     with torch.no_grad():
         a, b = (TV.trunk_apply(trunk_case["params"], x,
                                dtype=torch.bfloat16, stem_impl=stem)
-                for stem in ("pallas", "fused"))
+                for stem in (jax_name, port_name))
     assert torch.equal(a, b)
     with pytest.raises(ValueError, match="s2d_int8"):
         TV.trunk_apply(trunk_case["params"], x, stem_impl="s2d_int8")

@@ -15,9 +15,8 @@ import jax.numpy as jnp  # noqa: E402
 from mv3d_tf_tpu.models import vgg as J  # noqa: E402
 from mv3d_tf_tpu.ops.vgg_stem_pallas import vgg_stem_pallas  # noqa: E402
 from mv3d_tf_tpu_torch.models import vgg as T  # noqa: E402
-from mv3d_tf_tpu_torch.ops import vgg_stem_cuda as S  # noqa: E402
 from mv3d_tf_tpu_torch.ops.stem_s2d_cuda import (  # noqa: E402
-    stem_s2d_fused_plain)
+    stem_s2d_fused_cuda, stem_s2d_fused_plain)
 from mv3d_tf_tpu_torch.utils.weights import (he_normal_params,  # noqa: E402
                                              params_from_jax)
 
@@ -40,7 +39,7 @@ def test_plain_stem_matches_pallas_interpret(rng, B, H, W, Cin, tr):
     ref = np.asarray(vgg_stem_pallas(
         jnp.asarray(x), jnp.asarray(w1), jnp.asarray(b1), jnp.asarray(w2),
         jnp.asarray(b2), tile_rows=tr, interpret=True), np.float32)
-    out = S.vgg_stem_plain(torch.from_numpy(x), _oihw(w1), torch.from_numpy(b1),
+    out = T.vgg_stem_plain(torch.from_numpy(x), _oihw(w1), torch.from_numpy(b1),
                            _oihw(w2), torch.from_numpy(b2))
     assert out.dtype == torch.bfloat16 and out.shape == ref.shape
     # accumulation and bias rounding differ -> one-ulp bf16 tolerance
@@ -99,21 +98,23 @@ def test_trunk_f32_matches_jax(rng, he_params):
 
 def test_fused_stem_dispatch_on_cpu(rng, he_params):
     """stem_impl="fused" on a CPU tensor is the plain stem, which is the
-    literal bf16 stem; the kernel is not launched and a CPU tensor given
-    to the kernel wrapper raises."""
+    literal bf16 stem; the stem kernel's wrapper (stem_s2d_fused_cuda,
+    which the fused stem calls on a card) is not launched, and a CPU
+    tensor given to it raises."""
     params = params_from_jax(he_params, device="cpu")
     x = torch.from_numpy(rng.rand(1, 24, 28, 3).astype(np.float32))
-    before = S.vgg_stem_cuda.launches
+    before = stem_s2d_fused_cuda.launches
     with torch.no_grad():
         fused = T.trunk_apply(params, x, "_2", torch.bfloat16,
                               stem_impl="fused")
         literal = T.trunk_apply(params, x, "_2", torch.bfloat16)
     assert torch.equal(fused, literal)
-    assert S.vgg_stem_cuda.launches == before
+    assert stem_s2d_fused_cuda.launches == before
     w1, b1 = T.layer(params, "conv1_1_2")
     w2, b2 = T.layer(params, "conv1_2_2")
-    with pytest.raises(ValueError):
-        S.vgg_stem_cuda(x, w1, b1, w2, b2)
+    with pytest.raises(ValueError, match="CUDA"):
+        stem_s2d_fused_cuda(x, w1, b1, w2, b2, torch.bfloat16)
+    assert stem_s2d_fused_cuda.launches == before
     with pytest.raises(ValueError, match="bfloat16"):
         T.trunk_apply(params, x, stem_impl="pallas")
     with pytest.raises(ValueError, match="unknown stem_impl"):
