@@ -36,11 +36,13 @@ stem) and tools/quant_check with the s2d_fused stem.
 Then the greedy NMS kernel (csrc/nms.cu) on the proposal layer's own
 candidates at test_net's shape (B=8, pre-NMS 6000, post-NMS 300) and at
 B=1: keep sets equal to nms_plain's, bit for bit, and its times beside
-its bound and the loop's. Then the blocked NMS on the proposal layer's own
-candidates at the train step's shape (pre-NMS 12000, post-NMS 2000) and at test_net's (B=8): keep
+its bound and the loop's. Then the proposal layer's NMS routes on its
+own candidates at the train step's shape (pre-NMS 12000, post-NMS 2000)
+and at test_net's (B=8): the kernel's and both blocked variants' keep
 sets equal to the greedy loop's, the fixed variant certified, a 40-box
-chain that leaves its certificate False, and the layer's time on the
-greedy and on the blocked route in turns; solver.train_net on a second
+chain that leaves its certificate False, the layer's outputs and time on
+the "auto" (kernel) and the "blocked" route in turns, and one train step
+on each route with equal losses and proposals; solver.train_net on a second
 synthetic tree (8 train frames, bf16, the train set on the card: 6
 iterations with a trace, then tools/train_net --resume to 8, then 2
 iterations on the host feed); and tools/demo_mv on one of its frames, with
@@ -121,6 +123,7 @@ from mv3d_tf_tpu_torch import proposals as proposals_mod
 from mv3d_tf_tpu_torch import quant as Q
 from mv3d_tf_tpu_torch import rpn_generate
 from mv3d_tf_tpu_torch import solver as solver_mod
+from mv3d_tf_tpu_torch import trace
 from mv3d_tf_tpu_torch import train as train_mod
 from mv3d_tf_tpu_torch.config import cfg, cfg_from_file, get_output_dir
 from mv3d_tf_tpu_torch.data import multiscale as MS
@@ -2183,39 +2186,6 @@ def gt_detections(imdb, seed=SEED):
     return boxes, cnr
 
 
-def capture_nms_inputs(args, kw):
-    """One proposal_layer_3d call on the blocked route; returns the blocked
-    NMS's inputs (score-ordered candidates of the layer's top-K)."""
-    seen = []
-    blocked = proposals_mod.nms_blocked
-
-    def capture(bv, psc, valid, max_out, thresh, presorted):
-        seen.append((bv, psc, valid, max_out, thresh))
-        return blocked(bv, psc, valid, max_out, thresh, presorted=presorted)
-
-    proposals_mod.nms_blocked = capture
-    try:
-        proposals_mod.proposal_layer_3d(*args, **kw)
-    finally:
-        proposals_mod.nms_blocked = blocked
-    return seen[0]
-
-
-class GreedyRoute:
-    """The proposal layer with its blocked NMS swapped for the greedy nms
-    (on the card the kernel of csrc/nms.cu): the greedy route at every
-    post-NMS size."""
-
-    def __enter__(self):
-        self.saved = proposals_mod.nms_blocked
-        proposals_mod.nms_blocked = (
-            lambda bv, psc, valid, max_out, thresh, presorted:
-            nms(bv, psc, valid, max_out, thresh))
-
-    def __exit__(self, *exc):
-        proposals_mod.nms_blocked = self.saved
-
-
 def nms_chain_case(gen, n=600, chain=40):
     """One frame of n score-ordered boxes whose first ``chain`` form a
     suppression chain (100 px wide, 12 px apart: neighbours at IoU 0.786,
@@ -2232,17 +2202,65 @@ def nms_chain_case(gen, n=600, chain=40):
             torch.ones(1, n, dtype=torch.bool, device="cuda"))
 
 
+def step_on_each_route(np_params, batch, smi):
+    """One bf16 train step at the train shape on nms_impl "auto" and on
+    "blocked", each from fresh parameters of the same He weights, on the
+    same frame and draws: the losses and the proposal layer's outputs must
+    be equal."""
+    draws = make_draws(torch.Generator().manual_seed(SEED + 8),
+                       FEAT * FEAT * 4, TRAIN_POST_NMS + MAX_GT, TRAIN_ROIS,
+                       FC_DIM, 0.5, "cuda")
+    kw = dict(feat_h=FEAT, feat_w=FEAT, pre_nms_top_n=TRAIN_PRE_NMS,
+              post_nms_top_n=TRAIN_POST_NMS, rois_per_image=TRAIN_ROIS,
+              compute_dtype=torch.bfloat16)
+    layer = train_mod.proposal_layer_3d
+    res = {}
+    for route in ("auto", "blocked"):
+        seen = []
+
+        def recorded(*a, **k):
+            seen.append(layer(*a, **k))
+            return seen[-1]
+
+        step, make_opt = build_train_step(nms_impl=route, **kw)
+        params = params_from_jax(np_params, device="cuda")
+        train_mod.proposal_layer_3d = recorded
+        try:
+            m, ms = timed(step, params, make_opt(params), batch, draws)
+        finally:
+            train_mod.proposal_layer_3d = layer
+        res[route] = ({k: v.item() for k, v in m.items()}, seen[0], ms)
+        del params, step
+    (loss_a, rois_a, ms_a), (loss_b, rois_b, ms_b) = (res["auto"],
+                                                      res["blocked"])
+    bad = [k for k in rois_a if not torch.equal(rois_a[k], rois_b[k])]
+    if loss_a != loss_b or bad or set(rois_a) != set(rois_b):
+        raise AssertionError("train step: auto and blocked routes differ: "
+                             "losses %s against %s, proposals in %s"
+                             % (loss_a, loss_b, bad))
+    print("train step (bf16, %d/%d) on the auto and blocked routes: "
+          "equal losses %s and proposal blocks (%d valid of %d); one cold "
+          "step each, auto %.3f ms, blocked %.3f ms; on [%s]" % (
+              TRAIN_PRE_NMS, TRAIN_POST_NMS,
+              ", ".join("%s %.6f" % kv for kv in loss_a.items()),
+              int(rois_a["valid"].sum()), rois_a["valid"].numel(), ms_a,
+              ms_b, smi))
+
+
 def phase_nms_blocked(np_params, smi):
-    """The blocked NMS on the card, on the proposal layer's own candidates:
+    """The proposal layer's NMS routes on the card, on its own candidates:
     at the train step's shape (one frame's RPN output from the He weights
     in bf16, pre-NMS 12000, post-NMS 2000) and at test_net's (B=8, the TEST
-    config's pre/post-NMS), nms_blocked and nms_blocked_fixed give the
-    greedy nms's keep_idx and keep_valid, the fixed one certified; a
-    40-box chain in one block leaves the certificate False while the exact
-    variant still equals the greedy loop. Then the proposal layer's time on
-    the greedy route against the blocked route, alternating (greedy,
-    blocked, blocked, greedy after a warm-up of each), at both shapes, with
-    equal outputs."""
+    config's pre/post-NMS). nms_blocked and nms_blocked_fixed give the
+    greedy nms's keep_idx and keep_valid, the fixed one certified; the
+    layer's outputs on nms_impl "auto" (csrc/nms.cu's greedy kernel at both
+    shapes) equal those on "blocked", and one call of each reads its NMS
+    kernel launches and fixpoint rounds ("auto": 2 and 0). Then the layer's
+    time on both routes, alternating (auto, blocked, blocked, auto after a
+    warm-up of each). At the train shape one bf16 train step on each route,
+    from the same parameters, frame and draws, gives equal losses and
+    proposal blocks. A 40-box chain in one block leaves the certificate
+    False while the exact variant still equals the greedy loop."""
     params = params_from_jax(np_params, device="cuda")
     rng = np.random.RandomState(SEED + 7)
     train_frame, _ = train_batch(rng)
@@ -2265,9 +2283,11 @@ def phase_nms_blocked(np_params, smi):
             args = (mv3d.rpn_probs(rpn_cls), rpn_box.float(), calib, FEAT,
                     FEAT)
             kw = dict(pre_nms_top_n=pre, post_nms_top_n=post)
-            bv, psc, valid, P, thr = capture_nms_inputs(args, kw)
+            (bv, psc, valid, P, thr), _ = capture_greedy_inputs(args, kw)
             want_idx, want_val = nms_plain(bv, psc, valid, P, thr)
-            got = {"nms_blocked": nms_blocked(bv, psc, valid, P, thr,
+            got = {"nms (kernel)": nms(bv, psc, valid, P, thr,
+                                       presorted=True),
+                   "nms_blocked": nms_blocked(bv, psc, valid, P, thr,
                                               presorted=True),
                    "nms_blocked_fixed": nms_blocked_fixed(
                        bv, psc, valid, P, thr, presorted=True)}
@@ -2280,6 +2300,17 @@ def phase_nms_blocked(np_params, smi):
             if not conv.all():
                 raise AssertionError("nms_blocked_fixed at the %s: not "
                                      "certified: %s" % (name, conv.tolist()))
+            counts = {}
+            for route in ("auto", "blocked"):
+                launches, rounds = nms_greedy_cuda.launches, trace.nms_rounds
+                proposals_mod.proposal_layer_3d(*args, nms_impl=route, **kw)
+                counts[route] = (nms_greedy_cuda.launches - launches,
+                                 trace.nms_rounds - rounds)
+            if counts["auto"] != (2, 0):
+                raise AssertionError(
+                    "proposal layer at the %s, auto route: %d NMS kernel "
+                    "launches and %d fixpoint rounds, not 2 and 0"
+                    % ((name,) + counts["auto"]))
             nms_ms = {}
             for impl, fn in (("greedy loop", lambda: nms_plain(
                                  bv, psc, valid, P, thr)),
@@ -2290,36 +2321,41 @@ def phase_nms_blocked(np_params, smi):
                              ("nms_blocked_fixed", lambda: nms_blocked_fixed(
                                  bv, psc, valid, P, thr, presorted=True))):
                 nms_ms[impl] = timed(fn)[1]
-            layer = {"greedy": [], "blocked": []}
+            mask_pass, scan_pass, _, _ = nms_entries(bv, psc, valid, P, thr)
+            kernel_ms = (cuda_ms(mask_pass), cuda_ms(scan_pass))
+            layer = {"auto": [], "blocked": []}
             outs = {}
 
             def run(route):
-                with (GreedyRoute() if route == "greedy"
-                      else contextlib.nullcontext()):
-                    out, ms = timed(lambda: proposals_mod.proposal_layer_3d(
-                        *args, **kw))
+                out, ms = timed(lambda: proposals_mod.proposal_layer_3d(
+                    *args, nms_impl=route, **kw))
                 outs[route] = out
                 return ms
 
-            run("greedy")
+            run("auto")
             run("blocked")
-            for route in ("greedy", "blocked", "blocked", "greedy"):
+            for route in ("auto", "blocked", "blocked", "auto"):
                 layer[route].append(run(route))
-            bad = [k for k in outs["greedy"]
-                   if not torch.equal(outs["greedy"][k], outs["blocked"][k])]
-            if bad:
-                raise AssertionError("proposal layer at the %s: greedy and "
+            bad = [k for k in outs["auto"]
+                   if not torch.equal(outs["auto"][k], outs["blocked"][k])]
+            if bad or set(outs["auto"]) != set(outs["blocked"]):
+                raise AssertionError("proposal layer at the %s: auto and "
                                      "blocked routes differ in %s" % (name,
                                                                       bad))
-        print("blocked NMS at the %s: %d candidates a frame, %d kept of "
+        print("NMS routes at the %s: %d candidates a frame, %d kept of "
               "post-NMS %d, keep sets equal to the greedy nms, certified %s; "
-              "NMS alone ms: %s; proposal layer ms, greedy route %s, blocked "
-              "route %s (alternating), on [%s]" % (
+              "one layer call: auto %d NMS launches, %d rounds; blocked %d "
+              "launches, %d rounds; NMS alone ms: %s; the kernel's mask "
+              "pass %.4f ms, scan pass %.4f ms (CUDA events); proposal "
+              "layer ms, auto route %s, blocked route %s (alternating), "
+              "outputs equal; on [%s]" % (
                   name, bv.shape[-2], int(want_val.sum()), P, conv.tolist(),
+                  *counts["auto"], *counts["blocked"],
                   ", ".join("%s %.3f" % kv for kv in nms_ms.items()),
-                  ", ".join("%.3f" % t for t in layer["greedy"]),
+                  *kernel_ms, ", ".join("%.3f" % t for t in layer["auto"]),
                   ", ".join("%.3f" % t for t in layer["blocked"]), smi))
     del params
+    step_on_each_route(np_params, train_frame, smi)
     boxes, scores, valid = nms_chain_case(torch.Generator().manual_seed(SEED))
     idx, val = nms_plain(boxes, scores, valid, 300, 0.7)
     e_idx, e_val = nms_blocked(boxes, scores, valid, 300, 0.7, presorted=True)

@@ -217,9 +217,10 @@ def build_detect_batch_fn(feat_h=75, feat_w=75, pre_nms_top_n=6000,
 
     Returns detect_batch(params, bev (B,...), image (B,...), calib (B,4,12))
     -> dict with leading dims (B, P) and the keys of the JAX batch detector.
-    nms_impl "auto" leaves the choice to the proposal layer (at
-    post_nms_top_n <= 512 the greedy NMS, on a card csrc/nms.cu's kernel,
-    the blocked scan above);
+    nms_impl "auto" leaves the choice to the proposal layer
+    (proposals.nms_route: on a card csrc/nms.cu's greedy kernel, on the
+    CPU the greedy loop at post_nms_top_n <= 512 and the blocked scan
+    above);
     "blocked_fixed" runs the fixed-round blocked NMS and the output carries
     its certificate "nms_converged" (B,) bool (eval.py:289-290), which a
     caller must check before it trusts the frame (solver.test_net raises).

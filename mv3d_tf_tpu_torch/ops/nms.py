@@ -9,8 +9,9 @@ Two formulations give the greedy keep set, as in the JAX package:
   * ``nms_blocked`` / ``nms_blocked_fixed``: the candidates in score order,
     512 a block; each block is resolved by a fixpoint on its (512, 512)
     suppression mask, then one (512, N) IoU sweep suppresses the boxes
-    behind it. The proposal layer takes them above post-NMS 512 for speed
-    (proposals.py): a train step's 2000 greedy steps become 24 blocks.
+    behind it. On the CPU the proposal layer takes them above post-NMS
+    512 for speed (proposals.nms_route): a train step's 2000 greedy steps
+    become 24 blocks. On the card the greedy kernel is faster at any size.
   * ``nms_matrix``: the whole (N, N) suppression mask built once, then a
     fixpoint of mask products (one host sync a round): the legacy 2D
     proposal layer's NMS (faster_rcnn_2d.py).

@@ -4,9 +4,11 @@ proposal blocks with a validity mask.
 Same pipeline as the JAX layer: fg scores -> static anchor grid -> 6-dof
 decode -> BEV and image projections -> clip -> min-size and image-bounds
 filters (as score masks) -> stable top-K -> BEV NMS -> fixed (P, ...)
-blocks. The NMS is the greedy one at post-NMS <= 512 (on the card the
-kernel of csrc/nms.cu, on the candidates already in score order) and the
-blocked scan above it, as the JAX layer routes it (proposals.py:115-121).
+blocks. ``nms_route`` picks the NMS: on the card the greedy kernel of
+csrc/nms.cu (two launches, no host sync, on the candidates already in
+score order) at any post-NMS size it takes; on the CPU the greedy loop at
+post-NMS <= 512 and the blocked scan above it, as the JAX layer routes it
+(proposals.py:115-121).
 Frames are a batch dimension written out, where the JAX package vmaps a
 single-frame layer.
 """
@@ -19,6 +21,7 @@ from mv3d_tf_tpu_torch.anchors import get_anchor_grid
 from mv3d_tf_tpu_torch.models.mv3d import rpn_fg_scores
 from mv3d_tf_tpu_torch.ops.nms import (nms, nms_blocked, nms_blocked_fixed,
                                        top_k_by_score)
+from mv3d_tf_tpu_torch.ops.nms_cuda import MAX_CANDIDATES
 
 # the reference hardcodes the camera image bounds and padding rather than
 # using the real image size (proposal_layer_tf.py:146-147,343-352)
@@ -30,6 +33,25 @@ NMS_IMPLS = ("auto", "blocked", "blocked_fixed")
 def _take(a, idx):
     """a (B, N, D), idx (B, K) -> (B, K, D)."""
     return a.gather(1, idx[..., None].expand(-1, -1, a.shape[-1]))
+
+
+def nms_route(device, n, post_nms_top_n, nms_impl="auto"):
+    """The NMS that proposal_layer_3d runs on n candidates a frame on
+    ``device``: "greedy" (ops/nms.nms), "blocked" or "blocked_fixed".
+
+    "auto" takes the greedy kernel (csrc/nms.cu) on a CUDA device whenever
+    it holds the frame (n <= ops/nms_cuda.MAX_CANDIDATES) and the blocked
+    scan beyond. On any other device it takes the greedy loop at
+    post_nms_top_n <= 512 and the blocked scan above: the loop takes one
+    step a slot, too slow for the train step's 2000 on the CPU. "blocked"
+    and "blocked_fixed" name their own route."""
+    if nms_impl not in NMS_IMPLS:
+        raise ValueError("unknown nms_impl {!r}".format(nms_impl))
+    if nms_impl != "auto":
+        return nms_impl
+    if torch.device(device).type == "cuda":
+        return "greedy" if n <= MAX_CANDIDATES else "blocked"
+    return "greedy" if post_nms_top_n <= 512 else "blocked"
 
 
 def proposal_layer_3d(rpn_cls_prob, rpn_bbox_pred, calib, feat_h, feat_w,
@@ -45,14 +67,13 @@ def proposal_layer_3d(rpn_cls_prob, rpn_bbox_pred, calib, feat_h, feat_w,
     single (4,12) calib and B = 1, the leading dim is dropped, as the JAX
     layer returns.
 
-    nms_impl "auto" runs the greedy ``nms`` at post_nms_top_n <= 512 and
-    ``nms_blocked`` above; "blocked" runs ``nms_blocked`` at any size;
-    "blocked_fixed" runs ``nms_blocked_fixed`` and adds its certificate,
-    "nms_converged" (B,) bool (0-d for a single frame). All three give the
-    greedy keep set (the fixed one where certified).
+    nms_impl "auto" runs the greedy ``nms`` on the card (csrc/nms.cu) at
+    any post_nms_top_n, and on the CPU at post_nms_top_n <= 512 with
+    ``nms_blocked`` above (``nms_route``); "blocked" runs ``nms_blocked``
+    at any size; "blocked_fixed" runs ``nms_blocked_fixed`` and adds its
+    certificate, "nms_converged" (B,) bool (0-d for a single frame). All
+    three give the greedy keep set (the fixed one where certified).
     """
-    if nms_impl not in NMS_IMPLS:
-        raise ValueError("unknown nms_impl {!r}".format(nms_impl))
     single = calib.dim() == 2
     if single:
         calib = calib[None]
@@ -78,17 +99,18 @@ def proposal_layer_3d(rpn_cls_prob, rpn_bbox_pred, calib, feat_h, feat_w,
              & (pimg[..., 3] <= IMG_BOUNDS[0] + IMG_PAD))
 
     k = min(pre_nms_top_n, scores.shape[-1])
+    route = nms_route(scores.device, k, post_nms_top_n, nms_impl)
     top_idx, top_valid = top_k_by_score(scores, keep, k)
     bv, p3d, pimg = _take(pbv, top_idx), _take(p3d, top_idx), _take(pimg, top_idx)
     psc = scores.gather(1, top_idx)
 
     converged = None
     with T.span("detect.proposals.nms"):
-        if nms_impl == "blocked_fixed":
+        if route == "blocked_fixed":
             keep_idx, keep_valid, converged = nms_blocked_fixed(
                 bv, psc, top_valid, post_nms_top_n, nms_thresh,
                 presorted=True)
-        elif post_nms_top_n <= 512 and nms_impl != "blocked":
+        elif route == "greedy":
             keep_idx, keep_valid = nms(bv, psc, top_valid, post_nms_top_n,
                                        nms_thresh, presorted=True)
         else:

@@ -18,6 +18,7 @@ from mv3d_tf_tpu.proposals import proposal_layer_3d  # noqa: E402
 from mv3d_tf_tpu_torch import proposals as TP  # noqa: E402
 from mv3d_tf_tpu_torch.eval import build_detect_batch_fn  # noqa: E402
 from mv3d_tf_tpu_torch.ops import nms as T  # noqa: E402
+from mv3d_tf_tpu_torch.ops.nms_cuda import MAX_CANDIDATES  # noqa: E402
 from mv3d_tf_tpu_torch.utils.weights import (he_normal_params,  # noqa: E402
                                              params_from_jax)
 from test_torch_eval import HE, HE_FRAMES, HE_SEED, _frame  # noqa: E402
@@ -210,6 +211,26 @@ def test_proposal_layer_routing_matches_jax(nms_impl, rng):
     with pytest.raises(ValueError, match="nms_impl"):
         TP.proposal_layer_3d(torch.from_numpy(prob), torch.from_numpy(deltas),
                              torch.from_numpy(calib), 10, 10, nms_impl="x")
+
+
+@pytest.mark.parametrize("device, n, post, impl, want", [
+    ("cuda", 6000, 300, "auto", "greedy"),
+    ("cuda", 12000, 2000, "auto", "greedy"),
+    ("cuda", MAX_CANDIDATES, 2000, "auto", "greedy"),
+    ("cuda", MAX_CANDIDATES + 1, 2000, "auto", "blocked"),
+    ("cpu", 6000, 300, "auto", "greedy"),
+    ("cpu", 12000, 2000, "auto", "blocked"),
+    ("cuda", 6000, 300, "blocked", "blocked"),
+    ("cpu", 6000, 300, "blocked", "blocked"),
+    ("cuda", 12000, 2000, "blocked_fixed", "blocked_fixed"),
+    ("cpu", 6000, 300, "blocked_fixed", "blocked_fixed"),
+])
+def test_nms_route(device, n, post, impl, want):
+    """The proposal layer's NMS by device, candidates a frame and post-NMS:
+    on the card the greedy kernel wherever it holds the frame; on the CPU
+    the greedy loop up to post-NMS 512, the blocked scan above; the
+    explicit routes as named."""
+    assert TP.nms_route(torch.device(device), n, post, impl) == want
 
 
 def test_detector_certificate_matches_jax():
