@@ -3229,6 +3229,150 @@ def phase_r101(gen, smi):
     return launches
 
 
+MRCNN_BUCKET = R101_BUCKET      # 800x1088, a multiple of 32
+MRCNN_C, MRCNN_ROIS, MRCNN_DETS, MRCNN_CALLS = 256, 1000, 100, 5
+MRCNN_IM_INFO = R101_IM_INFO
+
+
+def mrcnn_rois(gen, n):
+    """n rois over the 800x1088 bucket whose sizes (16 px to the whole
+    image) reach every pyramid level, plus edge rois: off the image, across
+    its edges, sub-pixel, the whole bucket; (n, 5) float32 on the card."""
+    h, w = MRCNN_BUCKET
+    side = 16 * torch.exp(torch.rand(n - 8, 2, generator=gen) * 4.2)
+    xy = torch.rand(n - 8, 2, generator=gen) * torch.tensor([w, h]) - 0.2 * side
+    edge = torch.tensor([[-300, -200, -20, -10], [-40, -30, 200, 120],
+                         [900, 600, 1300, 1000], [500.2, 300.7, 500.9, 301.1],
+                         [10.3, 20.1, 14.0, 25.6], [0, 0, w - 1, h - 1],
+                         [-500, -400, w + 400, h + 300], [w - 60, h - 40, w + 5,
+                                                          h + 9]])
+    boxes = torch.cat([torch.cat([xy, xy + side], 1), edge])
+    return torch.cat([torch.zeros(n, 1), boxes], 1).float().cuda()
+
+
+def phase_roi_align(gen, smi):
+    """csrc/roi_align.cu against ops/roi_align.roi_align at the Mask R-CNN
+    cell's shapes: MRCNN_ROIS rois at 7x7 and MRCNN_DETS at 14x14 over
+    P2-P5 of the 800x1088 bucket (200x272 to 25x34, 256 channels), random
+    rois over every level and edge rois, float32 and bfloat16: pooled maps
+    and levels bit for bit (the kernel sums in the plain version's order
+    without contraction), one launch a call. Then the kernel's time alone
+    by CUDA events beside the plain version's and its bound (the bytes
+    lib/flops_fpn.roi_align_bytes counts: touched cells read once, the
+    pooled maps written once). Returns {shape: (kernel ms, bound ms)}."""
+    from benchmark.lib.flops_fpn import level_shapes, roi_align_bytes
+    from mv3d_tf_tpu_torch.ops.roi_align import roi_align
+    from mv3d_tf_tpu_torch.ops.roi_align_cuda import roi_align_cuda
+    shapes = level_shapes(MRCNN_BUCKET)[:4]
+    base = [torch.randn((1, h, w, MRCNN_C), generator=gen).cuda()
+            for h, w in shapes]
+    stats = {}
+    for n, pooled in ((MRCNN_ROIS, 7), (MRCNN_DETS, 14)):
+        rois = mrcnn_rois(gen, n)
+        for dtype in (torch.float32, torch.bfloat16):
+            maps = [m.to(dtype) for m in base]
+            roi_align_cuda.launches = 0
+            out, levels = roi_align_cuda(maps, rois, pooled)
+            if roi_align_cuda.launches != 1:
+                raise AssertionError("roi_align: %d launches a call"
+                                     % roi_align_cuda.launches)
+            ref, ref_levels = roi_align(maps, rois, pooled)
+            if not (torch.equal(out, ref) and torch.equal(levels,
+                                                          ref_levels)):
+                raise AssertionError(
+                    "roi_align %s %d rois at %dx%d: kernel != plain, max "
+                    "|diff| %g, levels differ at %d" % (
+                        dtype, n, pooled, pooled, max_err(out, ref),
+                        int((levels != ref_levels).sum())))
+            counts = torch.bincount(levels.long(), minlength=6)[2:].tolist()
+            k = cuda_ms(lambda: roi_align_cuda(maps, rois, pooled))
+            p = cuda_ms(lambda: roi_align(maps, rois, pooled), iters=2,
+                        warmup=1)
+            b = roi_align_bytes(rois[:, 1:].cpu(), levels.cpu(), shapes,
+                                MRCNN_C, pooled, out.element_size(), n)
+            fb = bound([(b, 0)], F32_PER_S)
+            stats["%s_%d" % (str(dtype).split(".")[1], pooled)] = (
+                k, fb["bound_ms"])
+            print("roi_align %s %d rois at %dx%d over P2-P5 (levels %s): "
+                  "bit-identical to plain, levels equal, 1 launch; kernel "
+                  "%.4f ms, plain %.4f ms, bound %.4f ms (%.2f MB, %.1f%%); "
+                  "on [%s]" % (dtype, n, pooled, pooled, counts, k, p,
+                               fb["bound_ms"], b / 1e6,
+                               100 * fb["bound_ms"] / k, smi))
+    return stats
+
+
+def phase_mask_rcnn(smi):
+    """Mask R-CNN R-101-FPN on the card through its normal path: im_detect
+    (faster_rcnn_2d.build_im_detect_2d with MaskRCNN_R101_FPN_test's spec,
+    bf16, 1000 a level and 1000 kept), solver.class_detections_2d, then the
+    mask stage (build_im_mask_2d) on the pyramid im_detect left, on the
+    port's own random weights and a random 800x1067 image in the bucket: a
+    warm-up, then MRCNN_CALLS timed calls, each two RoIAlign and two NMS
+    launches (counted around the calls); the call's pooled maps by the
+    kernel equal the plain version's on its own rois, and its masks are
+    probabilities of the detections' classes. Returns the launch counts."""
+    from mv3d_tf_tpu_torch.models import fpn
+    from mv3d_tf_tpu_torch.models.factory import get_network
+    from mv3d_tf_tpu_torch.ops.roi_align import roi_align
+    from mv3d_tf_tpu_torch.ops.roi_align_cuda import roi_align_cuda
+    spec = get_network("MaskRCNN_R101_FPN_test")
+    params = fpn.init_params_mask_rcnn_fpn(
+        torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
+    rng = np.random.RandomState(SEED + 12)
+    image = np.zeros(MRCNN_BUCKET + (3,), np.float32)
+    h, w = int(MRCNN_IM_INFO[0]), int(MRCNN_IM_INFO[1])
+    image[:h, :w] = rng.rand(h, w, 3) * 255 - PIXEL_MEANS
+    detect = F2.build_im_detect_2d(0, 0, *spec.test_budget,
+                                   compute_dtype=torch.bfloat16, spec=spec)
+    im_mask = F2.build_im_mask_2d(spec, torch.bfloat16)
+
+    def call():
+        out = {k: v.cpu().numpy() for k, v in
+               detect(params, image, MRCNN_IM_INFO).items()}
+        dets = solver_mod.class_detections_2d(out, MRCNN_IM_INFO[2], 0.05,
+                                              0.5, 100)
+        return out, dets, im_mask(params, detect.maps, dets,
+                                  MRCNN_IM_INFO[2])
+
+    _, warm_ms = timed(call)
+    roi_align_cuda.launches = nms_greedy_cuda.launches = 0
+    times = [timed(call)[1] for _ in range(MRCNN_CALLS)]
+    launches = {"roi_align": roi_align_cuda.launches,
+                "nms_greedy": nms_greedy_cuda.launches}
+    if launches != {"roi_align": 2 * MRCNN_CALLS,
+                    "nms_greedy": 2 * MRCNN_CALLS}:
+        raise AssertionError("Mask R-CNN: launches %s in %d calls"
+                             % (launches, MRCNN_CALLS))
+    out, dets, masks = call()
+    n_dets = sum(len(d) for d in dets)
+    rois = torch.from_numpy(out["rois"]).cuda()
+    got, levels = roi_align_cuda(list(detect.maps), rois, 7)
+    ref, ref_levels = roi_align(list(detect.maps), rois, 7)
+    if not (torch.equal(got, ref) and torch.equal(levels, ref_levels)
+            and np.array_equal(levels.cpu().numpy(), out["levels"])):
+        raise AssertionError("Mask R-CNN: the call's pooled maps differ from "
+                             "the plain RoIAlign's")
+    probs = np.concatenate(masks["masks"])
+    if not (n_dets > 0 and probs.shape == (n_dets, 28, 28)
+            and np.isfinite(probs).all() and probs.min() >= 0
+            and probs.max() <= 1 and len(masks["levels"]) == n_dets):
+        raise AssertionError("Mask R-CNN: masks %s for %d detections"
+                             % (probs.shape, n_dets))
+    print("Mask R-CNN R-101-FPN bf16 800x1088 (1000 a level, 1000 kept): "
+          "p50 %.3f ms a request over %d calls (%s) after a %.3f ms "
+          "warm-up; %d valid rois (levels %s), %d detections (mask levels "
+          "%s); launches %s; on [%s]" % (
+              float(np.median(times)), MRCNN_CALLS,
+              ", ".join("%.3f" % t for t in times), warm_ms,
+              int(out["valid"].sum()),
+              np.bincount(out["levels"][out["valid"]], minlength=6)[2:]
+              .tolist(), n_dets,
+              np.bincount(masks["levels"], minlength=6)[2:].tolist(),
+              launches, smi))
+    return launches
+
+
 def train_batch_2d(rng, n_gt=5):
     """One 608x1024 training image (mean-subtracted noise, im_info 600x1000
     at 1.6) with n_gt gt boxes of VOC classes, padded to GT_2D rows."""
@@ -4653,6 +4797,8 @@ def main():
     np2d = he_normal_params_2d(SEED)
     detect_2d = phase_detect_2d(np2d, smi)
     detect_r101 = phase_r101(gen, smi)
+    roi_align_stats = phase_roi_align(gen, smi)
+    mask_rcnn = phase_mask_rcnn(smi)
     train_2d = phase_train_2d(np2d, smi)
     del np2d
     clis_2d = phase_clis_2d(smi)
@@ -4731,6 +4877,11 @@ def main():
         {"name": "nms_greedy", "route": "cuda", "source": NMS_SOURCE,
          "replaces": "none: stands for mv3d_tf_tpu/ops/nms.py:224 (fori_loop)",
          "launches": launches["nms_greedy"], **nms_stats},
+        {"name": "roi_align", "route": "cuda",
+         "source": "mv3d_tf_tpu_torch/csrc/roi_align.cu",
+         "replaces": "none: the JAX package has no bilinear pooler",
+         "launches": mask_rcnn["roi_align"],
+         "kernel_ms_bound_ms": roi_align_stats},
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

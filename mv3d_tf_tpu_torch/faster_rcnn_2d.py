@@ -32,9 +32,10 @@ import torch.nn.functional as F
 from mv3d_tf_tpu_torch import geometry as G
 from mv3d_tf_tpu_torch import trace as T
 from mv3d_tf_tpu_torch.anchors import generate_anchors, shift_anchors
-from mv3d_tf_tpu_torch.models import mv3d, vggnet
+from mv3d_tf_tpu_torch.models import fpn, mv3d, resnet, vggnet
 from mv3d_tf_tpu_torch.models.factory import get_network
-from mv3d_tf_tpu_torch.ops.nms import nms_matrix, top_k_by_score
+from mv3d_tf_tpu_torch.ops.nms import nms, nms_matrix, top_k_by_score
+from mv3d_tf_tpu_torch.ops.roi_align import roi_align_fast
 from mv3d_tf_tpu_torch.ops.roi_pool import roi_pool_fast, roi_pool_train
 from mv3d_tf_tpu_torch.targets import _max_overlaps, _rank_desc, _sample_mask
 from mv3d_tf_tpu_torch.train import _masked_mean, smooth_l1
@@ -211,9 +212,17 @@ def build_im_detect_2d(feat_h, feat_w, pre_nms_top_n=6000,
     as arrays or tensors; runs on the params' device and returns tensors
     scores (P, K), boxes (P, 4K), rois (P,5), valid (P,), K the head's
     classes.
+
+    A spec with levels (Mask R-CNN R-101-FPN) runs the pyramid path
+    instead (``_build_im_detect_fpn``): feat_h and feat_w are not read,
+    pre_nms_top_n is the top-k a level and post_nms_top_n the proposals
+    kept over all levels.
     """
     if spec is None:
         spec = get_network("VGGnet_test")
+    if spec.levels is not None:
+        return _build_im_detect_fpn(spec, pre_nms_top_n, post_nms_top_n,
+                                    compute_dtype)
     trunk = (spec.trunk_apply if spec.trunk_graphs is None
              else spec.trunk_graphs())
 
@@ -254,6 +263,174 @@ def _detections(cls_prob, bbox_pred, rois, valid, im_info):
     mask = valid[:, None].float()
     return {"scores": cls_prob * mask, "boxes": boxes * mask, "rois": rois,
             "valid": valid}
+
+
+def proposal_layer_fpn(logits, deltas, anchors, counts, im_info,
+                       pre_nms_top_n=1000, post_nms_top_n=1000,
+                       nms_thresh=0.7):
+    """Detectron2's find_top_rpn_proposals at test time over L levels:
+    the top pre_nms_top_n by logit a level (a stable sort, ties to the
+    lower index), decoded with weights (1, 1, 1, 1) and the scale clamp,
+    clipped to the image, empty boxes (x2 <= x1 or y2 <= y1) dropped, then
+    greedy NMS within each level only, the L levels as L frames of one
+    ops/nms.nms call (csrc/nms.cu on the card), and the post_nms_top_n best
+    over all levels by logit (a stable sort, level-major).
+
+    logits (L, N_max) float32, level l's first counts[l] entries its
+    anchors'; deltas and anchors (sum(counts), 4), the levels in order;
+    counts (L,) int64. Returns rois (post_nms_top_n, 5) [0, x1, y1, x2,
+    y2], scores (post_nms_top_n,) logits, valid (post_nms_top_n,) bool and
+    levels (post_nms_top_n,) int32, the index of each roi's level in the
+    L; zero where not valid."""
+    L, n_max = logits.shape
+    k = min(pre_nms_top_n, n_max)
+    live = (torch.arange(n_max, device=logits.device)[None, :]
+            < counts[:, None])
+    top_idx, top_valid = top_k_by_score(logits, live, k)
+    offset = (torch.cumsum(counts, 0) - counts)[:, None]
+    flat = torch.where(top_valid, top_idx + offset, 0)
+    boxes = fpn.decode(anchors[flat], deltas[flat], fpn.RPN_WEIGHTS)
+    boxes = G.clip_boxes(boxes, (im_info[0], im_info[1]))
+    scores = logits.gather(1, top_idx)
+    valid = (top_valid & (boxes[..., 2] > boxes[..., 0])
+             & (boxes[..., 3] > boxes[..., 1]))
+    m = min(k, post_nms_top_n)
+    with T.span("im_detect_2d.proposals.nms"):
+        keep_idx, keep_valid = nms(boxes.contiguous(), scores.contiguous(),
+                                   valid, m, nms_thresh, presorted=True)
+    kept = boxes.gather(1, keep_idx[..., None].expand(L, m, 4)).reshape(-1, 4)
+    kept_sc = torch.where(keep_valid, scores.gather(1, keep_idx),
+                          float("-inf")).reshape(-1)
+    order = torch.sort(kept_sc, descending=True,
+                       stable=True)[1][:post_nms_top_n]
+    sc, out_valid = kept_sc[order], keep_valid.reshape(-1)[order]
+    rois = torch.cat([kept.new_zeros(len(order), 1), kept[order]], dim=1)
+    rois, sc = rois * out_valid[:, None].float(), torch.where(out_valid, sc,
+                                                              0.0)
+    levels = torch.where(out_valid, order // m, 0).int()
+    pad = post_nms_top_n - len(order)
+    if pad:
+        rois = torch.cat([rois, rois.new_zeros(pad, 5)])
+        sc = torch.cat([sc, sc.new_zeros(pad)])
+        out_valid = torch.cat([out_valid, out_valid.new_zeros(pad)])
+        levels = torch.cat([levels, levels.new_zeros(pad)])
+    return rois, sc, out_valid, levels
+
+
+@functools.lru_cache(maxsize=8)
+def _fpn_anchors(image_hw, device):
+    """(anchors (N, 4), counts (L,) int64) of the levels of an (H, W)
+    input."""
+    shapes = fpn.level_shapes(image_hw)
+    counts = torch.tensor([h * w * fpn.NUM_ANCHORS for h, w in shapes],
+                          device=device)
+    return fpn.anchors(shapes, device), counts
+
+
+def _build_im_detect_fpn(spec, pre_nms_top_n, post_nms_top_n, compute_dtype):
+    """build_im_detect_2d for a spec with levels (models/factory): the trunk
+    to C2-C5, then the pyramid and the RPN (resnet.StageGraphs on the
+    card: graphs under im_detect_2d.trunk.*, im_detect_2d.fpn and
+    im_detect_2d.rpn), proposal_layer_fpn, one multi-level RoIAlign of
+    every roi (ops/roi_align.roi_align_fast, csrc/roi_align.cu on the
+    card), the box head and the class-specific decode (weights 10, 10, 5,
+    5), the boxes clipped to the image.
+
+    im_detect's outputs are build_im_detect_2d's with 81 x 4 boxes, the
+    background's columns 0, ``levels`` (P,) int32, the level each roi was
+    pooled from, and ``rpn_levels`` (P,) int32, the pyramid level whose
+    anchor it was decoded from (2-6; 2 where not valid). After a call
+    ``im_detect.maps`` holds the P2-P5 maps it pooled from, (1, H_l, W_l,
+    256) each, for the mask stage (build_im_mask_2d); the next call
+    overwrites them."""
+    trunk = resnet.StageGraphs(spec.trunk_stages)
+    head = resnet.StageGraphs(spec.head_stages, copy_input=False)
+    n_pool = len(fpn.POOL_LEVELS)
+
+    @torch.inference_mode()
+    def im_detect(params, image, im_info):
+        with T.span("im_detect_2d"):
+            with T.span("im_detect_2d.inputs"):
+                dev = next(params.parameters()).device
+                image = torch.as_tensor(image, dtype=torch.float32, device=dev)
+                im_info = torch.as_tensor(im_info, dtype=torch.float32,
+                                          device=dev)
+            with T.span("im_detect_2d.trunk"):
+                feats = trunk(params, image[None], dtype=compute_dtype)
+            maps, (logits, deltas) = head(params, tuple(feats),
+                                          dtype=compute_dtype)
+            with T.span("im_detect_2d.proposals"):
+                anchors, counts = _fpn_anchors(tuple(image.shape[:2]), dev)
+                rois, _, valid, rpn_levels = proposal_layer_fpn(
+                    logits, deltas, anchors, counts, im_info,
+                    pre_nms_top_n=pre_nms_top_n,
+                    post_nms_top_n=post_nms_top_n)
+            pyramid = list(maps[:n_pool])
+            with T.span("im_detect_2d.roi_align"):
+                pooled, levels = roi_align_fast(pyramid, rois, spec.pooled,
+                                                fpn.POOL_LEVELS[0])
+            with T.span("im_detect_2d.head"):
+                cls_prob, bbox_pred = spec.head(params, pooled, compute_dtype)
+                boxes = fpn.decode(rois[:, 1:5], bbox_pred, fpn.BOX_WEIGHTS)
+                boxes = G.clip_boxes(boxes, (im_info[0], im_info[1]))
+                mask = valid[:, None].float()
+                out = {"scores": cls_prob * mask,
+                       "boxes": F.pad(boxes * mask, (4, 0)), "rois": rois,
+                       "valid": valid, "levels": levels,
+                       "rpn_levels": rpn_levels + spec.levels[0]}
+        im_detect.maps = pyramid
+        return out
+
+    im_detect.maps = None
+    return im_detect
+
+
+def build_im_mask_2d(spec, compute_dtype=None):
+    """The mask stage of a spec with a mask head (Mask R-CNN R-101-FPN), a
+    second device stage after the host's class step
+    (solver.class_detections_2d): RoIAlign at ``spec.mask_pooled`` of every
+    detection's box from the pyramid im_detect left on the card, the mask
+    head, and the 28x28 probabilities of each detection's class to the
+    host.
+
+    Returns im_mask(params, maps, dets, im_scale): maps im_detect.maps;
+    dets the class step's [(n_j, 5) float32] in the original image's
+    coordinates (class 0's empty), their boxes scaled back by im_scale (in
+    float32) onto the network's input. Returns {"masks": [(n_j, 28, 28)
+    float32 probabilities], "levels": (n,) int32 the pooled levels, the
+    classes in order}, numpy."""
+
+    @torch.inference_mode()
+    def im_mask(params, maps, dets, im_scale):
+        with T.span("im_mask_2d"):
+            with T.span("im_mask_2d.inputs"):
+                counts = [len(d) for d in dets]
+                n = sum(counts)
+                side = 2 * spec.mask_pooled
+                if n == 0:
+                    return {"masks": [np.zeros((c, side, side), np.float32)
+                                      for c in counts],
+                            "levels": np.zeros(0, np.int32)}
+                boxes = np.concatenate([d[:, :4] for d in dets]).astype(
+                    np.float32) * np.float32(im_scale)
+                rows = np.zeros((n, 6), np.float32)
+                rows[:, 1:5] = boxes
+                rows[:, 5] = np.repeat(np.arange(len(dets)), counts)
+                rows = torch.from_numpy(rows).to(maps[0].device)
+                rois, classes = rows[:, :5].contiguous(), rows[:, 5]
+            with T.span("im_mask_2d.roi_align"):
+                pooled, levels = roi_align_fast(maps, rois, spec.mask_pooled,
+                                                fpn.POOL_LEVELS[0])
+            with T.span("im_mask_2d.head"):
+                probs = spec.mask_head(params, pooled, classes, compute_dtype)
+            with T.span("im_mask_2d.to_host"):
+                probs = probs.cpu().numpy()
+                levels = levels.cpu().numpy()
+                T.host_syncs += 2
+        return {"masks": np.split(probs, np.cumsum(counts)[:-1]),
+                "levels": levels}
+
+    return im_mask
 
 
 def compute_losses_2d(rpn_cls_score, rpn_bbox_pred, rpn_labels,

@@ -50,6 +50,10 @@ _SIGNATURES = {
     "mv3d_matmul_s8": (_P, _P, _P, _I, _I, _I, _P),
     "mv3d_nms_mask_f32": (_P, _P, _I, _I, _F, _P),
     "mv3d_nms_scan": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "mv3d_roi_align_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _P,
+                           _P, _P),
+    "mv3d_roi_align_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _P,
+                            _P, _P),
 }
 
 _lock = threading.Lock()

@@ -105,6 +105,19 @@ def init_raw_r101_c4(generator, n_classes=N_CLASSES, device="cuda"):
     divided by 3 and the box layers by 10, so that the objectness logits
     spread by some 2 and the deltas by some 0.4, as a trained RPN's do;
     biases of plain layers are 0."""
+    raw = raw_bn_convs(generator)
+    gen_dev = generator.device
+    for name, shape in plain_layers(n_classes):
+        std = math.sqrt(2.0 / math.prod(shape[1:])) * INIT_GAINS.get(name, 1.0)
+        raw[name] = {"weight": torch.randn(shape, generator=generator,
+                                           device=gen_dev) * std,
+                     "bias": torch.zeros(shape[0], device=gen_dev)}
+    return {n: {k: v.to(device) for k, v in d.items()} for n, d in raw.items()}
+
+
+def raw_bn_convs(generator):
+    """init_raw_r101_c4's draws of the convs with a frozen BN (bn_convs), in
+    their order, float32 on the generator's device."""
     gen_dev = generator.device
 
     def normal(*shape):
@@ -127,11 +140,7 @@ def init_raw_r101_c4(generator, n_classes=N_CLASSES, device="cuda"):
                                                            - 0.25) * damp),
                      "beta": normal(cout) * 0.2 * damp,
                      "mean": normal(cout) * 0.2, "var": var}
-    for name, shape in plain_layers(n_classes):
-        std = math.sqrt(2.0 / math.prod(shape[1:])) * INIT_GAINS.get(name, 1.0)
-        raw[name] = {"weight": normal(*shape) * std,
-                     "bias": torch.zeros(shape[0], device=gen_dev)}
-    return {n: {k: v.to(device) for k, v in d.items()} for n, d in raw.items()}
+    return raw
 
 
 def params_from_raw(raw):
@@ -201,12 +210,13 @@ def stem(params, x, dtype=None):
     return F.max_pool2d(x.permute(0, 3, 1, 2), 3, 2, 1).permute(0, 2, 3, 1)
 
 
-def trunk_stages(params, dtype=None):
+def trunk_stages(params, dtype=None, stages=STAGES):
     """[(span, x -> y)] of the shared trunk in order: the stem, res2, res3
-    and res4 under im_detect_2d.trunk.stem, .res2, .res3 and .res4."""
+    and res4 (and each further stage of ``stages``) under
+    im_detect_2d.trunk.stem, .res2, .res3 and .res4."""
     out = [("im_detect_2d.trunk.stem",
             functools.partial(stem, params, dtype=dtype))]
-    for spec in STAGES:
+    for spec in stages:
         out.append(("im_detect_2d.trunk." + spec[0],
                     functools.partial(stage, params, spec=spec, dtype=dtype)))
     return out
@@ -221,57 +231,101 @@ def trunk_apply_r101(params, x, dtype=None):
     return x
 
 
-class TrunkGraphs:
-    """trunk_apply_r101 on the card as four CUDA graphs, the stem's and
-    each stage's, each replayed under its span: the host issues one
-    launch a stage where res4 alone took 395. A call's input is copied into
-    the graphs' input; the result is their output buffer, which the next
-    call overwrites. They are captured at the first call for a parameter
-    set (its tensors' addresses), input shape and dtype, and again when one
-    of these changes; a parameter written in place is read by the next
+class StageGraphs:
+    """A chain of stages on the card as CUDA graphs, one a stage, each
+    replayed under its span: the host issues one launch a stage where a
+    stage of eager convs takes hundreds. ``stages(params, dtype)`` gives
+    [(span, fn)], fn(outs) -> out of the outputs so far (outs[0] the
+    input, a tensor or a tuple of tensors); a call returns the stages'
+    outputs, the graphs' output buffers, which the next call overwrites.
+
+    With copy_input a call's input is copied into the graphs' input;
+    without, the graphs read the given tensors where they lie (the output
+    buffers of another StageGraphs), and new addresses recapture. The
+    graphs are captured at the first call for a parameter set (its
+    tensors' addresses), input shape and dtype, and again when one of
+    these changes; a parameter written in place is read by the next
     replay. Before a capture two eager runs on a side stream settle
-    cuDNN's and the allocator's choices. On the CPU it runs
-    trunk_apply_r101."""
+    cuDNN's and the allocator's choices. On the CPU the stages run
+    eagerly, each under its span."""
+
+    def __init__(self, stages, copy_input=True):
+        self._stages, self._copy = stages, copy_input
+        self._key = None
+        self._graphs = self._input = self._outputs = None
+
+    def __call__(self, params, x, dtype=None):
+        xs = _tensors(x)
+        if not xs[0].is_cuda:
+            outs = [x]
+            for name, fn in self._stages(params, dtype):
+                with T.span(name):
+                    outs.append(fn(outs))
+            return outs[1:]
+        key = (tuple(p.data_ptr() for p in params.parameters()),
+               tuple(tuple(t.shape) for t in xs), xs[0].dtype, xs[0].device,
+               dtype, () if self._copy else tuple(t.data_ptr() for t in xs))
+        if key != self._key:
+            self._capture(params, x, dtype)
+            self._key = key
+        if self._copy:
+            for dst, src in zip(_tensors(self._input), xs):
+                dst.copy_(src)
+        for name, graph in self._graphs:
+            with T.span(name):
+                graph.replay()
+        return self._outputs
+
+    def _capture(self, params, x, dtype):
+        self._graphs = self._input = self._outputs = None
+        stages = self._stages(params, dtype)
+        dev = _tensors(x)[0].device
+        here = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(here)
+        with torch.cuda.stream(side):
+            for _ in range(2):
+                outs = [x]
+                for _, fn in stages:
+                    outs.append(fn(outs))
+        here.wait_stream(side)
+        pool = torch.cuda.graph_pool_handle()
+        if self._copy:
+            x = (x.clone() if torch.is_tensor(x)
+                 else type(x)(t.clone() for t in x))
+        graphs, outs = [], [x]
+        for name, fn in stages:
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, pool=pool):
+                outs.append(fn(outs))
+            graphs.append((name, graph))
+        self._graphs, self._input, self._outputs = graphs, x, outs[1:]
+
+
+def _tensors(x):
+    return [x] if torch.is_tensor(x) else list(x)
+
+
+def chained(stages):
+    """[(span, x -> y)] as StageGraphs' stages: each takes the output
+    before it."""
+    return [(name, lambda outs, fn=fn: fn(outs[-1])) for name, fn in stages]
+
+
+class TrunkGraphs(StageGraphs):
+    """trunk_apply_r101 on the card as four CUDA graphs, the stem's and
+    each stage's (StageGraphs), each replayed under its span: the host
+    issues one launch a stage where res4 alone took 395. A call returns
+    res4, the graphs' output buffer. On the CPU it runs trunk_apply_r101."""
 
     def __init__(self):
-        self._key = None
-        self._graphs = self._input = self._output = None
+        super().__init__(lambda params, dtype: chained(
+            trunk_stages(params, dtype)))
 
     def __call__(self, params, x, dtype=None):
         if not x.is_cuda:
             return trunk_apply_r101(params, x, dtype)
-        key = (tuple(p.data_ptr() for p in params.parameters()),
-               tuple(x.shape), x.dtype, x.device, dtype)
-        if key != self._key:
-            self._capture(params, x, dtype)
-            self._key = key
-        self._input.copy_(x)
-        for name, graph in self._graphs:
-            with T.span(name):
-                graph.replay()
-        return self._output
-
-    def _capture(self, params, x, dtype):
-        self._graphs = self._input = self._output = None
-        stages = trunk_stages(params, dtype)
-        here = torch.cuda.current_stream(x.device)
-        side = torch.cuda.Stream(x.device)
-        side.wait_stream(here)
-        with torch.cuda.stream(side):
-            for _ in range(2):
-                y = x
-                for _, fn in stages:
-                    y = fn(y)
-        here.wait_stream(side)
-        pool = torch.cuda.graph_pool_handle()
-        graphs, y = [], x.clone()
-        self._input = y
-        for name, fn in stages:
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, pool=pool):
-                y = fn(y)
-            graphs.append((name, graph))
-        self._graphs, self._output = graphs, y
+        return super().__call__(params, x, dtype)[-1]
 
 
 def res5_head(params, pooled, dtype=None):

@@ -712,18 +712,30 @@ def test_net_2d(params, imdb, weights_filename="default", max_per_image=100,
     cap, detections.pkl, then the imdb's evaluation (VOC AP for voc_*, the
     2D AP table for kitti2d_*, COCO's for coco_*), which it returns. The
     JAX package passes no output_dir to the evaluation, so its kitti2d run
-    raises there; the port passes the detections' directory."""
-    from mv3d_tf_tpu_torch.faster_rcnn_2d import build_im_detect_2d
+    raises there; the port passes the detections' directory.
+
+    A spec with levels takes its own proposal budget (spec.test_budget: the
+    top-k a level and the proposals kept); one with a mask head runs the
+    mask stage (faster_rcnn_2d.build_im_mask_2d) on each image's kept
+    detections against the pyramid im_detect left on the card, and writes
+    the 28x28 probabilities, a list per class and image as all_boxes, to
+    masks.pkl beside the detections (the box AP is what is evaluated)."""
+    from mv3d_tf_tpu_torch.faster_rcnn_2d import (build_im_detect_2d,
+                                                  build_im_mask_2d)
 
     num_images = imdb.num_images
     k = imdb.num_classes
     all_boxes = [[[] for _ in range(num_images)] for _ in range(k)]
     output_dir = get_output_dir(imdb, weights_filename)
+    budget = (cfg.TEST.RPN_PRE_NMS_TOP_N, cfg.TEST.RPN_POST_NMS_TOP_N)
+    if spec is not None and spec.levels is not None:
+        budget = spec.test_budget
     detect = build_im_detect_2d(
-        bucket_hw[0] // 16, bucket_hw[1] // 16,
-        pre_nms_top_n=cfg.TEST.RPN_PRE_NMS_TOP_N,
-        post_nms_top_n=cfg.TEST.RPN_POST_NMS_TOP_N,
-        compute_dtype=compute_dtype, spec=spec)
+        bucket_hw[0] // 16, bucket_hw[1] // 16, pre_nms_top_n=budget[0],
+        post_nms_top_n=budget[1], compute_dtype=compute_dtype, spec=spec)
+    im_mask = (build_im_mask_2d(spec, compute_dtype)
+               if spec is not None and spec.mask_head is not None else None)
+    all_masks = [[[] for _ in range(num_images)] for _ in range(k)]
 
     timer = Timer()
     for i in range(num_images):
@@ -735,13 +747,20 @@ def test_net_2d(params, imdb, weights_filename="default", max_per_image=100,
         timer.toc()
         dets = class_detections_2d(out, im_info[2], thresh, cfg.TEST.NMS,
                                    max_per_image)
+        masks = (im_mask(params, detect.maps, dets, im_info[2])["masks"]
+                 if im_mask is not None else None)
         for j in range(1, k):
             all_boxes[j][i] = dets[j]
+            if masks is not None:
+                all_masks[j][i] = masks[j]
         log("im_detect: {:d}/{:d} {:.3f}s".format(i + 1, num_images,
                                                   timer.average_time))
 
     os.makedirs(output_dir, exist_ok=True)
     with open(os.path.join(output_dir, "detections.pkl"), "wb") as f:
         pickle.dump(all_boxes, f, pickle.HIGHEST_PROTOCOL)
+    if im_mask is not None:
+        with open(os.path.join(output_dir, "masks.pkl"), "wb") as f:
+            pickle.dump(all_masks, f, pickle.HIGHEST_PROTOCOL)
     log("Evaluating detections")
     return imdb.evaluate_detections(all_boxes, output_dir)

@@ -3,7 +3,9 @@
 Spans mark the layer boundaries of the detect paths (``eval``,
 ``proposals``, ``ops/bev``, ``faster_rcnn_2d``), named by layer with dots:
 ``detect``, ``detect.proposals``, ``detect.proposals.nms``, ... A span
-opened while no other is open is a root and starts a request.
+opened while no other is open is a root and starts a request; Mask R-CNN's
+mask stage after the host's class step is a root of its own,
+``im_mask_2d``.
 
 Tracing is off by default and switched by ``enable()``, ``disable()`` or
 the ``tracing()`` context; nothing else turns it on. Off, ``span(name)``
@@ -88,10 +90,12 @@ def counters():
     if _wrappers is None:
         # imported here: the ops modules import this one
         from mv3d_tf_tpu_torch.ops import (bev_cuda, conv_s8_cuda, nms_cuda,
-                                           roi_pool_cuda, stem_s2d_cuda)
+                                           roi_align_cuda, roi_pool_cuda,
+                                           stem_s2d_cuda)
         _wrappers = (bev_cuda.bev_place_cuda, conv_s8_cuda.conv2x2_s8_cuda,
                      conv_s8_cuda.conv3x3_s8_cuda,
                      conv_s8_cuda.matmul_s8_cuda, nms_cuda.nms_greedy_cuda,
+                     roi_align_cuda.roi_align_cuda,
                      roi_pool_cuda.roi_pool_bwd_cuda,
                      roi_pool_cuda.roi_pool_cuda,
                      stem_s2d_cuda.stem_s2d_fused_cuda)
