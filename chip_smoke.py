@@ -57,13 +57,14 @@ Last, the legacy 2D Faster R-CNN at full width (VGG16, stride 16, fc 4096,
 21 classes, He weights): both ROI kernels at its shapes (2000 rois on a
 38x64x512 conv5_3 at 1/16; the gradient on 128) against their plain
 versions; im_detect_2d on a 608x1024 image in float32 and bf16 (pre-NMS
-12000, post-NMS 2000) against the plain pool, with nms_matrix's keep set
-held to the host greedy loop; the ResNet-101 C4 path: the ROI kernel at
+12000, post-NMS 2000) against the plain pool, its proposal NMS on
+csrc/nms.cu (two launches a call) with the keep slots held to nms_matrix's
+and to the host greedy loop; the ResNet-101 C4 path: the ROI kernel at
 pooled 14 over 1000 rois on a 50x68x1024 res4 map, bit for bit, and
 im_detect_2d with Res101C4_test's spec on an 800x1088 image in bf16
-(pre-NMS 6000, post-NMS 1000), one ROI kernel launch a call, against the
-plain pool; full-width 2D train steps (momentum SGD,
-conv1/conv2 frozen); and tools.train_net / tools.test_net with VGGnet*
+(pre-NMS 6000, post-NMS 1000), one ROI kernel and two NMS kernel launches
+a call, against the plain pool and nms_matrix; full-width 2D train steps
+(momentum SGD, conv1/conv2 frozen); and tools.train_net / tools.test_net with VGGnet*
 and tools.demo on a synthetic VOC tree. Then Fast R-CNN over precomputed
 proposals, the 2D config's default: the ROI gradient kernel over a batched
 map (8 pyramid levels of 38x64x512) against its plain version, the 3-D call
@@ -146,7 +147,6 @@ from mv3d_tf_tpu_torch.ops import conv_s8 as S8
 from mv3d_tf_tpu_torch.ops import roi_pool_cuda as roi_pool_cuda_mod
 from mv3d_tf_tpu_torch.ops.bev_cuda import (CHUNK_CELLS, N_FLAT,
                                             bev_place_cuda, bev_place_plain)
-from mv3d_tf_tpu_torch.ops.iou import bbox_overlaps
 from mv3d_tf_tpu_torch.ops.nms import (nms, nms_blocked, nms_blocked_fixed,
                                        nms_matrix, nms_np, nms_plain)
 from mv3d_tf_tpu_torch.ops.nms_cuda import WORD, nms_greedy_cuda
@@ -2995,62 +2995,75 @@ def phase_roi_2d(gen, smi):
                   tallest, widest, smi))
 
 
-def nms_matrix_rounds(boxes, scores, valid, thr):
-    """The fixpoint rounds nms_matrix takes on these candidates (its loop,
-    counted), and the candidates' stable score order."""
+def nms_np_keep(boxes, scores, valid, max_out, thr):
+    """The host greedy loop nms_np's first max_out keeps over these
+    candidates in their stable score order (strictly decreasing stand-in
+    scores, so the loop keeps that order), as indices of the candidates."""
     order = torch.sort(torch.where(valid, scores, -1e30), descending=True,
                        stable=True)[1]
-    b, v = boxes[order], valid[order]
-    sup = ((bbox_overlaps(b, b) >= thr).triu(1) & v[:, None]
-           & v[None, :]).float()
-    kept, rounds = v, 0
-    while True:
-        rounds += 1
-        new = v & (kept.float() @ sup < 0.5)
-        if torch.equal(new, kept):
-            return rounds, order
-        kept = new
-
-
-def check_nms_matrix(seen, what):
-    """nms_matrix's keep set on one call's candidates against the host
-    greedy loop nms_np over the same boxes in the layer's stable score
-    order (strictly decreasing stand-in scores, so the loop keeps that
-    order). Returns (fixpoint rounds, kept, candidates)."""
-    boxes, scores, valid, max_out, thr, keep_idx, keep_valid = seen
-    rounds, order = nms_matrix_rounds(boxes, scores, valid, thr)
     order = order[valid[order]].cpu().numpy()
     b = boxes.cpu().numpy()[order]
     dets = np.hstack([b, (len(b) - np.arange(len(b), dtype=np.float32))[
         :, None]]).astype(np.float32)
-    want = order[nms_np(dets, thr)[:max_out]]
+    return order[nms_np(dets, thr)[:max_out]]
+
+
+def check_nms_2d(seen, what):
+    """The 2D proposal layer's routed NMS (csrc/nms.cu on the card) on each
+    captured call's own candidates: its keep slots equal nms_matrix's bit
+    for bit on every call, and the first call's keep set equals nms_np's.
+    Then both timed on the first call's candidates: the kernel (device
+    time, CUDA events) and nms_matrix (with its host-synced rounds).
+    Returns (nms_matrix's fixpoint rounds, kept, candidates, kernel ms,
+    nms_matrix ms) of the first call."""
+    rounds = []
+    for i, (boxes, scores, valid, max_out, thr, keep_idx,
+            keep_valid) in enumerate(seen):
+        r0 = trace.nms_rounds
+        m_idx, m_valid = nms_matrix(boxes, scores, valid, max_out, thr)
+        rounds.append(trace.nms_rounds - r0)
+        if not (torch.equal(keep_idx, m_idx)
+                and torch.equal(keep_valid, m_valid)):
+            differ = (keep_idx != m_idx) | (keep_valid != m_valid)
+            raise AssertionError(
+                "%s call %d: the kernel kept %d boxes, nms_matrix %d; %d "
+                "slots differ, the first at %d" % (
+                    what, i, int(keep_valid.sum()), int(m_valid.sum()),
+                    int(differ.sum()), int(differ.int().argmax())))
+    boxes, scores, valid, max_out, thr, keep_idx, keep_valid = seen[0]
+    want = nms_np_keep(boxes, scores, valid, max_out, thr)
     got = keep_idx[keep_valid].cpu().numpy()
     if not np.array_equal(got, want):
-        raise AssertionError("%s: nms_matrix kept %d boxes, nms_np %d; first "
+        raise AssertionError("%s: the kernel kept %d boxes, nms_np %d; first "
                              "difference at %s" % (
                                  what, len(got), len(want),
                                  int(np.argmax(got[:len(want)]
                                                != want[:len(got)]))))
-    return rounds, len(got), len(order)
+    kernel_ms = cuda_ms(lambda: nms(boxes, scores, valid, max_out, thr,
+                                    presorted=True))
+    matrix_ms = cuda_ms(lambda: nms_matrix(boxes, scores, valid, max_out,
+                                           thr), iters=5, warmup=1)
+    return rounds[0], len(got), int(valid.sum()), kernel_ms, matrix_ms
 
 
-class CaptureNmsMatrix:
-    """faster_rcnn_2d's nms_matrix, recording each call's inputs and
-    outputs while active."""
+class CaptureNms:
+    """faster_rcnn_2d's routed greedy NMS (ops/nms.nms), recording each
+    call's inputs and outputs while active."""
 
     def __enter__(self):
-        self.seen, self.saved = [], F2.nms_matrix
+        self.seen, self.saved = [], F2.nms
 
-        def capture(boxes, scores, valid, max_out, thr):
-            keep = self.saved(boxes, scores, valid, max_out, thr)
+        def capture(boxes, scores, valid, max_out, thr, presorted=False):
+            keep = self.saved(boxes, scores, valid, max_out, thr,
+                              presorted=presorted)
             self.seen.append((boxes, scores, valid, max_out, thr) + keep)
             return keep
 
-        F2.nms_matrix = capture
+        F2.nms = capture
         return self.seen
 
     def __exit__(self, *exc):
-        F2.nms_matrix = self.saved
+        F2.nms = self.saved
 
 
 def phase_detect_2d(np2d, smi):
@@ -3060,8 +3073,10 @@ def phase_detect_2d(np2d, smi):
     timed calls, one ROI kernel launch each (counts zeroed just before,
     read just after). Then the same call through the plain pool: rois and
     keep set equal, scores and boxes bit for bit in float32 and within
-    BF16_2D_RTOL of each max in bf16; and nms_matrix's keep set on the
-    call's own candidates equal to nms_np's. Returns the launch counts."""
+    BF16_2D_RTOL of each max in bf16. The proposal layer's NMS is
+    csrc/nms.cu, two launches a call and no fixpoint round; check_nms_2d
+    holds its keep slots on each call's own candidates to nms_matrix's and
+    nms_np's and times both. Returns the launch counts."""
     params = params_from_jax(np2d, device="cuda")
     rng = np.random.RandomState(SEED + 7)
     image = torch.from_numpy((rng.rand(*BUCKET_2D, 3) * 255 - PIXEL_MEANS)
@@ -3073,15 +3088,19 @@ def phase_detect_2d(np2d, smi):
     for name, dtype in (("f32", None), ("bf16", torch.bfloat16)):
         detect = F2.build_im_detect_2d(*FEAT_2D, compute_dtype=dtype, **kw)
         zero_all_launches()
-        with CaptureNmsMatrix() as seen:
+        nms_greedy_cuda.launches, r0 = 0, trace.nms_rounds
+        with CaptureNms() as seen:
             out, warm_ms = timed(detect, params, image, im_info)
-        times = [timed(detect, params, image, im_info)[1]
-                 for _ in range(DETECT_2D_CALLS)]
-        launches = all_launches()
-        want = dict(dict.fromkeys(launches, 0), roi_pool=1 + DETECT_2D_CALLS)
-        if launches != want:
-            raise AssertionError("im_detect_2d %s launched %s != %s"
-                                 % (name, launches, want))
+            times = [timed(detect, params, image, im_info)[1]
+                     for _ in range(DETECT_2D_CALLS)]
+        launches = dict(all_launches(), nms_greedy=nms_greedy_cuda.launches)
+        want = dict(dict.fromkeys(launches, 0), roi_pool=1 + DETECT_2D_CALLS,
+                    nms_greedy=2 * (1 + DETECT_2D_CALLS))
+        if launches != want or trace.nms_rounds != r0:
+            raise AssertionError("im_detect_2d %s launched %s != %s, %d NMS "
+                                 "fixpoint rounds" % (
+                                     name, launches, want,
+                                     trace.nms_rounds - r0))
         add_launches(total, launches)
         n_valid = int(out["valid"].sum())
         ok = (torch.isfinite(out["scores"]).all()
@@ -3105,17 +3124,19 @@ def phase_detect_2d(np2d, smi):
                 raise AssertionError("im_detect_2d %s: %s max |diff| %g > %g "
                                      "against the plain pool" % (name, k, e,
                                                                  tol))
-        rounds, kept, cands = check_nms_matrix(seen[0], "im_detect_2d " + name)
-        nms_ms = timed(nms_matrix, *seen[0][:5])[1]
+        rounds, kept, cands, kernel_ms, matrix_ms = check_nms_2d(
+            seen, "im_detect_2d " + name)
         print("im_detect_2d %s 608x1024 (pre-NMS %d, post-NMS %d): p50 %.3f "
               "ms over %d calls (%s) after a %.3f ms warm-up; %d valid rois; "
               "vs the plain pool: rois and keep set equal, scores/boxes max "
-              "|diff| %s; nms_matrix on %d candidates: %d kept = nms_np's, "
-              "%d fixpoint rounds, %.3f ms; launches %s; on [%s]" % (
+              "|diff| %s; NMS on %d candidates: the kernel's keep slots = "
+              "nms_matrix's on all %d calls, %d kept = nms_np's; kernel "
+              "%.3f ms, nms_matrix %.3f ms (%d fixpoint rounds); launches "
+              "%s; on [%s]" % (
                   name, kw["pre_nms_top_n"], kw["post_nms_top_n"],
                   float(np.median(times)), DETECT_2D_CALLS,
                   ", ".join("%.3f" % t for t in times), warm_ms, n_valid,
-                  errs, cands, kept, rounds, nms_ms,
+                  errs, cands, len(seen), kept, kernel_ms, matrix_ms, rounds,
                   {k: v for k, v in launches.items() if v}, smi))
     return total
 
@@ -3139,8 +3160,10 @@ def phase_r101(gen, smi):
     then R101_CALLS timed calls, one ROI kernel launch each (counts zeroed
     just before, read just after); the same call through the plain pool
     gives the same rois and keep set, scores and boxes within BF16_2D_RTOL
-    of each max; nms_matrix's keep set on the call's own candidates equals
-    nms_np's. Returns the launch counts."""
+    of each max; the proposal layer's NMS is csrc/nms.cu, two launches a
+    call and no fixpoint round, its keep slots on each call's own
+    candidates equal to nms_matrix's and nms_np's (check_nms_2d, which
+    times both). Returns the launch counts."""
     from mv3d_tf_tpu_torch.models import resnet
     from mv3d_tf_tpu_torch.models.factory import get_network
     H, W = R101_FEAT
@@ -3188,15 +3211,18 @@ def phase_r101(gen, smi):
               compute_dtype=torch.bfloat16, spec=spec)
     detect = F2.build_im_detect_2d(*R101_FEAT, **kw)
     zero_all_launches()
-    with CaptureNmsMatrix() as seen:
+    nms_greedy_cuda.launches, r0 = 0, trace.nms_rounds
+    with CaptureNms() as seen:
         out, warm_ms = timed(detect, params, image, im_info)
-    times = [timed(detect, params, image, im_info)[1]
-             for _ in range(R101_CALLS)]
-    launches = all_launches()
-    want = dict(dict.fromkeys(launches, 0), roi_pool=1 + R101_CALLS)
-    if launches != want:
-        raise AssertionError("im_detect_2d R-101 launched %s != %s"
-                             % (launches, want))
+        times = [timed(detect, params, image, im_info)[1]
+                 for _ in range(R101_CALLS)]
+    launches = dict(all_launches(), nms_greedy=nms_greedy_cuda.launches)
+    want = dict(dict.fromkeys(launches, 0), roi_pool=1 + R101_CALLS,
+                nms_greedy=2 * (1 + R101_CALLS))
+    if launches != want or trace.nms_rounds != r0:
+        raise AssertionError("im_detect_2d R-101 launched %s != %s, %d NMS "
+                             "fixpoint rounds" % (launches, want,
+                                                  trace.nms_rounds - r0))
     n_valid = int(out["valid"].sum())
     ok = (torch.isfinite(out["scores"]).all()
           and torch.isfinite(out["boxes"]).all() and n_valid > 0
@@ -3216,16 +3242,18 @@ def phase_r101(gen, smi):
         if not e <= tol:
             raise AssertionError("im_detect_2d R-101: %s max |diff| %g > %g "
                                  "against the plain pool" % (k, e, tol))
-    rounds, kept, cands = check_nms_matrix(seen[0], "im_detect_2d R-101")
+    rounds, kept, cands, kernel_ms, matrix_ms = check_nms_2d(
+        seen, "im_detect_2d R-101")
     print("im_detect_2d R-101 bf16 800x1088 (pre-NMS %d, post-NMS %d): p50 "
           "%.3f ms over %d calls (%s) after a %.3f ms warm-up; %d valid rois; "
           "vs the plain pool: rois and keep set equal, scores/boxes max "
-          "|diff| %s; nms_matrix on %d candidates: %d kept = nms_np's, %d "
-          "fixpoint rounds; launches %s; on [%s]" % (
+          "|diff| %s; NMS on %d candidates: the kernel's keep slots = "
+          "nms_matrix's on all %d calls, %d kept = nms_np's; kernel %.3f ms, "
+          "nms_matrix %.3f ms (%d fixpoint rounds); launches %s; on [%s]" % (
               R101_PRE_NMS, R101_POST_NMS, float(np.median(times)),
               R101_CALLS, ", ".join("%.3f" % t for t in times), warm_ms,
-              n_valid, errs, cands, kept, rounds,
-              {k: v for k, v in launches.items() if v}, smi))
+              n_valid, errs, cands, len(seen), kept, kernel_ms, matrix_ms,
+              rounds, {k: v for k, v in launches.items() if v}, smi))
     return launches
 
 
@@ -4876,7 +4904,8 @@ def main():
          "launches": None, "launches_counted_under": "vgg_stem", **s2d},
         {"name": "nms_greedy", "route": "cuda", "source": NMS_SOURCE,
          "replaces": "none: stands for mv3d_tf_tpu/ops/nms.py:224 (fori_loop)",
-         "launches": launches["nms_greedy"], **nms_stats},
+         "launches": launches["nms_greedy"]
+         + new_paths.get("nms_greedy", 0), **nms_stats},
         {"name": "roi_align", "route": "cuda",
          "source": "mv3d_tf_tpu_torch/csrc/roi_align.cu",
          "replaces": "none: the JAX package has no bilinear pooler",

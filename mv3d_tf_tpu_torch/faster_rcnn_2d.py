@@ -34,9 +34,10 @@ from mv3d_tf_tpu_torch import trace as T
 from mv3d_tf_tpu_torch.anchors import generate_anchors, shift_anchors
 from mv3d_tf_tpu_torch.models import fpn, mv3d, resnet, vggnet
 from mv3d_tf_tpu_torch.models.factory import get_network
-from mv3d_tf_tpu_torch.ops.nms import nms, nms_matrix, top_k_by_score
+from mv3d_tf_tpu_torch.ops.nms import nms, nms_blocked, top_k_by_score
 from mv3d_tf_tpu_torch.ops.roi_align import roi_align_fast
 from mv3d_tf_tpu_torch.ops.roi_pool import roi_pool_fast, roi_pool_train
+from mv3d_tf_tpu_torch.proposals import nms_route
 from mv3d_tf_tpu_torch.targets import _max_overlaps, _rank_desc, _sample_mask
 from mv3d_tf_tpu_torch.train import _masked_mean, smooth_l1
 
@@ -65,9 +66,12 @@ def proposal_layer_2d(rpn_cls_prob, rpn_bbox_pred, im_info, feat_h, feat_w,
                       feat_stride=16, pre_nms_top_n=6000, post_nms_top_n=300,
                       nms_thresh=0.7, min_size=16, scales=(8, 16, 32)):
     """Classic 2D proposals (faster_rcnn_2d.py:47-81): decode, clip to the
-    image, the min-size filter, score top-K (stable), exact NMS
-    (ops/nms.nms_matrix). ``scales`` are the anchors' (at base 16, three
-    ratios each), the network spec's.
+    image, the min-size filter, score top-K (stable), then the greedy NMS
+    keep set on the candidates in score order, routed as the 3D layer
+    routes it (proposals.nms_route): csrc/nms.cu's kernel on the card (two
+    launches, no host sync), the greedy loop on the CPU up to post-NMS 512
+    and ``nms_blocked`` above. ``scales`` are the anchors' (at base 16,
+    three ratios each), the network spec's.
 
     im_info (3,) float32 tensor [im_h, im_w, im_scale]. Returns rois (P,5)
     [0,x1,y1,x2,y2], scores (P,) and valid (P,) bool, zero where invalid.
@@ -83,12 +87,14 @@ def proposal_layer_2d(rpn_cls_prob, rpn_bbox_pred, im_info, feat_h, feat_w,
     thr = min_size * im_info[2]
     keep = (ws >= thr) & (hs >= thr)
 
-    top_idx, top_valid = top_k_by_score(scores, keep,
-                                        min(pre_nms_top_n, scores.shape[0]))
+    k = min(pre_nms_top_n, scores.shape[0])
+    top_idx, top_valid = top_k_by_score(scores, keep, k)
     props, psc = proposals[top_idx], scores[top_idx]
+    greedy = nms_route(scores.device, k, post_nms_top_n) == "greedy"
     with T.span("im_detect_2d.proposals.nms"):
-        keep_idx, keep_valid = nms_matrix(props, psc, top_valid,
-                                          post_nms_top_n, nms_thresh)
+        keep_idx, keep_valid = (nms if greedy else nms_blocked)(
+            props, psc, top_valid, post_nms_top_n, nms_thresh,
+            presorted=True)
     rois = torch.cat([props.new_zeros(post_nms_top_n, 1), props[keep_idx]],
                      dim=1)
     return (rois * keep_valid[:, None].float(), psc[keep_idx] * keep_valid,

@@ -10,11 +10,13 @@ Two formulations give the greedy keep set, as in the JAX package:
     512 a block; each block is resolved by a fixpoint on its (512, 512)
     suppression mask, then one (512, N) IoU sweep suppresses the boxes
     behind it. On the CPU the proposal layer takes them above post-NMS
-    512 for speed (proposals.nms_route): a train step's 2000 greedy steps
-    become 24 blocks. On the card the greedy kernel is faster at any size.
+    512 for speed (proposals.nms_route, which the 2D and 3D proposal
+    layers share): a train step's 2000 greedy steps become 24 blocks. On
+    the card the greedy kernel is faster at any size.
   * ``nms_matrix``: the whole (N, N) suppression mask built once, then a
-    fixpoint of mask products (one host sync a round): the legacy 2D
-    proposal layer's NMS (faster_rcnn_2d.py).
+    fixpoint of mask products (one host sync a round). No path of the port
+    runs it any more: it stays as the port of the JAX package's matrix
+    formulation, which the JAX 2D proposal layer runs.
 ``nms_np`` and ``nms_new_np`` are the host loops (utils/native.nms_np_native
 is ``nms_np`` in C++).
 """

@@ -36,8 +36,9 @@ def _take(a, idx):
 
 
 def nms_route(device, n, post_nms_top_n, nms_impl="auto"):
-    """The NMS that proposal_layer_3d runs on n candidates a frame on
-    ``device``: "greedy" (ops/nms.nms), "blocked" or "blocked_fixed".
+    """The NMS that proposal_layer_3d and faster_rcnn_2d.proposal_layer_2d
+    (always "auto") run on n candidates a frame on ``device``: "greedy"
+    (ops/nms.nms), "blocked" or "blocked_fixed".
 
     "auto" takes the greedy kernel (csrc/nms.cu) on a CUDA device whenever
     it holds the frame (n <= ops/nms_cuda.MAX_CANDIDATES) and the blocked

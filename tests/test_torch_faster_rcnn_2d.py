@@ -1,8 +1,9 @@
 """The port's legacy 2D Faster R-CNN stages against mv3d_tf_tpu's on CPU in
 float32: anchors, 2D box transforms, nms_matrix and nms_new_np, the VGG16
-trunk, RPN and head, the proposal layer and im_detect, both target layers
-on JAX's rebuilt draws, the 4-term loss, one momentum-SGD train step and
-the snapshot unnormalization. Parameters are He-scaled (utils.weights.
+trunk, RPN and head, the proposal layer (and its routed NMS against
+nms_matrix) and im_detect, both target layers on JAX's rebuilt draws, the
+4-term loss, one momentum-SGD train step and the snapshot
+unnormalization. Parameters are He-scaled (utils.weights.
 he_normal_params_2d with fc 64), the same numpy arrays in both packages.
 
 Tolerances: bit for bit where JAX is integer-exact, a selection, a max or
@@ -27,6 +28,7 @@ from mv3d_tf_tpu.ops import nms as JN  # noqa: E402
 from mv3d_tf_tpu_torch import anchors as TA  # noqa: E402
 from mv3d_tf_tpu_torch import faster_rcnn_2d as T2  # noqa: E402
 from mv3d_tf_tpu_torch import geometry as TG  # noqa: E402
+from mv3d_tf_tpu_torch import trace as TT  # noqa: E402
 from mv3d_tf_tpu_torch.models import mv3d as TM  # noqa: E402
 from mv3d_tf_tpu_torch.models import vggnet as TV  # noqa: E402
 from mv3d_tf_tpu_torch.ops import nms as TN  # noqa: E402
@@ -205,6 +207,40 @@ def test_proposal_layer_2d_matches_jax():
     np.testing.assert_allclose(_n(rois), np.asarray(j_rois), rtol=0,
                                atol=1e-4)
     assert 20 < int(valid.sum()) < 400
+
+
+def _nms_matrix(boxes, scores, valid, max_out, thr, presorted=False):
+    return TN.nms_matrix(boxes, scores, valid, max_out, thr)
+
+
+@pytest.mark.parametrize("feat_hw, info, post", [
+    ((38, 64), (600.0, 1000.0, 1.6), 300),            # VGG16, 608x1024
+    ((50, 68), (800.0, 1067.0, 800.0 / 480.0), 1000),  # R-101 C4, 800x1088
+])
+def test_proposal_layer_2d_routed_nms_is_nms_matrix(monkeypatch, feat_hw,
+                                                    info, post):
+    """The layer's routed NMS (on the CPU the greedy loop at post-NMS 300,
+    nms_blocked at 1000) against the same layer on nms_matrix: rois, scores
+    and valid slots bit for bit, on random RPN outputs at pre-NMS 6000 with
+    the fg scores on a 2^-10 grid, so that many tie."""
+    h, w = feat_hw
+    rng = np.random.RandomState(h)
+    fg = np.round(rng.rand(1, h, w, 9) * 1024) / 1024
+    prob = np.stack([1 - fg, fg], -1).reshape(1, h, w, 18)
+    deltas = rng.randn(1, h, w, 36) * 0.2
+    args = (_t(prob.astype(np.float32)), _t(deltas.astype(np.float32)),
+            _t(np.array(info, np.float32)), h, w)
+    kw = dict(pre_nms_top_n=6000, post_nms_top_n=post)
+    got = T2.proposal_layer_2d(*args, **kw)
+    monkeypatch.setattr(T2, "nms", _nms_matrix)
+    monkeypatch.setattr(T2, "nms_blocked", _nms_matrix)
+    r0 = TT.nms_rounds
+    want = T2.proposal_layer_2d(*args, **kw)
+    assert TT.nms_rounds - r0 >= 3
+    for g, wt in zip(got, want):
+        assert g.dtype == wt.dtype
+        np.testing.assert_array_equal(_n(g), _n(wt))
+    assert post // 2 < int(got[2].sum())
 
 
 def test_im_detect_2d_matches_jax(np_params, params):

@@ -220,16 +220,19 @@ def test_proposal_layer_routing_matches_jax(nms_impl, rng):
     ("cuda", MAX_CANDIDATES + 1, 2000, "auto", "blocked"),
     ("cpu", 6000, 300, "auto", "greedy"),
     ("cpu", 12000, 2000, "auto", "blocked"),
+    ("cuda", 6000, 1000, "auto", "greedy"),
+    ("cpu", 6000, 1000, "auto", "blocked"),
     ("cuda", 6000, 300, "blocked", "blocked"),
     ("cpu", 6000, 300, "blocked", "blocked"),
     ("cuda", 12000, 2000, "blocked_fixed", "blocked_fixed"),
     ("cpu", 6000, 300, "blocked_fixed", "blocked_fixed"),
 ])
 def test_nms_route(device, n, post, impl, want):
-    """The proposal layer's NMS by device, candidates a frame and post-NMS:
-    on the card the greedy kernel wherever it holds the frame; on the CPU
-    the greedy loop up to post-NMS 512, the blocked scan above; the
-    explicit routes as named."""
+    """The proposal layers' NMS (3D, and 2D at VGG16's 6000/300 and R-101
+    C4's 6000/1000) by device, candidates a frame and post-NMS: on the card
+    the greedy kernel wherever it holds the frame; on the CPU the greedy
+    loop up to post-NMS 512, the blocked scan above; the explicit routes as
+    named."""
     assert TP.nms_route(torch.device(device), n, post, impl) == want
 
 
